@@ -33,13 +33,17 @@ class GroupNorm(nn.GroupNorm):
 
 class FrozenBatchNorm(nn.Module):
     """BatchNorm with frozen statistics folded into one multiply-add; the
-    coefficients are derived in float32, then cast to the compute dtype."""
+    coefficients are derived in float32, then cast to the compute dtype.
+
+    The statistics (mean, var) are buffers.  The affine (scale, bias) are
+    parameters, as in the flax module: the stages that frozen_stages leaves
+    trainable update them (parallel/train.py freezes the others)."""
 
     def __init__(self, features: int, eps: float = BN_EPS):
         super().__init__()
         self.eps = eps
-        self.register_buffer("scale", torch.ones(features))
-        self.register_buffer("bias", torch.zeros(features))
+        self.scale = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("mean", torch.zeros(features))
         self.register_buffer("var", torch.ones(features))
 

@@ -2,7 +2,9 @@
 PyTorch version.  KERNELS maps each kernel's name to its launching function,
 whose ``launches`` attribute counts its launches."""
 
-from .deform_conv import deform_sample_pair_kernel
+from .deform_conv import (deform_sample_pair_backward_kernel,
+                          deform_sample_pair_kernel)
+from .hull_iou import hull_quad_iou_kernel
 from .minarearect import min_area_rect_kernel
 from .nms import greedy_scan_kernel
 from .quad_iou import quad_over_mask_kernel
@@ -12,6 +14,8 @@ KERNELS = {
     "quad_over_mask": quad_over_mask_kernel,
     "nms_scan": greedy_scan_kernel,
     "deform_sample_pair": deform_sample_pair_kernel,
+    "hull_quad_iou": hull_quad_iou_kernel,
+    "deform_sample_pair_backward": deform_sample_pair_backward_kernel,
 }
 
 

@@ -41,6 +41,9 @@ SIGNATURES = {
     "orp_nms_scan": [P, P, P, P, I, I, P],
     "orp_deform_sample_pair_f32": [P, P, P, P, P, P, I, I, I, I, P],
     "orp_deform_sample_pair_bf16": [P, P, P, P, P, P, I, I, I, I, P],
+    "orp_deform_sample_pair_bwd_f32": [P] * 8 + [I, I, I, I, P],
+    "orp_deform_sample_pair_bwd_bf16": [P] * 8 + [I, I, I, I, P],
+    "orp_hull_quad_iou": [P, P, P, P, I, I, I, P],
 }
 
 _lib = None

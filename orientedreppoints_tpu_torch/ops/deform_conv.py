@@ -10,9 +10,14 @@ relative to the base grid; coordinates are f32 whatever the table dtype,
 and corners outside the map read zero.
 
 ``deform_sample_pair`` runs the CUDA kernel (csrc/deform_sample.cu) for
-CUDA tensors and the plain PyTorch gather + lerp for CPU tensors.  Only the
-JAX package's default variants are ported (not ORP_DCN_GATHER=fused,
-ORP_PAIR_GATHER=cat or ORP_PAIR_SCATTER=window).
+CUDA tensors and the plain PyTorch gather + lerp for CPU tensors; its
+backward ``deform_sample_pair_backward`` likewise runs
+csrc/deform_sample_bwd.cu or the plain scatter.  ``DeformSamplePair`` ties
+the two together as one autograd node (the counterpart of the JAX
+package's ``_pair_core`` custom_vjp; the weight grads come from autograd
+through the two matmuls).  Only the JAX package's default variants are
+ported (not ORP_DCN_GATHER=fused, ORP_PAIR_GATHER=cat or
+ORP_PAIR_SCATTER=window).
 """
 
 from __future__ import annotations
@@ -25,6 +30,8 @@ from . import _ext
 
 _KERNEL_DTYPES = {torch.float32: "orp_deform_sample_pair_f32",
                   torch.bfloat16: "orp_deform_sample_pair_bf16"}
+_BWD_KERNEL_DTYPES = {torch.float32: "orp_deform_sample_pair_bwd_f32",
+                      torch.bfloat16: "orp_deform_sample_pair_bwd_bf16"}
 
 
 def dcn_base_offset(kernel_size: int = 3) -> torch.Tensor:
@@ -121,11 +128,7 @@ def deform_sample_pair_kernel(table_a, table_b, offsets, shapes,
                            ("table_b", table_b, (rows, c)),
                            ("offsets", offsets, (rows, 2 * k))):
         _ext.check_cuda(t, name, table_a.dtype, shape)
-    levels, start = [], 0
-    for b, h, w in shapes:
-        levels += [start, h, w]
-        start += b * h * w
-    levels_c = (ctypes.c_int * len(levels))(*levels)
+    levels_c = _levels_arg(shapes)
     out_a = torch.empty((rows, k * c), dtype=table_a.dtype,
                         device=table_a.device)
     out_b = torch.empty_like(out_a)
@@ -138,6 +141,118 @@ def deform_sample_pair_kernel(table_a, table_b, offsets, shapes,
 
 
 deform_sample_pair_kernel.launches = 0
+
+
+def _levels_arg(shapes):
+    """Host int array of (first row, h, w) per level for the kernels."""
+    levels, start = [], 0
+    for b, h, w in shapes:
+        levels += [start, h, w]
+        start += b * h * w
+    return (ctypes.c_int * len(levels))(*levels)
+
+
+def deform_sample_pair_backward_plain(table_a, table_b, offsets, grad_a,
+                                      grad_b, shapes, kernel_size: int = 3):
+    """Plain version of the backward of deform_sample_pair.
+
+    grad_a, grad_b: (rows, K*C) grads of the two im2col buffers.  Returns
+    the grads of table_a, table_b (rows, C) and offsets (rows, 2K) in their
+    dtypes.  Table grads: per corner, grad * lerp weight scattered into an
+    f32 (rows, 2C) table (both instances side by side, as the JAX package
+    scatters them), rounded once.  Offset grads: (dy, dx) per sample, the
+    f32 sum over channels and both instances of grad * d(sample)/d(coord).
+    """
+    k = kernel_size * kernel_size
+    rows, c = table_a.shape
+    idx, ok, wy, wx = pyramid_plan(shapes, offsets, kernel_size)
+    okf = [o.to(torch.float32) for o in ok]
+    weights = ((1 - wy) * (1 - wx), (1 - wy) * wx, wy * (1 - wx), wy * wx)
+    grads = [g.reshape(-1, c).to(torch.float32) for g in (grad_a, grad_b)]
+    gtab = torch.zeros((rows, 2 * c), dtype=torch.float32,
+                       device=table_a.device)
+    for i, o, cw in zip(idx, okf, weights):
+        w = (cw * o)[:, None]
+        gtab.index_add_(0, i, torch.cat([grads[0] * w, grads[1] * w], 1))
+    gwy = torch.zeros_like(wy)
+    gwx = torch.zeros_like(wx)
+    for table, g in zip((table_a, table_b), grads):
+        v = [table[i].to(torch.float32) * o[:, None]
+             for i, o in zip(idx, okf)]
+        ddy = (v[2] - v[0]) * (1 - wx)[:, None] + (v[3] - v[1]) * wx[:, None]
+        ddx = (v[1] - v[0]) * (1 - wy)[:, None] + (v[3] - v[2]) * wy[:, None]
+        gwy += (g * ddy).sum(-1)
+        gwx += (g * ddx).sum(-1)
+        del v, ddy, ddx
+    goff = torch.stack([gwy, gwx], -1).reshape(rows, 2 * k)
+    return (gtab[:, :c].to(table_a.dtype), gtab[:, c:].to(table_b.dtype),
+            goff.to(offsets.dtype))
+
+
+def deform_sample_pair_backward(table_a, table_b, offsets, grad_a, grad_b,
+                                shapes, kernel_size: int = 3):
+    """Grads of (table_a, table_b, offsets) from the grads of the two
+    im2col buffers; the kernel for CUDA tensors, the plain version for CPU
+    tensors."""
+    if table_a.device.type == "cpu":
+        return deform_sample_pair_backward_plain(
+            table_a, table_b, offsets, grad_a, grad_b, shapes, kernel_size)
+    return deform_sample_pair_backward_kernel(
+        table_a, table_b, offsets, grad_a, grad_b, shapes, kernel_size)
+
+
+def deform_sample_pair_backward_kernel(table_a, table_b, offsets, grad_a,
+                                       grad_b, shapes, kernel_size: int = 3):
+    rows, c = table_a.shape
+    k = kernel_size * kernel_size
+    if table_a.dtype not in _BWD_KERNEL_DTYPES:
+        raise TypeError("deform_sample_pair_backward: no kernel for "
+                        f"{table_a.dtype}")
+    if sum(b * h * w for b, h, w in shapes) != rows:
+        raise ValueError("deform_sample_pair_backward: shapes do not cover "
+                         "the table")
+    for name, t, shape in (("table_a", table_a, (rows, c)),
+                           ("table_b", table_b, (rows, c)),
+                           ("offsets", offsets, (rows, 2 * k)),
+                           ("grad_a", grad_a, (rows, k * c)),
+                           ("grad_b", grad_b, (rows, k * c))):
+        _ext.check_cuda(t, name, table_a.dtype, shape)
+    # f32 scratch for the atomics, both instances side by side
+    gtab = torch.zeros((rows, 2 * c), dtype=torch.float32,
+                       device=table_a.device)
+    goff = torch.empty((rows, 2 * k), dtype=table_a.dtype,
+                       device=table_a.device)
+    _ext.launch(_BWD_KERNEL_DTYPES[table_a.dtype], table_a.data_ptr(),
+                table_b.data_ptr(), offsets.data_ptr(), grad_a.data_ptr(),
+                grad_b.data_ptr(), _levels_arg(shapes), gtab.data_ptr(),
+                goff.data_ptr(), rows, c, k, len(shapes),
+                _ext.stream_ptr(table_a))
+    deform_sample_pair_backward_kernel.launches += 1
+    gtab = gtab.to(table_a.dtype)
+    return gtab[:, :c], gtab[:, c:], goff
+
+
+deform_sample_pair_backward_kernel.launches = 0
+
+
+class DeformSamplePair(torch.autograd.Function):
+    """deform_sample_pair as one autograd node: forward and backward each
+    run the kernel (CUDA tensors) or the plain version (CPU tensors)."""
+
+    @staticmethod
+    def forward(ctx, table_a, table_b, offsets, shapes, kernel_size):
+        ctx.save_for_backward(table_a, table_b, offsets)
+        ctx.shapes, ctx.kernel_size = shapes, kernel_size
+        return deform_sample_pair(table_a, table_b, offsets, shapes,
+                                  kernel_size)
+
+    @staticmethod
+    def backward(ctx, grad_a, grad_b):
+        # autograd materialises a missing output grad as zeros
+        grads = deform_sample_pair_backward(
+            *ctx.saved_tensors, grad_a.contiguous(), grad_b.contiguous(),
+            ctx.shapes, ctx.kernel_size)
+        return (*grads, None, None)
 
 
 def deform_conv2d_pyramid_pair(feats_a, feats_b, offsets, weight_a, weight_b,
@@ -153,13 +268,39 @@ def deform_conv2d_pyramid_pair(feats_a, feats_b, offsets, weight_a, weight_b,
     table_a = torch.cat([f.reshape(-1, c) for f in feats_a])
     table_b = torch.cat([f.reshape(-1, c) for f in feats_b])
     off = torch.cat([o.reshape(-1, o.shape[-1]) for o in offsets])
-    cols_a, cols_b = deform_sample_pair(table_a, table_b,
-                                        off.to(table_a.dtype), shapes,
-                                        kernel_size)
+    cols_a, cols_b = DeformSamplePair.apply(table_a, table_b,
+                                            off.to(table_a.dtype), shapes,
+                                            kernel_size)
     dt = table_a.dtype
     out_a = cols_a @ weight_a.reshape(-1, weight_a.shape[-1]).to(dt)
     out_b = cols_b @ weight_b.reshape(-1, weight_b.shape[-1]).to(dt)
     return _split_levels(out_a, shapes), _split_levels(out_b, shapes)
+
+
+def bilinear_gather(feat: torch.Tensor, py: torch.Tensor, px: torch.Tensor):
+    """feat (B, H, W, C) sampled at float (B, ...) positions, zero outside
+    the map -> (B, ..., C), in the feature dtype (the JAX package's 4-take
+    formulation)."""
+    b, h, w, c = feat.shape
+    out_shape = py.shape[1:]
+    py, px = py.reshape(b, -1), px.reshape(b, -1)
+    y0f, x0f = torch.floor(py), torch.floor(px)
+    wy = (py - y0f)[..., None].to(feat.dtype)
+    wx = (px - x0f)[..., None].to(feat.dtype)
+    y0, x0 = y0f.to(torch.int64), x0f.to(torch.int64)
+    flat = feat.reshape(b * h * w, c)
+    base = (torch.arange(b, device=feat.device) * (h * w))[:, None]
+
+    def corner(yi, xi):
+        ok = (yi >= 0) & (yi < h) & (xi >= 0) & (xi < w)
+        idx = yi.clamp(0, h - 1) * w + xi.clamp(0, w - 1) + base
+        return flat[idx.reshape(-1)].reshape(b, -1, c) * ok[..., None]
+
+    out = (corner(y0, x0) * (1 - wy) * (1 - wx)
+           + corner(y0, x0 + 1) * (1 - wy) * wx
+           + corner(y0 + 1, x0) * wy * (1 - wx)
+           + corner(y0 + 1, x0 + 1) * wy * wx)
+    return out.reshape((b,) + out_shape + (c,))
 
 
 def _split_levels(flat_rows: torch.Tensor, shapes) -> list[torch.Tensor]:

@@ -11,7 +11,13 @@ JAX package's XLA formulations and vectorised over a leading batch:
     the same area), and in the JAX package rounding decides them; the rule
     makes this version and the CUDA kernel pick the same box;
   * quad_iou — ``quad_iou_single`` (Sutherland-Hodgman clip of the subject
-    quad by the CCW clip quad, masked shoelace), broadcast over pairs.
+    quad by the CCW clip quad, masked shoelace), broadcast over pairs;
+  * the training geometry: points_in_polygon, polygon_area,
+    clip_convex_by_quad, convex_giou (with the enclosing hull of the 13
+    points), convex_iou (kernel 1's hull + the hull-IoU kernel) and
+    chamfer_distance_2d.  Where the JAX package differentiates (convex_giou
+    in the GIoU loss), autograd does here: the hull is a gather at indices
+    chosen without gradient, and the clip is differentiable arithmetic.
 """
 
 from __future__ import annotations
@@ -32,7 +38,8 @@ def convex_hull(pts: torch.Tensor):
     pts = pts.to(torch.float32)
     n, p, _ = pts.shape
     rows = torch.arange(n, device=pts.device)
-    cpts = pts - pts.sum(1, keepdim=True) / p
+    sel = pts.detach()  # the choice of vertices carries no gradient
+    cpts = sel - sel.sum(1, keepdim=True) / p
     scale2 = (cpts * cpts).sum(-1).amax(1).clamp_min(1e-12)
     left_eps = (1e-6 * scale2)[:, None, None]
     dup_eps = (1e-12 * scale2)[:, None]
@@ -185,3 +192,90 @@ def quad_iou(q1: torch.Tensor, q2: torch.Tensor) -> torch.Tensor:
 def quad_iou_matrix(quads1: torch.Tensor, quads2: torch.Tensor):
     """(n, m) exact IoU matrix of quad sets (n, 8) and (m, 8)."""
     return quad_iou(quads1[:, None, :], quads2[None, :, :])
+
+
+def polygon_area(poly: torch.Tensor, count=None) -> torch.Tensor:
+    """Absolute area of the first `count` vertices of (..., V, 2)."""
+    return _shoelace(poly, poly.shape[-2] if count is None else count).abs()
+
+
+def points_in_polygon(points: torch.Tensor, poly: torch.Tensor):
+    """Ray-cast inside test: (..., P, 2) points, (..., V, 2) polygons ->
+    (..., P) bool (boundary by crossing parity)."""
+    px, py = points[..., :, None, 0], points[..., :, None, 1]
+    vn = torch.roll(poly, -1, dims=-2)
+    x1, y1 = poly[..., None, :, 0], poly[..., None, :, 1]
+    x2, y2 = vn[..., None, :, 0], vn[..., None, :, 1]
+    straddle = (y1 > py) != (y2 > py)
+    xint = (x2 - x1) * (py - y1) / torch.where(y2 == y1, 1.0, y2 - y1) + x1
+    crossing = straddle & (px < xint)
+    return crossing.sum(-1) % 2 == 1
+
+
+def clip_convex_by_quad(verts, count, quad, out_cap: int | None = None):
+    """Clip (..., V, 2) convex polygons with `count` vertices by convex
+    quads (..., 4, 2) of any winding -> (poly (..., out_cap, 2), count);
+    out_cap defaults to V + 4."""
+    q = _orient_ccw(quad)
+    cap = out_cap or verts.shape[-2] + 4
+    for i in range(4):
+        verts, count = _clip_half_plane(verts, count, q[..., i, :],
+                                        q[..., (i + 1) % 4, :], cap)
+    return verts, count
+
+
+def convex_giou(points: torch.Tensor, gt_quads: torch.Tensor):
+    """Aligned GIoU of the hull of each point set with its gt quad:
+    points (n, 18), gt_quads (n, 8) -> (n,).  GIoU = IoU - (C - U) / C with
+    C the area of the hull of all 13 points; differentiable in points."""
+    pts = points.reshape(points.shape[0], -1, 2).to(torch.float32)
+    quad = gt_quads.reshape(-1, 4, 2).to(torch.float32)
+    shift = quad.mean(1, keepdim=True)
+    pts = pts - shift
+    quad = quad - shift
+    hull, _, hcount = convex_hull(pts)
+    area_p = polygon_area(hull, hcount)
+    area_q = polygon_area(quad)
+    clipped, ccount = clip_convex_by_quad(hull, hcount, quad)
+    inter = polygon_area(clipped, ccount)
+    union = area_p + area_q - inter
+    ehull, _, ecount = convex_hull(torch.cat([pts, quad], 1))
+    c_area = polygon_area(ehull, ecount)
+    iou = inter / torch.clamp(union, min=_EPS)
+    return iou - (c_area - union) / torch.clamp(c_area, min=_EPS)
+
+
+def convex_iou(gt_quads: torch.Tensor, points: torch.Tensor):
+    """Batched convex IoU matrix: gt quads (B, G, 8) x point sets
+    (B, N, 18) -> (B, G, N).
+
+    Every image is shifted by the mean of all its gt corners, padded zero
+    rows included (as the JAX package does); then kernel 1's hulls
+    (convex_hull_entry) go through the hull-IoU kernel, one launch each for
+    the batch.
+    """
+    from .hull_iou import hull_quad_iou_matrix
+    from .minarearect import convex_hull_entry
+
+    b, n = points.shape[:2]
+    g = gt_quads.shape[1]
+    pts = points.reshape(b, n, -1, 2).to(torch.float32)
+    quads = gt_quads.reshape(b, g, 4, 2).to(torch.float32)
+    shift = quads.reshape(b, -1, 2).mean(1)[:, None, None, :]
+    pts = (pts - shift).reshape(b * n, -1)
+    quads = (quads - shift).reshape(b, g, 8)
+    hulls, counts = convex_hull_entry(pts)
+    iou = hull_quad_iou_matrix(hulls.reshape(b, n, -1, 2),
+                               counts.reshape(b, n), quads)
+    return iou.transpose(1, 2)
+
+
+def chamfer_distance_2d(set1: torch.Tensor, set2: torch.Tensor,
+                        distance_weight: float = 0.05, eps: float = 1e-12):
+    """Symmetric mean nearest-neighbour distance of (..., N, 2) and
+    (..., M, 2) point sets, times distance_weight / 2."""
+    diff = set1[..., :, None, :] - set2[..., None, :, :]
+    d2 = (diff * diff).sum(-1)
+    d1 = torch.sqrt(torch.clamp(d2.amin(-1), min=eps))
+    d2m = torch.sqrt(torch.clamp(d2.amin(-2), min=eps))
+    return (d1.mean(-1) + d2m.mean(-1)) / 2.0 * distance_weight

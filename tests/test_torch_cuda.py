@@ -11,8 +11,8 @@ import numpy as np
 import pytest
 import torch
 
-from orientedreppoints_tpu_torch.ops import (deform_conv, minarearect, nms,
-                                             quad_iou)
+from orientedreppoints_tpu_torch.ops import (deform_conv, hull_iou,
+                                             minarearect, nms, quad_iou)
 
 
 @pytest.fixture
@@ -56,3 +56,43 @@ def test_kernels_match_plain_versions_on_the_card(cuda):
                          deform_conv.deform_sample_pair_plain(ta, tb, off,
                                                               shapes)):
         assert (got - want).abs().max() < 1e-5
+
+
+@pytest.mark.cuda
+def test_training_kernels_match_plain_versions_on_the_card(cuda):
+    """Kernel 1's hull output and the hull-IoU kernel give the plain
+    versions' bits (the assigner compares IoUs for equality); the DCN
+    backward is within the reordering of its f32 atomics."""
+    rng = np.random.default_rng(2)
+    pts = rng.uniform(0, 400, (3000, 1, 2)) + rng.normal(0, 20, (3000, 9, 2))
+    pts[:100] = pts[:100, :1]
+    p = torch.tensor(pts.reshape(-1, 18), dtype=torch.float32, device=cuda)
+    hulls, counts = minarearect.convex_hull_entry(p)
+    hulls_p, counts_p = minarearect.convex_hull_plain(p)
+    assert torch.equal(hulls, hulls_p) and torch.equal(counts, counts_p)
+
+    quads = torch.tensor(rng.uniform(0, 400, (2, 40, 1, 2))
+                         + rng.normal(0, 30, (2, 40, 4, 2)),
+                         dtype=torch.float32, device=cuda).view(2, 40, 8)
+    quads[:, -5:] = 0
+    h, c = hulls.view(2, 1500, 9, 2), counts.view(2, 1500)
+    iou = hull_iou.hull_quad_iou_matrix(h, c, quads)
+    assert torch.equal(iou, hull_iou.hull_quad_iou_matrix_plain(h, c, quads))
+    assert (iou[..., :-5] > 0.1).sum() > 100
+
+    shapes = [(2, 12, 10), (2, 6, 5)]
+    rows = sum(b * hh * w for b, hh, w in shapes)
+    for dt, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2 ** -7)):
+        ta = torch.randn(rows, 64, device=cuda).to(dt)
+        tb = torch.randn(rows, 64, device=cuda).to(dt)
+        off = (torch.randn(rows, 18, device=cuda) * 3).to(dt)
+        ga = torch.randn(rows, 9 * 64, device=cuda).to(dt)
+        gb = torch.randn(rows, 9 * 64, device=cuda).to(dt)
+        got = deform_conv.deform_sample_pair_backward(ta, tb, off, ga, gb,
+                                                      shapes)
+        want = deform_conv.deform_sample_pair_backward_plain(
+            ta, tb, off, ga, gb, shapes)
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype == dt
+            scale = max(1.0, float(w.float().abs().max()))
+            assert (g.float() - w.float()).abs().max() <= tol * scale

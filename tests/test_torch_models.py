@@ -71,6 +71,9 @@ def test_frozen_batch_norm():
     ref = BNRef(24)
     v, mod = init_pair(ref, FrozenBatchNorm(24), [x])
     assert_close_nhwc(mod(nchw(x)), ref.apply(v, x))
+    # the affine trains (flax "params"), the statistics do not
+    assert {n for n, _ in mod.named_parameters()} == {"scale", "bias"}
+    assert {n for n, _ in mod.named_buffers()} == {"mean", "var"}
 
 
 @pytest.mark.parametrize("depth", [18, 50])

@@ -17,7 +17,8 @@ from orientedreppoints_tpu.utils import Config, builder
 from orientedreppoints_tpu_torch import ops
 from orientedreppoints_tpu_torch.apis import build_detector
 from orientedreppoints_tpu_torch.models.detector import decode_detections
-from orientedreppoints_tpu_torch.ops import deform_conv, minarearect, quad_iou
+from orientedreppoints_tpu_torch.ops import (deform_conv, hull_iou,
+                                             minarearect, quad_iou)
 from orientedreppoints_tpu_torch.serving import Predictor
 from orientedreppoints_tpu_torch.utils.convert import flax_to_torch
 
@@ -45,6 +46,20 @@ NO_JAX_SCRIPT = textwrap.dedent("""
     out = pred([np.zeros((50, 64, 3), np.uint8)])
     assert len(out) == 1 and len(out[0]) == 15
     assert sum(len(a) for a in out[0]) > 0
+    # the training step: losses, assigners, APAA, SGD
+    from orientedreppoints_tpu_torch.core.loss_head import LossConfig
+    from orientedreppoints_tpu_torch.parallel import train
+    model = pred.model
+    train.freeze(model, train.default_frozen_prefixes(1))
+    opt, sched = train.build_optimizer(model, train.lr_schedule())
+    step = train.make_train_step(model, LossConfig(max_pos=16), opt, sched)
+    quad = np.float32([[10, 10, 40, 12, 38, 30, 9, 28]])
+    losses = step(dict(images=np.zeros((2, 64, 64, 3), np.float32),
+                       gt_polys=np.stack([quad, quad]),
+                       gt_labels=np.int32([[3], [4]]),
+                       gt_valid=np.ones((2, 1), bool),
+                       img_hw=np.int32([[64, 64], [64, 48]])))
+    assert np.isfinite(float(losses["loss_total"]))
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "flax", "cv2",
                                            "orientedreppoints_tpu"))
@@ -87,6 +102,15 @@ def test_cuda_entries_raise_without_a_gpu():
     with pytest.raises(ValueError, match="CUDA tensor"):
         quad_iou.quad_over_mask_kernel(torch.zeros(1, 8, 8), 0.4,
                                        torch.zeros(1, dtype=torch.int32))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        hull_iou.hull_quad_iou_kernel(torch.zeros(1, 4, 9, 2),
+                                      torch.ones(1, 4, dtype=torch.int32),
+                                      torch.zeros(1, 3, 8))
+    t = torch.zeros(6, 4)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        deform_conv.deform_sample_pair_backward_kernel(
+            t, t, torch.zeros(6, 18), torch.zeros(6, 36), torch.zeros(6, 36),
+            [(1, 2, 3)])
 
 
 def test_cpu_tensors_never_launch_a_kernel():
@@ -105,4 +129,11 @@ def test_cpu_tensors_never_launch_a_kernel():
     t = torch.from_numpy(rng.normal(size=(b * h * w, 16)).astype(np.float32))
     off = torch.zeros(b * h * w, 18)
     deform_conv.deform_sample_pair(t, t, off, [(b, h, w)])
+    g = torch.ones(b * h * w, 9 * 16)
+    deform_conv.deform_sample_pair_backward(t, t, off, g, g, [(b, h, w)])
+    hulls, counts = minarearect.convex_hull_entry(
+        torch.from_numpy(rng.normal(size=(4, 18)).astype(np.float32)))
+    hull_iou.hull_quad_iou_matrix(hulls[None], counts[None],
+                                  torch.zeros(1, 3, 8))
+    assert len(ops.KERNELS) == 6
     assert ops.launch_counts() == {name: 0 for name in ops.KERNELS}

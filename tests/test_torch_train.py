@@ -1,0 +1,340 @@
+"""The PyTorch port's training step against the JAX package's, on the CPU.
+
+An R-18 detector with narrow widths (FPN and head channels 32) at 128^2,
+batch 2, MAX_GT 8, max_pos 64 (tests/test_train.py's sizes): the JAX
+model's initial weights with the head perturbed (test_torch_slice.
+perturb_head: with std-0.01 point convs all 9 points coincide and the
+refine assigner degenerates) go through flax_to_torch into the port.
+Checked, all in f32: the paired-DCN autograd node and its plain backward
+against jax.vjp; compute_losses and its grads on the same head outputs;
+one and two SGD steps from the same weights; the LR schedule and
+device_normalize.
+"""
+
+import contextlib
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from orientedreppoints_tpu.core.loss_head import LossConfig as LossConfigRef
+from orientedreppoints_tpu.core.loss_head import \
+    compute_losses as compute_losses_ref
+from orientedreppoints_tpu.models import OrientedRepPointsDetector
+from orientedreppoints_tpu.ops import deform_conv as dcn_ref
+from orientedreppoints_tpu.parallel import train as train_ref
+from orientedreppoints_tpu_torch.apis import (build_detector,
+                                              build_img_norm,
+                                              build_loss_config)
+from orientedreppoints_tpu_torch.core.loss_head import (LossConfig,
+                                                        compute_losses)
+from orientedreppoints_tpu_torch.host import load_config
+from orientedreppoints_tpu_torch.ops import deform_conv
+from orientedreppoints_tpu_torch.parallel import train
+from orientedreppoints_tpu_torch.utils.convert import flax_to_torch
+from test_torch_slice import perturb_head
+
+IMG = 128
+MAX_GT = 8
+WIDTH = 32
+R50 = "configs/dota/orientedreppoints_r50_demo.py"
+HEAD_KEYS = ("cls_scores", "pts_init", "pts_refine")
+
+
+def make_batch(rng, b=2):
+    """test_train.make_batch's rotated gts (1-3 per image), uint8 images
+    (normalized on the device) and true sizes inside the canvas."""
+    gt_polys = np.zeros((b, MAX_GT, 8), np.float32)
+    gt_labels = np.zeros((b, MAX_GT), np.int32)
+    gt_valid = np.zeros((b, MAX_GT), bool)
+    for i in range(b):
+        for j in range(rng.randint(1, 4)):
+            cx, cy = rng.rand(2) * 80 + 24
+            w, h = rng.rand(2) * 40 + 10
+            a = rng.rand() * np.pi
+            c, s = np.cos(a), np.sin(a)
+            r = np.array([[-w / 2, -h / 2], [w / 2, -h / 2], [w / 2, h / 2],
+                          [-w / 2, h / 2]])
+            gt_polys[i, j] = ((r @ [[c, s], [-s, c]]) + [cx, cy]).reshape(-1)
+            gt_labels[i, j] = rng.randint(1, 16)
+            gt_valid[i, j] = True
+    return dict(images=(rng.rand(b, IMG, IMG, 3) * 255).astype(np.uint8),
+                gt_polys=gt_polys, gt_labels=gt_labels, gt_valid=gt_valid,
+                img_hw=np.array([[IMG, IMG], [112, 96]][:b], np.int32))
+
+
+@pytest.fixture(scope="module")
+def setup():
+    cfg = load_config(R50)
+    cfg["model"]["backbone"]["depth"] = 18
+    cfg["model"]["neck"]["out_channels"] = WIDTH
+    head = cfg["model"]["bbox_head"]
+    head.update(in_channels=WIDTH, feat_channels=WIDTH,
+                point_feat_channels=WIDTH)
+    cfg["tpu"]["max_pos"] = 64
+    model_ref = OrientedRepPointsDetector(
+        depth=18, num_classes=16, fpn_out_channels=WIDTH,
+        head_kwargs=dict(feat_channels=WIDTH, point_feat_channels=WIDTH))
+    variables = model_ref.init(jax.random.PRNGKey(0),
+                               jnp.zeros((1, IMG, IMG, 3), jnp.float32))
+    variables = perturb_head(jax.tree_util.tree_map(np.array,
+                                                    dict(variables)),
+                             np.random.default_rng(0))
+    img_norm = build_img_norm(cfg)
+    batch = make_batch(np.random.RandomState(0))
+    return dict(cfg=cfg, model_ref=model_ref, variables=variables,
+                img_norm=img_norm, batch=batch)
+
+
+@contextlib.contextmanager
+def jax_fast_compile():
+    """Compile the JAX side without most XLA:CPU optimisation passes: the
+    numbers are the same within the tolerances below, and the compiles of
+    compute_losses' grad and of the train step take about half the time."""
+    old = jax.config.values["jax_disable_most_optimizations"]
+    jax.config.update("jax_disable_most_optimizations", True)
+    try:
+        yield
+    finally:
+        jax.config.update("jax_disable_most_optimizations", old)
+
+
+def port_model(setup):
+    model = build_detector(setup["cfg"], "float32")
+    model.load_state_dict(flax_to_torch(setup["variables"]), strict=True)
+    return model
+
+
+def test_config_readers_match():
+    from orientedreppoints_tpu.utils import Config, builder
+
+    cfg_ref = Config.fromfile(R50)
+    cfg = load_config(R50)
+    assert dataclass_dict(build_loss_config(cfg)) == dataclass_dict(
+        builder.build_loss_config(cfg_ref))
+    assert build_loss_config(cfg).max_pos == 1024
+    assert build_img_norm(cfg) == builder.build_img_norm(cfg_ref)
+
+
+def dataclass_dict(x):
+    return {k: tuple(v) if isinstance(v, (list, tuple)) else v
+            for k, v in vars(x).items()}
+
+
+def test_dcn_autograd_node_and_plain_backward():
+    """The port's paired DCN is one autograd node (the DCN branch's grads
+    reach the towers and the offsets on every device), and its plain
+    backward with autograd's matmul grads equals jax.vjp of the JAX
+    deform_conv2d_pyramid_pair in f32."""
+    rng = np.random.default_rng(1)
+    b, c, cout = 2, 16, 8
+    hws = [(8, 10), (4, 5), (2, 3), (1, 2)]
+    fa = [rng.normal(size=(b, h, w, c)).astype(np.float32) for h, w in hws]
+    fb = [rng.normal(size=(b, h, w, c)).astype(np.float32) for h, w in hws]
+    off = [(rng.normal(size=(b, h, w, 18)) * 2).astype(np.float32)
+           for h, w in hws]
+    wa = rng.normal(size=(9, c, cout)).astype(np.float32)
+    wb = rng.normal(size=(9, c, cout)).astype(np.float32)
+    ga = [rng.normal(size=(b, h, w, cout)).astype(np.float32) for h, w in hws]
+    gb = [rng.normal(size=(b, h, w, cout)).astype(np.float32) for h, w in hws]
+
+    @jax.jit
+    def grads(inputs, cot):
+        return jax.vjp(dcn_ref.deform_conv2d_pyramid_pair, *inputs)[1](cot)
+
+    ref = jax.tree_util.tree_leaves(grads((fa, fb, off, wa, wb), (ga, gb)))
+
+    leaves = [torch.from_numpy(x).requires_grad_(True)
+              for x in fa + fb + off + [wa, wb]]
+    n = len(hws)
+    outs_a, outs_b = deform_conv.deform_conv2d_pyramid_pair(
+        leaves[:n], leaves[n:2 * n], leaves[2 * n:3 * n], leaves[-2],
+        leaves[-1])
+    # every level's output comes out of the matmul over one sampling node
+    node = outs_a[0].grad_fn
+    while node is not None and "DeformSamplePair" not in type(node).__name__:
+        node = node.next_functions[0][0]
+    assert node is not None, "no DeformSamplePair node behind the output"
+    torch.autograd.backward(
+        outs_a + outs_b, [torch.from_numpy(g) for g in ga + gb])
+    assert len(ref) == len(leaves)
+    # f32 gathers and scatters, K*C-term products in another order
+    for got, want in zip(leaves, ref):
+        want = np.asarray(want)
+        tol = 1e-4 * max(1.0, float(np.abs(want).max()))
+        assert got.grad is not None
+        assert np.abs(got.grad.numpy() - want).max() <= tol
+
+
+@pytest.fixture(scope="module")
+def head_case(setup):
+    """The JAX model's head outputs on the batch, and the JAX loss dict and
+    grads with respect to the head outputs (one jit)."""
+    batch = setup["batch"]
+    imgs = train_ref.device_normalize(jnp.asarray(batch["images"]),
+                                      jnp.asarray(batch["img_hw"]),
+                                      **setup["img_norm"])
+    with jax_fast_compile():
+        outs = jax.jit(setup["model_ref"].apply)(setup["variables"], imgs)
+    outs = {k: [np.asarray(x) for x in v] for k, v in outs.items()}
+    cfg = LossConfigRef(max_pos=64)
+
+    def total(head, base):
+        losses = compute_losses_ref(
+            dict(head, base_feats=base), batch["gt_polys"],
+            batch["gt_labels"], batch["gt_valid"], batch["img_hw"], cfg)
+        return sum(v for k, v in losses.items()
+                   if k.startswith("loss")), losses
+
+    with jax_fast_compile():
+        (_, losses), grads = jax.jit(jax.value_and_grad(
+            total, has_aux=True))({k: outs[k] for k in HEAD_KEYS},
+                                  outs["base_feats"])
+    return outs, {k: float(v) for k, v in losses.items()}, grads
+
+
+def test_compute_losses_matches_on_the_same_head_outputs(setup, head_case):
+    outs, ref, ref_grads = head_case
+    batch = setup["batch"]
+    head = {k: [torch.from_numpy(x).requires_grad_(True) for x in outs[k]]
+            for k in HEAD_KEYS}
+    stats = {}
+    losses = compute_losses(
+        dict(head, base_feats=[torch.from_numpy(x)
+                               for x in outs["base_feats"]]),
+        *(torch.from_numpy(batch[k]) for k in ("gt_polys", "gt_labels",
+                                               "gt_valid", "img_hw")),
+        LossConfig(max_pos=64), stats=stats)
+    # a real assignment: the refine assigner did not degenerate
+    assert 0 < ref["num_pos"] < ref["num_assigned_pos"]
+    assert (stats["iou_gt_0p1"] > 0).all()
+    assert set(losses) == set(ref)
+    for k, v in ref.items():
+        np.testing.assert_allclose(float(losses[k]), v, rtol=1e-5,
+                                   atol=1e-7, err_msg=k)
+    total = sum(v for k, v in losses.items() if k.startswith("loss"))
+    total.backward()
+    for k in HEAD_KEYS:
+        for got, want in zip(head[k], ref_grads[k]):
+            want = np.asarray(want)
+            tol = 1e-4 * max(1e-3, float(np.abs(want).max()))
+            assert np.abs(got.grad.numpy() - want).max() <= tol, k
+
+
+def test_empty_gt_images_stay_finite(setup, head_case):
+    """All gts padded: no positives, every loss finite, cls loss zeroed
+    (the reference zeroes it without positives), grads finite."""
+    outs, _, _ = head_case
+    batch = setup["batch"]
+    head = {k: [torch.from_numpy(x).requires_grad_(True) for x in outs[k]]
+            for k in HEAD_KEYS}
+    losses = compute_losses(
+        dict(head, base_feats=[torch.from_numpy(x)
+                               for x in outs["base_feats"]]),
+        torch.from_numpy(batch["gt_polys"]),
+        torch.from_numpy(batch["gt_labels"]),
+        torch.zeros(batch["gt_valid"].shape, dtype=torch.bool),
+        torch.from_numpy(batch["img_hw"]), LossConfig(max_pos=64))
+    assert all(torch.isfinite(v).all() for v in losses.values())
+    assert float(losses["num_pos"]) == 0 and float(losses["loss_cls"]) == 0
+    sum(v for k, v in losses.items() if k.startswith("loss")).backward()
+    assert all(torch.isfinite(x.grad).all() for k in HEAD_KEYS
+               for x in head[k] if x.grad is not None)
+
+
+def jax_steps(setup, n_steps):
+    """n SGD steps of the JAX train step; losses and params after each."""
+    model_ref, variables = setup["model_ref"], setup["variables"]
+    sched = train_ref.lr_schedule(iters_per_epoch=10)
+    params = jax.tree_util.tree_map(jnp.array, variables["params"])
+    tx = train_ref.build_optimizer(
+        params, sched,
+        frozen_prefixes=train_ref.default_frozen_prefixes(1))
+    state = train_ref.TrainState(
+        step=jnp.zeros((), jnp.int32), params=params,
+        batch_stats=jax.tree_util.tree_map(jnp.array,
+                                           variables["batch_stats"]),
+        opt_state=tx.init(params), tx=tx)
+    step_fn = train_ref.make_train_step(model_ref, LossConfigRef(max_pos=64),
+                                        img_norm=setup["img_norm"])
+    batch = {k: jnp.asarray(v) for k, v in setup["batch"].items()}
+    out = []
+    for _ in range(n_steps):
+        with jax_fast_compile():
+            state, losses = step_fn(state, batch)
+        out.append(({k: float(v) for k, v in losses.items()},
+                    flax_to_torch({"params": jax.tree_util.tree_map(
+                        np.asarray, state.params),
+                        "batch_stats": variables["batch_stats"]})))
+    return out
+
+
+def port_steps(setup, n_steps):
+    model = port_model(setup)
+    train.freeze(model, train.default_frozen_prefixes(1))
+    opt, sched = train.build_optimizer(
+        model, train.lr_schedule(iters_per_epoch=10))
+    step = train.make_train_step(model, build_loss_config(setup["cfg"]), opt,
+                                 sched, img_norm=setup["img_norm"])
+    out = []
+    for _ in range(n_steps):
+        losses = step(setup["batch"])
+        out.append(({k: float(v) for k, v in losses.items()},
+                    {k: v.detach().clone()
+                     for k, v in model.state_dict().items()}))
+    return out
+
+
+@pytest.fixture(scope="module")
+def two_steps(setup):
+    return jax_steps(setup, 2), port_steps(setup, 2)
+
+
+@pytest.mark.parametrize("step", [0, 1], ids=["one_step", "two_steps"])
+def test_sgd_steps_match(setup, two_steps, step):
+    """Losses within rel 1e-4.  Each parameter's update (new - initial)
+    within 3e-2 of that update's largest element, plus 1e-7: the two
+    frameworks' f32 convolutions and GroupNorm backward round differently
+    (~1e-6 of a grad), the clip and the LR scale that alike, and the second
+    step starts from parameters that already differ (measured: 1.2e-2 at
+    worst, a GN affine of the FPN)."""
+    (ref_losses, ref_sd), (losses, sd) = (two_steps[0][step],
+                                          two_steps[1][step])
+    assert ref_losses["num_pos"] > 0
+    for k, v in ref_losses.items():
+        np.testing.assert_allclose(losses[k], v, rtol=1e-4, atol=1e-6,
+                                   err_msg=k)
+    sd0 = flax_to_torch(setup["variables"])
+    frozen = tuple(train.default_frozen_prefixes(1))
+    for k, want in ref_sd.items():
+        moved, moved_ref = sd[k] - sd0[k], want - sd0[k]
+        tol = 3e-2 * float(moved_ref.abs().max()) + 1e-7
+        assert float((moved - moved_ref).abs().max()) <= tol, k
+        if k.startswith(frozen):
+            assert torch.equal(sd[k], sd0[k]), k  # frozen: bitwise
+    # F1: layer2's frozen-BN affine trains (checked above), as in JAX
+    for k in ("backbone.layer2_0.conv1.bn.scale",
+              "backbone.layer2_0.conv1.bn.bias"):
+        assert (ref_sd[k] != sd0[k]).any() and (sd[k] != sd0[k]).any(), k
+
+
+def test_lr_schedule_equal():
+    ref = train_ref.lr_schedule(base_lr=0.008, iters_per_epoch=100)
+    got = train.lr_schedule(base_lr=0.008, iters_per_epoch=100)
+    steps = [0, 1, 7, 250, 499, 500, 501, 2399, 2400, 3199, 3200, 3800, 9999]
+    assert [got(s) for s in steps] == [
+        float(ref(jnp.asarray(s))) for s in steps]
+
+
+def test_device_normalize_equal(setup):
+    batch = setup["batch"]
+    ref = train_ref.device_normalize(jnp.asarray(batch["images"]),
+                                     jnp.asarray(batch["img_hw"]),
+                                     **setup["img_norm"])
+    got = train.device_normalize(torch.from_numpy(batch["images"]),
+                                 torch.from_numpy(batch["img_hw"]),
+                                 **setup["img_norm"])
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+    assert (got[1, 112:] == 0).all() and (got[1, :, 96:] == 0).all()
