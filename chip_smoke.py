@@ -1,5 +1,5 @@
-"""Drive the PyTorch port's serving path and training step on one NVIDIA
-GPU.
+"""Drive the PyTorch port's serving path, training step and TTA test path
+on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -7,25 +7,56 @@ Phases, each printing one line or more (a failed phase exits non-zero):
   1. device: the card, its power limit, and the build of the CUDA kernels;
   2. kernels: each kernel against its plain PyTorch version on the card, at
      the shapes of the R-50 1344^2 batch-4 serving path (min-area rect with
-     its hull output, over-mask, scan, DCN sampling) and of the batch-2
-     training step (hull IoU, DCN backward), with times;
+     its hull output, over-mask, scan, DCN sampling), of the batch-2
+     training step (hull IoU, DCN backward) and of the quad-IoU entries
+     (full and upper-triangle f32 IoU, the single-image over-mask and the
+     scan at batch 1, the over-mask against the triangle, soft_rnms and
+     box_iou_rotated), with
+     times, each kernel's bound and, where one PyTorch call computes the
+     same function, that call's time (grid_sample for the DCN kernels);
   3. slice: Predictor on configs/dota/orientedreppoints_r50_demo.py (R-50,
      canvas 1344^2, bf16, batch 4) over 8 seeded 1024^2 images, with seeded
      random weights perturbed so that the decode has thousands of
      candidates; launch counts, finiteness, images/s and peak memory;
   4. decode: the same head outputs decoded through the kernels and through
      the plain versions, det for det;
-  5. train: the config's SGD step (R-50, canvas 1344^2, bf16, batch 2,
+  5. tta: run_inference_tta with the multi-scale x flip recipe TTA_AUGS
+     (scales 0.5, 1.0, 1.5, each on its own /32 canvas, x flip; R-50 bf16,
+     batch 2) over 4 seeded 1024^2 images resized to fill the canvas: per
+     aug the candidates, then dets, launches, finiteness, det centres in
+     the image frame, images/s (median of 3 passes after a warm-up) and
+     peak memory;
+  6. tta_check: (a) the identity recipe [(1.0, False)] equals
+     run_inference det for det; (b) one batch of the full recipe with
+     every DCN forward and min-area-rect call (each scale's canvas) held
+     against its plain version on the same inputs, and its merged
+     candidates through the kernels and through the plain over-mask and
+     scan giving the same dets;
+  7. iou_path: soft_rnms and the upper-triangle IoU entry over the merged
+     TTA candidates of one image, the path of the f32 IoU kernels;
+  8. train: the config's SGD step (R-50, canvas 1344^2, bf16, batch 2,
      frozen_stages 1, max_gt 512, max_pos 1024) on a seeded batch of 150
      rotated gts per image, seeded random weights with the point convs
      scaled up (else all 9 points coincide and the refine assigner
      degenerates): 1 warm-up step, 5 timed steps; per step the losses and
      assignment statistics, then step ms, images/s, peak memory, launches;
-  6. train_check: one f32 step from the same weights and batch through the
+  9. train_check: one f32 step from the same weights and batch through the
      kernels and through the plain versions: the same refine assignment,
      the same losses, the grads within the atomics' tolerance.
-Then one JSON line with every kernel's numbers, the card's line from
-nvidia-smi, and {"ok": true, "device": {...}} last.
+Each counted run (slice, tta, iou_path, train) sets the launch counts to 0
+just before and reads them just after; it fails if a kernel of its path
+was not launched.  Then one JSON line with every kernel's numbers, the
+card's line from nvidia-smi, and {"ok": true, "device": {...}} last.
+
+bound_ms is the least time the card could take for a kernel's work on this
+run's inputs: the larger of its bytes (each input read once, each output
+written once) over 3.35 TB/s and its f32 operations over 33.5 T op/s (the
+published 67 TFLOP/s of an H100 SXM counts a fused multiply-add as two; the
+library is built with -fmad=false, so each multiply and add is one
+instruction).  The operation counts are the op models of *_ops below,
+evaluated on this run's data where the work depends on it (clip vertex
+counts, hull sizes, live pairs, kept rows); work that depends on one input
+of a pair only counts once for that input.
 
 Imports torch, numpy and the port only.  Exits non-zero, printing no
 result, without a GPU or outside a checkout of the repository.
@@ -71,6 +102,32 @@ DCN_BWD_RTOL = {"float32": 1e-5, "bfloat16": 2 ** -7}
 # (~1e-6 of a grad); 1e-3 leaves room for that through ~60 layers
 GRAD_RTOL = 1e-3
 
+TTA_AUGS = [(0.5, False), (0.5, True), (1.0, False), (1.0, True),
+            (1.5, False), (1.5, True)]  # TTA_BENCH.json's recipe shape
+TTA_BATCH = 2
+TTA_IMAGES = 4
+TTA_SIZE = 1024
+NQ = 4096  # NMS candidates an image: pre_nms_cap
+TRI_NV = [NQ, 3000, 1000, 0]  # the upper-triangle kernel's prefixes
+HBM_BYTES_PER_MS = 3.35e12 / 1e3  # H100 SXM
+FP32_OPS_PER_MS = 33.5e12 / 1e3  # 67 TFLOP/s with an FMA counted as two
+# grid_sample against the plain DCN in f32: the normalised grid moves a
+# sample by up to ~1e-5 px (at w = 168), so values differ by that times the
+# difference of neighbouring values (up to ~8 here); the offset grads are
+# compared away from pixel lines, where that move may change the cell
+LIBRARY_TOL = 1e-3
+# the TTA path's DCN forward calls against the plain version on the same
+# inputs, relative to the output's largest element (at least 1): bf16 one
+# rounding step (2^-7 at most) where the f32 sums round to different
+# sides; f32 one f32 rounding
+DCN_FWD_RTOL_BF16 = 2 ** -7
+DCN_FWD_TOL_F32 = 1e-5
+CELL_EDGE = 1e-3  # px
+# random point sets reach up to about a stride past their location, so a
+# det's centre may lie that far outside the image; an aug's boxes mapped
+# back with a wrong scale land hundreds of px away
+FRAME_SPREAD = 128
+
 SOURCES = {
     "min_area_rect": ("orientedreppoints_tpu_torch/csrc/minarearect.cu",
                       "orientedreppoints_tpu/ops/pallas_minarearect.py:30"),
@@ -85,11 +142,21 @@ SOURCES = {
     "deform_sample_pair_backward": (
         "orientedreppoints_tpu_torch/csrc/deform_sample_bwd.cu",
         "orientedreppoints_tpu/ops/deform_conv.py:410"),
+    "quad_iou_full": ("orientedreppoints_tpu_torch/csrc/quad_iou.cu",
+                      "orientedreppoints_tpu/ops/pallas_quad_iou.py:154"),
+    "quad_iou_tri": ("orientedreppoints_tpu_torch/csrc/quad_iou.cu",
+                     "orientedreppoints_tpu/ops/pallas_quad_iou.py:158"),
+    "quad_over_mask_single": (
+        "orientedreppoints_tpu_torch/csrc/quad_over.cu",
+        "orientedreppoints_tpu/ops/pallas_quad_iou.py:253"),
 }
 SERVING_KERNELS = ("min_area_rect", "quad_over_mask", "nms_scan",
                    "deform_sample_pair")
 TRAIN_KERNELS = ("min_area_rect", "hull_quad_iou", "deform_sample_pair",
                  "deform_sample_pair_backward")
+TTA_KERNELS = ("min_area_rect", "deform_sample_pair", "quad_over_mask",
+               "nms_scan")  # the over-mask here is the single-image entry
+IOU_PATH_KERNELS = ("quad_iou_full", "quad_iou_tri")
 
 
 def say(phase: str, **fields) -> None:
@@ -110,6 +177,105 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def bound(nbytes: float, ops: float) -> dict:
+    """The least time for nbytes of traffic and ops f32 operations."""
+    t_bytes = nbytes / HBM_BYTES_PER_MS
+    t_ops = ops / FP32_OPS_PER_MS
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bytes=float(nbytes), operations=float(ops))
+
+
+def clip_pair_ops(sub, cnt, quads, live=None) -> float:
+    """f32 operations of the pair IoU (quad_clip.cuh, hull_iou.cu) over
+    subjects sub (B, N, V, 2) with vertex counts cnt (B, N) and clip quads
+    (B, M, 8), over the live (B, N, M) pairs only if live(rows, cols) gives
+    a mask.  Work that depends on one side only counts once for each row
+    or column with a live pair (an area does not change when the pair is
+    recentred, so a kernel may take it once): a subject's area and half of
+    it 4 n0 + 1, a clip quad's shift to its vertex 0, area, half area and
+    four edge vectors 8 + 16 + 1 + 8.  Per pair, with n0 the subject's
+    vertices, c_e and x_e the vertices entering and the edges crossing
+    clip stage e, c4 the clipped vertices: the subject's shift 2 n0, per
+    stage 5 c_e + 8 x_e, the clipped area 4 c4, the union and ratio 5."""
+    from orientedreppoints_tpu_torch.ops.geometry import _clip_half_plane
+
+    b, n, v, _ = sub.shape
+    m = quads.shape[1]
+    total = 0.0
+    col_live = torch.zeros((b, m), dtype=torch.bool, device=sub.device)
+    step = max(1, (1 << 20) // max(1, b * m))
+    for r0 in range(0, n, step):
+        r1 = min(n, r0 + step)
+        o = quads[:, None, :, None, :2]  # (B, 1, M, 1, 2)
+        verts = sub[:, r0:r1, None] - o
+        c = cnt[:, r0:r1, None].expand(-1, -1, m).to(torch.int64)
+        q = quads.view(b, 1, m, 4, 2) - o
+        area2 = (q[..., 0] * q[..., [1, 2, 3, 0], 1]
+                 - q[..., [1, 2, 3, 0], 0] * q[..., 1]).sum(-1)
+        q = torch.where((area2 < 0)[..., None, None], q[..., [0, 3, 2, 1], :],
+                        q).expand(-1, r1 - r0, -1, -1, -1)
+        ops = 2 * c + 5
+        for e in range(4):
+            a, bb = q[..., e, :], q[..., (e + 1) % 4, :]
+            ex, ey = (bb - a).unbind(-1)
+            side = ex[..., None] * (verts[..., 1] - a[..., None, 1]) - \
+                ey[..., None] * (verts[..., 0] - a[..., None, 0])
+            slots = torch.arange(verts.shape[-2], device=sub.device)
+            inside = ((side >= 0) & (slots < c[..., None])).sum(-1)
+            verts, c_out = _clip_half_plane(verts, c, a, bb,
+                                            v + 1 + e)
+            ops = ops + 5 * c + 8 * (c_out - inside)
+            c = c_out
+        ops = ops + 4 * c
+        lv = torch.ones_like(ops, dtype=torch.bool)
+        if live is not None:
+            rows = torch.arange(r0, r1, device=sub.device)[None, :, None]
+            cols = torch.arange(m, device=sub.device)[None, None, :]
+            lv = live(rows, cols).expand_as(ops)
+        row_ops = 4 * cnt[:, r0:r1].to(torch.int64) + 1
+        total += float(torch.where(lv, ops, 0).sum())
+        total += float(torch.where(lv.any(-1), row_ops, 0).sum())
+        col_live |= lv.any(1)
+    return total + 33.0 * float(col_live.sum())
+
+
+def quad_subjects(quads):
+    """(B, N, 8) quads as clip_pair_ops subjects: 4 slots, count 4."""
+    b, n, _ = quads.shape
+    return quads.view(b, n, 4, 2), torch.full((b, n), 4, device=quads.device)
+
+
+def tri_live(nv):
+    """The upper triangle inside the valid prefixes nv (B,)."""
+    nv = nv.to(torch.int64).view(-1, 1, 1)
+    return lambda rows, cols: (cols > rows) & (rows < nv) & (cols < nv)
+
+
+def min_area_rect_ops(counts) -> float:
+    """Op model of one min-area rect per set with a hull of h vertices:
+    the centroid 20, per gift-wrapping step (h + 1 of them) 9 distances
+    and 81 cross products 279, per caliper edge (h) the rotated hull and
+    its extent 6 h + 50, the rotation back 30."""
+    h = counts.to(torch.float64)
+    return float((50 + (h + 1) * 279 + h * (6 * h + 50)).sum())
+
+
+def dcn_bytes_ops(rows, c, k, elem, backward):
+    """Bytes and ops of the paired DCN sampling over rows x k samples of C
+    channels in an elem-byte dtype.  Forward: two tables and the offsets
+    in, two (rows, k C) buffers out; per sample 30 ops of plan, per
+    channel and table 7 (four weighted corners).  Backward: tables,
+    offsets and the two buffers' grads in, table and offset grads out;
+    per channel and table 22 (four weighted scatters, two corner
+    differences and their products with the grad)."""
+    tables, offs, cols = 2 * rows * c * elem, rows * 2 * k * elem, \
+        2 * rows * k * c * elem
+    if backward:
+        return tables + offs + cols + tables + offs, rows * k * (30 + 44 * c)
+    return tables + offs + cols, rows * k * (30 + 14 * c)
+
+
 def rect_err(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Per-row max corner distance over b's corner rotations/reversal."""
     a, b = a.view(-1, 4, 2), b.view(-1, 4, 2)
@@ -121,6 +287,22 @@ def rect_err(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def rect_area(r: torch.Tensor) -> torch.Tensor:
     r = r.view(-1, 4, 2).double()
     return (r[:, 1] - r[:, 0]).norm(dim=-1) * (r[:, 2] - r[:, 1]).norm(dim=-1)
+
+
+def rect_check(got: torch.Tensor, want: torch.Tensor):
+    """Min-area rects of the kernel against the plain version: (max corner
+    error over the boxes that agree, boxes that differ by more than
+    RECT_TOL, ok).  A differing box is accepted only as a tie: the same
+    area within the tie rule's relative 1e-5 (twice, for the two
+    roundings)."""
+    from orientedreppoints_tpu_torch.ops.geometry import TIE_RTOL
+
+    err = rect_err(got, want)
+    off = err > RECT_TOL
+    rel = (rect_area(got) - rect_area(want)).abs() / rect_area(want).clamp(
+        min=1e-6)
+    return (float(err[~off].max()) if bool((~off).any()) else 0.0,
+            int(off.sum()), bool((rel[off] <= 2 * TIE_RTOL).all()))
 
 
 def point_sets(rng, n):
@@ -150,39 +332,34 @@ def nms_quads(rng, b, n, classes=15):
 
 
 def phase_kernels(dev, rng):
-    from orientedreppoints_tpu_torch.ops import (deform_conv, geometry,
-                                                 minarearect, nms, quad_iou)
+    from orientedreppoints_tpu_torch.ops import (deform_conv, minarearect,
+                                                 nms, quad_iou)
     res = {}
 
     # min-area rect: the decode's B * sum(min(2000, HW)) = 25304 sets
     n = BATCH * sum(min(2000, h * w) for _, h, w in LEVELS)
     p = torch.tensor(point_sets(rng, n), dtype=torch.float32, device=dev)
-    got = minarearect.min_area_rect(p)
-    want = minarearect.min_area_rect_plain(p)
-    err = rect_err(got, want)
-    off = err > RECT_TOL
-    # a differing box is accepted only as a tie: the same area within the
-    # tie rule's relative 1e-5 (twice, for the two roundings)
-    rel = (rect_area(got) - rect_area(want)).abs() / rect_area(want).clamp(
-        min=1e-6)
-    ties = int(off.sum())
-    ok = bool((rel[off] <= 2 * geometry.TIE_RTOL).all())
+    err, ties, ok = rect_check(minarearect.min_area_rect(p),
+                               minarearect.min_area_rect_plain(p))
     # the hull output (the assigner's) must give the plain version's bits
     hull, count = minarearect.convex_hull_entry(p)
     hull_p, count_p = minarearect.convex_hull_plain(p)
     hull_exact = torch.equal(hull, hull_p) and torch.equal(count, count_p)
     res["min_area_rect"] = dict(
-        max_abs_err=float(err[~off].max()), ok=ok and hull_exact,
+        max_abs_err=err, ok=ok and hull_exact,
         shape=[n, 18], hull_exact=hull_exact,
         hull_max_abs_err=float((hull - hull_p).abs().max()),
         ms=cuda_ms(lambda: minarearect.min_area_rect(p), 20),
         plain_ms=cuda_ms(lambda: minarearect.min_area_rect_plain(p), 3),
-        hull_plain_ms=cuda_ms(lambda: minarearect.convex_hull_plain(p), 3))
+        hull_plain_ms=cuda_ms(lambda: minarearect.convex_hull_plain(p), 3),
+        library_ms=None,
+        # 72 bytes in, rect, hull and count (108 bytes) out a set
+        **bound(n * (72 + 108), min_area_rect_ops(count_p)))
     say("kernel", name="min_area_rect", sets=n, ties=ties,
         tol_px=RECT_TOL, **res["min_area_rect"])
 
     # over-mask: B 4, N 4096 class-offset quads, nv = 4096
-    nq = 4096
+    nq = NQ
     q = torch.tensor(nms_quads(rng, BATCH, nq), dtype=torch.float32,
                      device=dev)
     nv = torch.full((BATCH,), nq, dtype=torch.int32, device=dev)
@@ -190,14 +367,17 @@ def phase_kernels(dev, rng):
     mask_plain = quad_iou.quad_over_mask_plain(q, NMS_THR, nv)
     diff = quad_iou.unpack_bits(mask ^ mask_plain, nq)
     bi, ri, ci = diff.nonzero(as_tuple=True)
-    iou = geometry.quad_iou(q[bi, ri], q[bi, ci])
+    iou = quad_iou.quad_iou_pairs(q[bi, ri], q[bi, ci])
     set_bits = int(quad_iou.unpack_bits(mask_plain, nq).sum())
     res["quad_over_mask"] = dict(
         max_abs_err=float(int(diff.any())), mismatches=int(diff.sum()),
         ok=bool(((iou - NMS_THR).abs() < IOU_TIE).all()), set_bits=set_bits,
         ms=cuda_ms(lambda: quad_iou.quad_over_mask(q, NMS_THR, nv), 10),
         plain_ms=cuda_ms(
-            lambda: quad_iou.quad_over_mask_plain(q, NMS_THR, nv), 1))
+            lambda: quad_iou.quad_over_mask_plain(q, NMS_THR, nv), 1),
+        library_ms=None,
+        **bound(q.numel() * 4 + mask.numel() * 8,
+                clip_pair_ops(*quad_subjects(q), q, tri_live(nv))))
     say("kernel", name="quad_over_mask", batch=BATCH, n=nq,
         iou_tie=IOU_TIE, **res["quad_over_mask"])
 
@@ -205,11 +385,18 @@ def phase_kernels(dev, rng):
     valid = torch.ones((BATCH, nq), dtype=torch.bool, device=dev)
     keep = nms.greedy_scan(mask, valid, nv)
     keep_plain = nms.greedy_scan_plain(mask, valid, nv)
+    words = mask.shape[-1]
+    kept_rows = keep & (torch.arange(nq, device=dev) < nv[:, None].long())
+    row_words = words - torch.arange(nq, device=dev) // 64  # from its word
     res["nms_scan"] = dict(
         max_abs_err=float((keep != keep_plain).sum()),
         ok=bool(torch.equal(keep, keep_plain)), kept=int(keep.sum()),
         ms=cuda_ms(lambda: nms.greedy_scan(mask, valid, nv), 20),
-        plain_ms=cuda_ms(lambda: nms.greedy_scan_plain(mask, valid, nv), 1))
+        plain_ms=cuda_ms(lambda: nms.greedy_scan_plain(mask, valid, nv), 1),
+        library_ms=None,
+        # the kept rows' mask words, valid in, keep out; no arithmetic
+        **bound(float((kept_rows * row_words).sum()) * 8 + 2 * keep.numel(),
+                0.0))
     say("kernel", name="nms_scan", **res["nms_scan"])
 
     # paired DCN sampling over the 1344^2 batch-4 pyramid, C = 256
@@ -232,16 +419,102 @@ def phase_kernels(dev, rng):
     # f32: one rounding either way; bf16: at most one bf16 step (2^-8
     # relative) where the f32 sums round to different sides
     ok = errs[torch.float32] <= 1e-5 and errs[torch.bfloat16] <= 2 ** -8 * 8
+    lib_err, lib_ms = grid_sample_check(dev, rows, LEVELS, backward=False)
     res["deform_sample_pair"] = dict(
-        max_abs_err=errs[torch.bfloat16], ok=ok,
-        ms=times[torch.bfloat16][0], plain_ms=times[torch.bfloat16][1])
+        max_abs_err=errs[torch.bfloat16], ok=ok and lib_err <= LIBRARY_TOL,
+        ms=times[torch.bfloat16][0], plain_ms=times[torch.bfloat16][1],
+        library_ms=lib_ms, **bound(*dcn_bytes_ops(rows, 256, 9, 2, False)))
     say("kernel", name="deform_sample_pair", rows=rows, channels=256,
         max_abs_err_f32=errs[torch.float32],
         max_abs_err_bf16=errs[torch.bfloat16],
         ms_f32=times[torch.float32][0], plain_ms_f32=times[torch.float32][1],
         ms_bf16=times[torch.bfloat16][0],
-        plain_ms_bf16=times[torch.bfloat16][1], ok=ok)
+        plain_ms_bf16=times[torch.bfloat16][1],
+        library="grid_sample, one call per level, bf16",
+        library_max_abs_err_f32=lib_err, library_tol=LIBRARY_TOL,
+        **{k: res["deform_sample_pair"][k] for k in
+           ("library_ms", "bound_ms", "bound_by", "ok")})
     return res
+
+
+def grid_sample_check(dev, rows, levels, backward: bool):
+    """torch's grid_sample over the paired DCN's sample points (bilinear,
+    zero padding; a pixel x lies at (2 x + 1) / w - 1), both
+    tables as one 2C-channel map, one call per pyramid level; backward:
+    its autograd backward (aten.grid_sampler_2d_backward).  Returns (max
+    |grid_sample - plain version| in f32 over the outputs, relative to
+    each output's largest element for the backward; the time of the calls
+    in bf16).  Offset grads are compared at samples more than CELL_EDGE
+    from a pixel line only: there the gradient jumps from one cell's
+    difference to the next, and the two formulations round the position
+    differently."""
+    from orientedreppoints_tpu_torch.ops import deform_conv
+
+    c, k = 256, 9
+    errs, ms = [], None
+    for dt in (torch.float32, torch.bfloat16):
+        ta, tb = (torch.randn(rows, c, device=dev).to(dt) for _ in range(2))
+        offs = (torch.randn(rows, 2 * k, device=dev) * 3).to(dt)
+        ga, gb = ((torch.randn(rows, k * c, device=dev).to(dt)
+                   for _ in range(2)) if backward else (None, None))
+        base = deform_conv.dcn_base_offset(3).to(dev).view(k, 2)
+        calls, start, edge = [], 0, []
+        for b, h, w in levels:
+            n = b * h * w
+            off = offs[start:start + n].float().view(b, h, w, k, 2) + base
+            py = off[..., 0] + torch.arange(h, device=dev).view(1, h, 1, 1)
+            px = off[..., 1] + torch.arange(w, device=dev).view(1, 1, w, 1)
+            grid = torch.stack([(2 * px + 1) / w - 1, (2 * py + 1) / h - 1],
+                               -1).view(b, h * w * k, 1, 2).to(dt)
+            frac = torch.stack([py, px], -1).frac().abs()
+            edge.append((torch.minimum(frac, 1 - frac) < CELL_EDGE).any(-1)
+                        .reshape(-1, k).repeat_interleave(2, 1))
+            x = torch.cat([ta[start:start + n], tb[start:start + n]], 1)
+            x = x.view(b, h, w, 2 * c).permute(0, 3, 1, 2).contiguous()
+            g = None
+            if backward:
+                g = torch.cat([ga[start:start + n].view(b, h * w * k, c),
+                               gb[start:start + n].view(b, h * w * k, c)], 2)
+                g = g.permute(0, 2, 1)[..., None].contiguous()
+            calls.append((x, grid, g, (b, h, w)))
+            start += n
+
+        def library():
+            if backward:
+                return [torch.ops.aten.grid_sampler_2d_backward(
+                    g, x, grid, 0, 0, False, [True, True])
+                    for x, grid, g, _ in calls]
+            return [torch.nn.functional.grid_sample(
+                x, grid, mode="bilinear", padding_mode="zeros",
+                align_corners=False) for x, grid, _, _ in calls]
+
+        if dt == torch.bfloat16:
+            ms = cuda_ms(library, 5) if dev.type == "cuda" else None
+            break
+        outs = library()
+        if backward:
+            want = deform_conv.deform_sample_pair_backward_plain(
+                ta, tb, offs, ga, gb, levels)
+            gtab = torch.cat([gx.permute(0, 2, 3, 1).reshape(-1, 2 * c)
+                              for gx, _ in outs])
+            goff = torch.cat([
+                (gg.view(b, h, w, k, 2)
+                 * torch.tensor([2 / w, 2 / h], device=dev)
+                 ).flip(-1).reshape(-1, 2 * k)
+                for (_, gg), (_, _, _, (b, h, w)) in zip(outs, calls)])
+            goff = torch.where(torch.cat(edge), want[2], goff)
+            got = (gtab[:, :c], gtab[:, c:], goff)
+            errs = [float((x - y).abs().max() / y.abs().max())
+                    for x, y in zip(got, want)]
+        else:
+            want = deform_conv.deform_sample_pair_plain(ta, tb, offs, levels)
+            out = torch.cat([o.permute(0, 2, 1, 3).reshape(-1, k, 2 * c)
+                             for o in outs])
+            got = (out[..., :c].reshape(rows, -1),
+                   out[..., c:].reshape(rows, -1))
+            errs = [float((x - y).abs().max()) for x, y in zip(got, want)]
+        del calls, outs, want, got
+    return max(errs), ms
 
 
 def rotated_gts(rng, h, w, n):
@@ -313,7 +586,11 @@ def phase_train_kernels(dev, rng):
         ms=cuda_ms(lambda: hull_iou.hull_quad_iou_matrix(hulls, counts, q),
                    10),
         plain_ms=cuda_ms(lambda: hull_iou.hull_quad_iou_matrix_plain(
-            hulls, counts, q), 1))
+            hulls, counts, q), 1),
+        library_ms=None,
+        # hulls, counts, quads in; the (B, N, G) f32 matrix out
+        **bound(hulls.numel() * 4 + counts.numel() * 4 + q.numel() * 4
+                + got.numel() * 4, clip_pair_ops(hulls, counts, q)))
     say("kernel", name="hull_quad_iou", batch=b, hulls=n, gts=g,
         pairs=b * n * g, hull_sets=b * n, hull_exact=hull_exact,
         hull_ms=hull_ms, hull_plain_ms=hull_plain_ms, **res["hull_quad_iou"])
@@ -343,9 +620,14 @@ def phase_train_kernels(dev, rng):
         torch.cuda.empty_cache()
     ok = all(e <= DCN_BWD_RTOL[name] * scale
              for name in errs for e, scale in errs[name])
+    lib_err, lib_ms = grid_sample_check(dev, rows, TRAIN_LEVELS,
+                                        backward=True)
+    torch.cuda.empty_cache()
     res["deform_sample_pair_backward"] = dict(
-        max_abs_err=max(e for e, _ in errs["bfloat16"]), ok=ok,
-        ms=times["bfloat16"][0], plain_ms=times["bfloat16"][1])
+        max_abs_err=max(e for e, _ in errs["bfloat16"]),
+        ok=ok and lib_err <= LIBRARY_TOL,
+        ms=times["bfloat16"][0], plain_ms=times["bfloat16"][1],
+        library_ms=lib_ms, **bound(*dcn_bytes_ops(rows, c, k, 2, True)))
     say("kernel", name="deform_sample_pair_backward", rows=rows, channels=c,
         max_abs_err_f32=[e for e, _ in errs["float32"]],
         max_abs_err_bf16=[e for e, _ in errs["bfloat16"]],
@@ -353,8 +635,389 @@ def phase_train_kernels(dev, rng):
         grad_scale_bf16=[s for _, s in errs["bfloat16"]],
         rtol=DCN_BWD_RTOL, ms_f32=times["float32"][0],
         plain_ms_f32=times["float32"][1], ms_bf16=times["bfloat16"][0],
-        plain_ms_bf16=times["bfloat16"][1], ok=ok)
+        plain_ms_bf16=times["bfloat16"][1],
+        library="aten.grid_sampler_2d_backward, one call per level, bf16",
+        library_max_rel_err_f32=lib_err, library_tol=LIBRARY_TOL,
+        **{k: res["deform_sample_pair_backward"][k] for k in
+           ("library_ms", "bound_ms", "bound_by", "ok")})
     return res
+
+
+@contextlib.contextmanager
+def plain_quad_iou():
+    """Route the f32 IoU entries (soft_rnms, box_iou_rotated) through the
+    plain version on the card."""
+    from orientedreppoints_tpu_torch.ops import nms, quad_iou
+
+    saved = (nms.quad_iou_matrix, quad_iou.quad_iou_matrix)
+    plain = (lambda a, b: quad_iou.quad_iou_matrix_plain(a[None],
+                                                         b[None])[0])
+    nms.quad_iou_matrix = quad_iou.quad_iou_matrix = plain
+    try:
+        yield
+    finally:
+        nms.quad_iou_matrix, quad_iou.quad_iou_matrix = saved
+
+
+def differing_bits(a: torch.Tensor, b: torch.Tensor) -> int:
+    return int((a.view(torch.int32) != b.view(torch.int32)).sum())
+
+
+def phase_quad_kernels(dev, rng):
+    """Kernels 4 and 5 (full and upper-triangle f32 IoU) and the
+    single-image over-mask at NMS shapes, each against its plain version;
+    the over-mask bits against (tri > thr); soft_rnms and box_iou_rotated
+    through the kernel and through the plain version."""
+    from orientedreppoints_tpu_torch.ops import geometry, nms, quad_iou
+
+    res = {}
+    nq = NQ
+    q4 = torch.tensor(nms_quads(rng, 4, nq), dtype=torch.float32,
+                      device=dev)
+    q = q4[0].contiguous()
+    full = quad_iou.quad_iou_matrix(q, q)
+    full_p = quad_iou.quad_iou_matrix_plain(q[None], q[None])[0]
+    bits = differing_bits(full, full_p)
+    res["quad_iou_full"] = dict(
+        max_abs_err=float((full - full_p).abs().max()), differing_bits=bits,
+        ok=bits == 0, iou_gt_0p4=int((full_p > NMS_THR).sum()),
+        ms=cuda_ms(lambda: quad_iou.quad_iou_matrix(q, q), 10),
+        plain_ms=cuda_ms(lambda: quad_iou.quad_iou_matrix_plain(
+            q[None], q[None]), 1),
+        library_ms=None,
+        **bound(2 * q.numel() * 4 + full.numel() * 4,
+                clip_pair_ops(*quad_subjects(q[None]), q[None])))
+    say("kernel", name="quad_iou_full", n=nq, m=nq, **res["quad_iou_full"])
+    del full, full_p
+
+    nv = torch.tensor(TRI_NV, dtype=torch.int32, device=dev)
+    tri = quad_iou.quad_iou_matrix_batch(q4, q4, True, nv)
+    tri_p = quad_iou.quad_iou_matrix_plain(q4, q4, True, nv)
+    bits = differing_bits(tri, tri_p)
+    live = tri_live(nv)
+    res["quad_iou_tri"] = dict(
+        max_abs_err=float((tri - tri_p).abs().max()), differing_bits=bits,
+        ok=bits == 0,
+        ms=cuda_ms(lambda: quad_iou.quad_iou_matrix_batch(q4, q4, True, nv),
+                   10),
+        plain_ms=cuda_ms(lambda: quad_iou.quad_iou_matrix_plain(
+            q4, q4, True, nv), 1),
+        library_ms=None,
+        **bound(2 * q4.numel() * 4 + nv.numel() * 4 + tri.numel() * 4,
+                clip_pair_ops(*quad_subjects(q4), q4, live)))
+    say("kernel", name="quad_iou_tri", batch=4, n=nq, num_valid=TRI_NV,
+        **res["quad_iou_tri"])
+    del tri_p
+
+    # the over-mask's bits are (tri > thr) of the same pairs, every bit
+    mask = quad_iou.quad_over_mask(q4, NMS_THR, nv)
+    over_vs_tri = int(quad_iou.unpack_bits(
+        mask ^ quad_iou.pack_bits(tri > NMS_THR), nq).sum())
+    del mask, tri
+    words = quad_iou.quad_over_matrix(q, NMS_THR, nq)
+    words_p = quad_iou.quad_over_mask_plain(q[None], NMS_THR, nv[:1])[0]
+    diff = int(quad_iou.unpack_bits(words ^ words_p, nq).sum())
+    res["quad_over_mask_single"] = dict(
+        max_abs_err=float(diff), differing_bits=diff,
+        over_mask_vs_tri_differing_bits=over_vs_tri,
+        ok=diff == 0 and over_vs_tri == 0,
+        set_bits=int(quad_iou.unpack_bits(words_p, nq).sum()),
+        ms=cuda_ms(lambda: quad_iou.quad_over_matrix(q, NMS_THR, nq), 10),
+        plain_ms=cuda_ms(lambda: quad_iou.quad_over_mask_plain(
+            q[None], NMS_THR, nv[:1]), 1),
+        library_ms=None,
+        **bound(q.numel() * 4 + 4 + words.numel() * 8,
+                clip_pair_ops(*quad_subjects(q[None]), q[None],
+                              tri_live(nv[:1]))))
+    say("kernel", name="quad_over_mask_single", n=nq,
+        **res["quad_over_mask_single"])
+
+    # the scan at the merge's shape (one image), over the same words
+    valid = torch.ones((1, nq), dtype=torch.bool, device=dev)
+    keep = nms.greedy_scan(words[None], valid, nv[:1])
+    keep_p = nms.greedy_scan_plain(words[None], valid, nv[:1])
+    same = bool(torch.equal(keep, keep_p))
+    say("kernel_shape", name="nms_scan", batch=1, n=nq, kept=int(keep.sum()),
+        same_keep=same,
+        ms=cuda_ms(lambda: nms.greedy_scan(words[None], valid, nv[:1]), 20),
+        plain_ms=cuda_ms(lambda: nms.greedy_scan_plain(
+            words[None], valid, nv[:1]), 1), ok=same)
+
+    # the entries of kernel 4 through the kernel and the plain version
+    qs = q[:nq // 2].contiguous()
+    scores = torch.tensor(rng.uniform(0.05, 1.0, len(qs)),
+                          dtype=torch.float32, device=dev)
+    rb = torch.tensor(np.concatenate([rng.uniform(0, 1344, (3000, 2)),
+                                      rng.uniform(8, 120, (3000, 2)),
+                                      rng.uniform(-np.pi, np.pi, (3000, 1))],
+                                     1), dtype=torch.float32, device=dev)
+    runs = []
+    for route in ("kernel", "plain"):
+        with plain_quad_iou() if route == "plain" else \
+                contextlib.nullcontext():
+            runs.append((nms.soft_rnms(qs, scores),
+                         geometry.box_iou_rotated(rb[:2000], rb[1000:])))
+    ((sk, kk), bk), ((sp, kp), bp) = runs
+    same_soft = bool(torch.equal(kk, kp)) and bool(torch.equal(sk, sp))
+    bits = differing_bits(bk, bp)
+    say("entries", soft_rnms_same_keep_and_scores=same_soft,
+        soft_rnms_kept=int(kk.sum()), box_iou_rotated_differing_bits=bits,
+        box_iou_rotated_pairs_gt_0p3=int((bp > 0.3).sum()),
+        ok=same_soft and bits == 0)
+    return res, same_soft and bits == 0 and same
+
+
+def normalized_images(cfg, rng, n, size):
+    """n seeded size^2 BGR uint8 images as the dataset items run_inference
+    takes: normalized, and resized (bilinear, keep ratio) to fill the
+    canvas, with that scale factor.  Random weights detect all over the
+    canvas, padding included; filling it puts every det's origin inside
+    the image, so that mapped back each must land in its size^2 frame."""
+    from orientedreppoints_tpu_torch.host import Normalize, resize_linear
+
+    norm = Normalize(**cfg["img_norm_cfg"])
+    canvas = tuple(cfg["tpu"]["canvas_buckets"][-1])
+    factor = min(canvas) / size
+    side = int(size * factor + 0.5)
+    items = []
+    for i in range(n):
+        img = norm(torch.from_numpy(
+            (rng.random((size, size, 3)) * 255).astype(np.uint8)))
+        items.append(dict(
+            img=resize_linear(img[None], (side, side))[0].numpy(),
+            scale_factor=factor, img_info=dict(file_name=f"img{i}.png")))
+    return items
+
+
+@contextlib.contextmanager
+def wrapping(module, name, on_call):
+    """Wrap module.name so that every call also passes (args, kwargs,
+    result) to on_call."""
+    fn = getattr(module, name)
+
+    def wrapped(*args, **kwargs):
+        out = fn(*args, **kwargs)
+        on_call(args, kwargs, out)
+        return out
+    setattr(module, name, wrapped)
+    try:
+        yield
+    finally:
+        setattr(module, name, fn)
+
+
+def recording(module, name, record):
+    """Append (args, kwargs, result) of every call of module.name."""
+    return wrapping(module, name, lambda *call: record.append(call))
+
+
+def checking(module, name, plain, compare, record):
+    """Also run plain on the inputs of every call of module.name and
+    append compare(args, result, plain result) to record."""
+    return wrapping(module, name, lambda args, kwargs, out: record.append(
+        compare(args, out, plain(*args, **kwargs))))
+
+
+def dcn_compare(args, got, want):
+    """One paired-DCN forward call against its plain version: the
+    pyramid's first level and rows, the max error, and ok within one bf16
+    rounding step of the output's largest element."""
+    err = max(float((g.float() - w.float()).abs().max())
+              for g, w in zip(got, want))
+    scale = max(float(w.float().abs().max()) for w in want)
+    tol = (DCN_FWD_RTOL_BF16 if got[0].dtype == torch.bfloat16
+           else DCN_FWD_TOL_F32) * max(scale, 1.0)
+    return dict(level0=list(args[3][0]), rows=int(args[0].shape[0]),
+                dtype=str(got[0].dtype).split(".")[-1], max_abs_err=err,
+                out_max=scale, tol=tol, ok=err <= tol)
+
+
+def rect_compare(args, got, want):
+    err, ties, ok = rect_check(got, want)
+    return dict(sets=int(args[0].shape[0]), max_abs_err=err, ties=ties,
+                ok=ok)
+
+
+def centres_in_frame(results, size):
+    """(every det finite, dets whose centre lies in the size^2 image frame
+    +- 8 px, dets within +- (8 px + FRAME_SPREAD), dets) over
+    run_inference-style results."""
+    dets = np.concatenate([a for per_class in results.values()
+                           for a in per_class])
+    c = np.stack([dets[:, 0:8:2].mean(1), dets[:, 1:8:2].mean(1)], 1)
+
+    def inside(margin):
+        return int(((c > -margin) & (c < size + margin)).all(1).sum())
+    return (bool(np.isfinite(dets).all()), inside(8),
+            inside(8 + FRAME_SPREAD), len(dets))
+
+
+def phase_tta(model, cfg, test_cfg, dataset, ops_mod, card):
+    from orientedreppoints_tpu_torch import apis
+
+    canvas = tuple(cfg["tpu"]["canvas_buckets"][-1])
+
+    def run(data, record=None):
+        with (recording(apis, "decode_no_nms", record)
+              if record is not None else contextlib.nullcontext()):
+            out = apis.run_inference_tta(model, data, test_cfg, TTA_AUGS,
+                                         canvas=canvas, batch_size=TTA_BATCH)
+        torch.cuda.synchronize()
+        return out
+
+    run(dataset[:TTA_BATCH])  # warm-up batch
+    torch.cuda.reset_peak_memory_stats()
+    record = []
+    ops_mod.reset_launch_counts()
+    results = run(dataset, record)
+    launches = ops_mod.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        run(dataset)
+        times.append(time.perf_counter() - t0)
+
+    # decode_no_nms calls: per batch, the augs of each scale in turn
+    order = [ai for r in dict.fromkeys(r for r, _ in TTA_AUGS)
+             for ai, (rr, _) in enumerate(TTA_AUGS) if rr == r]
+    thr = test_cfg["score_thr"]
+    per_aug = {ai: [] for ai in range(len(TTA_AUGS))}
+    for i, (_, _, (boxes, scores)) in enumerate(record):
+        per_aug[order[i % len(order)]] += (scores > thr).sum((1, 2)).tolist()
+    for ai, (r, flip) in enumerate(TTA_AUGS):
+        say("tta_aug", scale=r, flip=flip,
+            candidates_per_image=per_aug[ai][:TTA_IMAGES])
+    merged = [min(sum(per_aug[ai][i] for ai in per_aug),
+                  test_cfg.get("pre_nms_cap", 4096))
+              for i in range(TTA_IMAGES)]
+    finite, near, within, dets = centres_in_frame(results, TTA_SIZE)
+    kept = [sum(len(a) for a in results[f"img{i}"])
+            for i in range(TTA_IMAGES)]
+    ips = [TTA_IMAGES / t for t in times]
+    ok = (len(results) == TTA_IMAGES and min(kept) > 0 and finite
+          and within == dets and min(merged) >= 1000
+          and all(launches[k] > 0 for k in TTA_KERNELS))
+    say("tta", config=CONFIG, augs=TTA_AUGS, batch=TTA_BATCH,
+        images=TTA_IMAGES, image_size=TTA_SIZE, dtype="bfloat16",
+        merged_candidates_per_image=merged, dets_kept=kept,
+        launches=launches, finite=finite, dets=dets,
+        centres_within_8px_of_frame=near,
+        centres_within_8px_plus_spread=within, spread_px=FRAME_SPREAD,
+        images_per_s_median=statistics.median(ips), images_per_s=ips,
+        max_memory_allocated_bytes=peak, card=card, ok=ok)
+    return ok, launches
+
+
+@contextlib.contextmanager
+def plain_merge():
+    """Route the TTA merge's NMS through the plain versions on the card."""
+    from orientedreppoints_tpu_torch.ops import nms, quad_iou
+
+    saved = (nms.quad_over_mask, nms.greedy_scan)
+    nms.quad_over_mask = quad_iou.quad_over_mask_plain
+    nms.greedy_scan = nms.greedy_scan_plain
+    try:
+        yield
+    finally:
+        nms.quad_over_mask, nms.greedy_scan = saved
+
+
+def same_dets(a, b) -> tuple[bool, float, float]:
+    """(labels equal, max poly error px, max score error) of two
+    (dets, labels, valid) triples."""
+    (d, lab, v), (d2, lab2, v2) = a, b
+    if not (torch.equal(v, v2) and torch.equal(lab[v], lab2[v])):
+        return False, float("inf"), float("inf")
+    return (True, float(rect_err(d[v][:, :8], d2[v][:, :8]).max()),
+            float((d[v][:, 8] - d2[v][:, 8]).abs().max()))
+
+
+def phase_tta_check(model, cfg, test_cfg, dataset):
+    from orientedreppoints_tpu_torch import apis
+    from orientedreppoints_tpu_torch.models import detector
+
+    canvas = tuple(cfg["tpu"]["canvas_buckets"][-1])
+    data = dataset[:TTA_BATCH]
+    plain = apis.run_inference(model, data, test_cfg, canvas=canvas,
+                               batch_size=TTA_BATCH)
+    ident = apis.run_inference_tta(model, data, test_cfg, [(1.0, False)],
+                                   canvas=canvas, batch_size=TTA_BATCH)
+    same_labels, poly_err, score_err, dets = True, 0.0, 0.0, 0
+    for name, per_class in plain.items():
+        for a, b in zip(per_class, ident[name]):
+            same_labels &= a.shape == b.shape
+            if same_labels and len(a):
+                poly_err = max(poly_err, float(rect_err(
+                    torch.from_numpy(a[:, :8]),
+                    torch.from_numpy(b[:, :8])).max()))
+                score_err = max(score_err, float(np.abs(a[:, 8]
+                                                        - b[:, 8]).max()))
+                dets += len(a)
+    ok_a = (same_labels and set(plain) == set(ident) and dets > 0
+            and poly_err <= RECT_TOL and score_err == 0.0)
+
+    # (b) one batch of the full recipe: every DCN forward and min-area-rect
+    # call of the path (each scale's canvas) against its plain version on
+    # the same inputs, then the merged candidates through the kernels and
+    # through the plain over-mask and scan
+    from orientedreppoints_tpu_torch.ops import deform_conv, geometry
+
+    record, dcn, rects = [], [], []
+    with recording(apis, "merge_aug_and_nms", record), \
+            checking(deform_conv, "deform_sample_pair",
+                     deform_conv.deform_sample_pair_plain, dcn_compare, dcn), \
+            checking(detector, "min_area_rect", geometry.min_area_rect,
+                     rect_compare, rects):
+        apis.run_inference_tta(model, data, test_cfg, TTA_AUGS,
+                               canvas=canvas, batch_size=TTA_BATCH)
+    for name, calls in (("deform_sample_pair", dcn), ("min_area_rect", rects)):
+        for c in calls:
+            say("tta_kernel", name=name, **c)
+    ok_b = (len(dcn) == len(rects) == len(TTA_AUGS)
+            and all(c["ok"] for c in dcn + rects))
+    errs = []
+    with torch.inference_mode():
+        for args, kwargs, out in record:
+            with plain_merge():
+                out_p = detector.merge_aug_and_nms(*args, **kwargs)
+            same, pe, se = same_dets(out, out_p)
+            errs.append((int(out[2].sum()), pe, se))
+            ok_b &= same and pe <= RECT_TOL and se == 0.0
+    say("tta_check", identity_same_labels=same_labels, identity_dets=dets,
+        identity_max_err_poly_px=poly_err, identity_max_err_score=score_err,
+        dcn_calls_checked=len(dcn), min_area_rect_calls_checked=len(rects),
+        merge_dets_poly_err_score_err=errs, ok=ok_a and ok_b)
+    return ok_a and ok_b, record
+
+
+def phase_iou_path(record, ops_mod, test_cfg):
+    """The f32 IoU kernels' path: soft_rnms over one image's merged TTA
+    candidates (the top 2048 boxes by best class score) and the
+    upper-triangle IoU entry over them, score-sorted with their valid
+    prefix."""
+    from orientedreppoints_tpu_torch.ops import nms, quad_iou
+
+    args, _, _ = record[0]
+    boxes = torch.cat(args[0])  # each aug in its test-scale frame
+    scores = torch.cat(args[1])[:, 1:].amax(1)
+    top, idx = nms.topk_stable(scores, 2048)
+    quads = boxes[idx].contiguous()
+    ops_mod.reset_launch_counts()
+    with torch.inference_mode():
+        decayed, keep = nms.soft_rnms(quads, top, method="gaussian")
+        nv = (top > test_cfg["score_thr"]).sum(dtype=torch.int32)
+        tri = quad_iou.quad_iou_matrix(quads, quads, upper_tri=True,
+                                       num_valid=nv)
+    torch.cuda.synchronize()
+    launches = ops_mod.launch_counts()
+    ok = (all(launches[k] > 0 for k in IOU_PATH_KERNELS)
+          and bool(torch.isfinite(decayed).all()) and int(keep.sum()) > 0
+          and bool(torch.isfinite(tri).all()))
+    say("iou_path", candidates=int(quads.shape[0]), num_valid=int(nv),
+        soft_kept=int(keep.sum()), tri_pairs_gt_0p4=int((tri > 0.4).sum()),
+        launches=launches, ok=ok)
+    return ok, launches
 
 
 def perturbed_weights(rng):
@@ -644,11 +1307,21 @@ def main() -> int:
     torch.manual_seed(SEED)
     rng = np.random.default_rng(SEED)
     rng_train = np.random.default_rng(SEED + 1)
+    rng_quad = np.random.default_rng(SEED + 2)
     kernels = phase_kernels(dev, rng)
     kernels.update(phase_train_kernels(dev, rng_train))
+    quad_res, ok_entries = phase_quad_kernels(dev, rng_quad)
+    kernels.update(quad_res)
     ok_slice, launches, pred, outs = phase_slice(dev, rng, ops_mod, card)
     ok_decode = phase_decode(pred, outs)
-    del pred, outs
+    del outs
+    dataset = normalized_images(pred.cfg, rng, TTA_IMAGES, TTA_SIZE)
+    ok_tta, launches_tta = phase_tta(pred.model, pred.cfg, pred.test_cfg,
+                                     dataset, ops_mod, card)
+    ok_tta_check, merges = phase_tta_check(pred.model, pred.cfg,
+                                           pred.test_cfg, dataset)
+    ok_iou, launches_iou = phase_iou_path(merges, ops_mod, pred.test_cfg)
+    del pred, merges
     torch.cuda.empty_cache()
 
     from orientedreppoints_tpu_torch.host import load_config
@@ -661,16 +1334,25 @@ def main() -> int:
     torch.cuda.empty_cache()
     ok_check = phase_train_check(dev, ops_mod, sd, batch)
 
-    # launches: the serving run's count plus the training run's
+    # launches: each kernel's count over the counted runs of the paths
+    # that run it (serving, training, TTA, the IoU path); the single-image
+    # over-mask is the TTA run's over-mask count
+    runs = (launches, launches_train, launches_tta, launches_iou)
+    counts = {name: sum(r[name] for r in runs) for name in ops_mod.KERNELS}
+    counts["quad_over_mask"] = launches["quad_over_mask"] + \
+        launches_train["quad_over_mask"]
+    counts["quad_over_mask_single"] = launches_tta["quad_over_mask"]
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=SOURCES[name][0],
-             replaces=SOURCES[name][1],
-             launches=launches[name] + launches_train[name],
-             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"])
+             replaces=SOURCES[name][1], launches=counts[name],
+             **{k: r[k] for k in keys})
         for name, r in kernels.items()]}))
     print(card)
-    if not (all(r["ok"] for r in kernels.values()) and ok_slice
-            and ok_decode and ok_train and ok_check):
+    if not (all(r["ok"] for r in kernels.values()) and ok_entries
+            and ok_slice and ok_decode and ok_tta and ok_tta_check
+            and ok_iou and ok_train and ok_check):
         print("chip_smoke: a phase failed", file=sys.stderr)
         return 1
     print(json.dumps({"ok": True, "device": {

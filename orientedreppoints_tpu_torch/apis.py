@@ -1,15 +1,24 @@
-"""init_detector: config -> model -> optional weights (counterpart of
-apis.py::init_detector and utils/builder.py::build_detector), and the
-training config readers build_loss_config / build_img_norm
-(utils/builder.py)."""
+"""High-level APIs (counterpart of apis.py and utils/builder.py):
+
+  * init_detector: config -> model -> optional weights;
+  * run_inference and run_inference_tta (multi-scale x flip test-time
+    augmentation) over a dataset, on the model's device;
+  * parse_tta_spec: the CLI's TTA flags -> aug list;
+  * the training config readers build_loss_config / build_img_norm.
+"""
 
 from __future__ import annotations
 
+import os.path as osp
+from typing import Sequence
+
+import numpy as np
 import torch
 
 from .core.loss_head import LossConfig
-from .host import load_config
-from .models.detector import OrientedRepPointsDetector
+from .host import ceil32, load_config, rbbox2result, resize_linear
+from .models.detector import (OrientedRepPointsDetector, decode_detections,
+                              decode_no_nms, merge_aug_and_nms)
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -60,6 +69,129 @@ def init_detector(config, state_dict: dict | None = None,
     else:
         model.load_state_dict(state_dict, strict=True)
     return model.to(device).eval(), cfg
+
+
+def _batches(dataset, n: int, batch_size: int, canvas, device):
+    """Yield (canvases (batch_size, H, W, 3) float32 on device, scale
+    factors [batch_size], names) per batch; short batches are padded with
+    zero canvases, factor 1.0 and name None.  Items are dicts with 'img'
+    (normalized HWC float32), 'scale_factor' and 'img_info.file_name'."""
+    for lo in range(0, n, batch_size):
+        imgs = torch.zeros((batch_size,) + tuple(canvas) + (3,),
+                           dtype=torch.float32, device=device)
+        sfs, names = [], []
+        for bi, i in enumerate(range(lo, min(lo + batch_size, n))):
+            s = dataset[i]
+            img = torch.as_tensor(np.asarray(s["img"], np.float32))
+            imgs[bi, :img.shape[0], :img.shape[1]] = img.to(device)
+            sfs.append(float(np.asarray(s.get("scale_factor", 1.0))
+                             .reshape(-1)[0]))
+            names.append(osp.splitext(s["img_info"]["file_name"])[0])
+        sfs += [1.0] * (batch_size - len(sfs))
+        names += [None] * (batch_size - len(names))
+        yield imgs, sfs, names
+
+
+def _collect(results, dets, labels, valid, names, num_fg):
+    dets, labels, valid = (t.cpu().numpy() for t in (dets, labels, valid))
+    for bi, name in enumerate(names):
+        if name is not None:
+            keep = valid[bi]
+            results[name] = rbbox2result(dets[bi][keep][:, -9:],
+                                         labels[bi][keep], num_fg + 1)
+
+
+def _device(model) -> torch.device:
+    return next(model.parameters()).device
+
+
+@torch.inference_mode()
+def run_inference(model, dataset, test_cfg, canvas=(1344, 1344),
+                  batch_size: int = 4, max_images: int | None = None,
+                  num_fg: int = 15):
+    """Inference over a dataset on the model's device -> {image_name:
+    [per-class (k, 9) arrays]}.  Each image is pasted on a zero canvas,
+    batches go through the model and decode_detections."""
+    device = _device(model)
+    n = len(dataset) if max_images is None else min(max_images, len(dataset))
+    results = {}
+    for imgs, sfs, names in _batches(dataset, n, batch_size, canvas, device):
+        sf = torch.tensor(sfs, dtype=torch.float32, device=device)
+        out = decode_detections(
+            model(imgs), nms_pre=test_cfg["nms_pre"],
+            score_thr=test_cfg["score_thr"],
+            iou_thr=test_cfg["nms"]["iou_thr"],
+            max_per_img=test_cfg["max_per_img"],
+            pre_nms_cap=test_cfg.get("pre_nms_cap", 4096),
+            scale_factor=sf[:, None, None])
+        _collect(results, *out, names, num_fg)
+    return results
+
+
+@torch.inference_mode()
+def run_inference_tta(model, dataset, test_cfg, tta_augs: Sequence[tuple],
+                      canvas=(1344, 1344), batch_size: int = 2,
+                      max_images: int | None = None, num_fg: int = 15):
+    """Multi-scale / flip TTA inference on the model's device ->
+    {image_name: [per-class (k, 9) arrays]}.
+
+    tta_augs: (relative_scale, flip) pairs, e.g. [(0.5, False),
+    (0.5, True), (1.0, False), ...].  Each scale r runs on its own canvas
+    of ceil32(r * canvas), holding the normalized canvas resized to
+    round(r * canvas) (resize_linear: cv2's INTER_LINEAR), and its flip
+    variants share it (flip: the canvas mirrored left to right).  Every aug
+    is decoded without NMS (decode_no_nms); per image, merge_aug_and_nms
+    unflips each aug in its canvas frame, undoes its scale (image scale
+    factor x r) and runs one multiclass_rnms over all augs' candidates.
+    The (1.0, False) aug runs on exactly run_inference's canvas, so that
+    recipe alone gives run_inference's detections.
+    """
+    device = _device(model)
+    ch, cw = tuple(canvas)
+    scales = list(dict.fromkeys(r for r, _ in tta_augs))
+    scale_canvas = {r: (ceil32(ch * r), ceil32(cw * r)) for r in scales}
+    aug_shapes = [scale_canvas[r] for r, _ in tta_augs]
+    tc = test_cfg
+    n = len(dataset) if max_images is None else min(max_images, len(dataset))
+    results = {}
+    for imgs, sfs, names in _batches(dataset, n, batch_size, canvas, device):
+        aug_boxes = [None] * len(tta_augs)
+        aug_scores = [None] * len(tta_augs)
+        for r in scales:
+            sh, sw = scale_canvas[r]
+            x = torch.zeros((batch_size, sh, sw, 3), dtype=torch.float32,
+                            device=device)
+            rh, rw = (ch, cw) if r == 1.0 else (int(round(ch * r)),
+                                                int(round(cw * r)))
+            x[:, :rh, :rw] = resize_linear(imgs, (rh, rw))
+            for ai, (rr, flip) in enumerate(tta_augs):
+                if rr == r:
+                    aug_boxes[ai], aug_scores[ai] = decode_no_nms(
+                        model(x.flip(2) if flip else x),
+                        nms_pre=tc["nms_pre"])
+        real = [bi for bi, name in enumerate(names) if name is not None]
+        outs = [merge_aug_and_nms(
+            [b[bi] for b in aug_boxes], [s[bi] for s in aug_scores],
+            [f for _, f in tta_augs], aug_shapes,
+            [np.float32(sfs[bi] * r) for r, _ in tta_augs],
+            score_thr=tc["score_thr"], iou_thr=tc["nms"]["iou_thr"],
+            max_per_img=tc["max_per_img"],
+            pre_nms_cap=tc.get("pre_nms_cap", 4096)) for bi in real]
+        _collect(results, *(torch.stack(t) for t in zip(*outs)),
+                 [names[bi] for bi in real], num_fg)
+    return results
+
+
+def parse_tta_spec(ms_tta: str | None, flip_tta: bool):
+    """CLI TTA flags -> [(relative_scale, flip)] aug list or None: every
+    scale, optionally x both orientations (MultiScaleFlipAug)."""
+    if ms_tta:
+        scales = [float(s) for s in ms_tta.split(",")]
+        flips = (False, True) if flip_tta else (False,)
+        return [(r, f) for r in scales for f in flips]
+    if flip_tta:
+        return [(1.0, False), (1.0, True)]
+    return None
 
 
 def build_loss_config(cfg) -> LossConfig:

@@ -1,23 +1,21 @@
 // Rotated-NMS suppression mask as a bitmask, one thread per (i, j) pair.
 //
 // Replaces: orientedreppoints_tpu/ops/pallas_quad_iou.py,
-// _make_quad_over_kernel (batched entry quad_over_matrix_batch_pallas).
+// _make_quad_over_kernel (batched entry quad_over_matrix_batch_pallas; the
+// single-image entry quad_over_matrix_pallas is a batch-1 launch).
 // For score-sorted quads, bit j of row i is set iff IoU(i, j) > thr
-// (strict), j > i, and i, j < nv[b].  IoU is exact convex-quad IoU: the
-// subject quad i is clipped (Sutherland-Hodgman) by the four half-planes of
-// the clip quad j after it is turned counter-clockwise, then a shoelace.
-// As in the Pallas tile, every pair is recentred on the clip quad's vertex 0
-// first: class-offset NMS coordinates reach ~3e4, where f32 cross products
-// of raw coordinates lose the overlap.  Each stage keeps at most 5, 6, 7, 8
-// vertices, the Pallas kernel's caps.
+// (strict), j > i, and i, j < nv[b].  IoU is quad_clip.cuh's quad_iou of
+// subject i and clip quad j, the function the f32 IoU-matrix kernels
+// (quad_iou.cu) evaluate, so a bit here is exactly (f32 IoU > thr) there.
 //
 // Output: (B, N, W) uint64 words, W = ceil(N / 64); bit t of word w is
 // column 64 w + t (the mmcv rnms layout).  A block is 64 columns (one
 // word) x 4 rows; each warp's __ballot_sync packs 32 pair results into the
 // low or high half of the word, so no atomics are needed.
 //
-// Bound on the H100: arithmetic.  A pair is ~200 flops of clipping on 64
-// bytes of inputs that stay in L1/L2; the output is 1 bit a pair.  Blocks
+// Bound on the H100: arithmetic.  A pair is up to ~200 f32 operations of
+// clipping (~50 on average over NMS candidates, most of them disjoint) on
+// 64 bytes of inputs that stay in L1/L2; the output is 1 bit a pair.  Blocks
 // that lie wholly past the valid prefix or on/below the diagonal write
 // zeros and skip the IoU, which drops more than half of the N^2 pairs.
 // The clip lists live in small local arrays with dynamic indexing; that
@@ -25,101 +23,13 @@
 // version would remove.
 
 #include <cuda_runtime.h>
-#include <math.h>
 #include <stdint.h>
+
+#include "quad_clip.cuh"
 
 namespace {
 
 constexpr int ROWS = 4;
-constexpr int MAXV = 8;
-constexpr float EPS = 1e-8f;
-
-__device__ __forceinline__ float shoelace4(const float* x, const float* y) {
-  float s = 0.f;
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const int kn = (k + 1) & 3;
-    s += x[k] * y[kn] - x[kn] * y[k];
-  }
-  return s;
-}
-
-// IoU of subject quad a and clip quad b, both (8,) x/y interleaved.
-__device__ float quad_iou(const float* __restrict__ a,
-                          const float* __restrict__ b) {
-  const float ox = b[0], oy = b[1];
-  float ax[4], ay[4], bx[4], by[4];
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    ax[k] = a[2 * k] - ox;
-    ay[k] = a[2 * k + 1] - oy;
-    bx[k] = b[2 * k] - ox;
-    by[k] = b[2 * k + 1] - oy;
-  }
-  const float area2_a = shoelace4(ax, ay);
-  const float area2_b = shoelace4(bx, by);
-  const bool flip = area2_b < 0.f;
-  float cxq[4], cyq[4];
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const int src = flip ? ((4 - k) & 3) : k;
-    cxq[k] = bx[src];
-    cyq[k] = by[src];
-  }
-
-  float vx[MAXV], vy[MAXV], wx[MAXV], wy[MAXV], side[MAXV];
-  int cnt = 4;
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    vx[k] = ax[k];
-    vy[k] = ay[k];
-  }
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    const int en = (e + 1) & 3;
-    const float ex = cxq[en] - cxq[e], ey = cyq[en] - cyq[e];
-    const float e0x = cxq[e], e0y = cyq[e];
-    const int cap = 5 + e;
-    for (int j = 0; j < cnt; ++j)
-      side[j] = ex * (vy[j] - e0y) - ey * (vx[j] - e0x);
-    int out = 0;
-    for (int j = 0; j < cnt; ++j) {
-      const int jn = (j + 1 == cnt) ? 0 : j + 1;
-      const bool in_cur = side[j] >= 0.f;
-      const bool in_nxt = side[jn] >= 0.f;
-      if (in_cur != in_nxt) {
-        const float denom = side[j] - side[jn];
-        const float t = side[j] / (fabsf(denom) < 1e-12f ? 1.f : denom);
-        if (out < cap) {
-          wx[out] = vx[j] + t * (vx[jn] - vx[j]);
-          wy[out] = vy[j] + t * (vy[jn] - vy[j]);
-        }
-        ++out;
-      }
-      if (in_nxt) {
-        if (out < cap) {
-          wx[out] = vx[jn];
-          wy[out] = vy[jn];
-        }
-        ++out;
-      }
-    }
-    cnt = out < cap ? out : cap;
-    for (int j = 0; j < cnt; ++j) {
-      vx[j] = wx[j];
-      vy[j] = wy[j];
-    }
-  }
-  float s = 0.f;
-  for (int j = 0; j < cnt; ++j) {
-    const int jn = (j + 1 == cnt) ? 0 : j + 1;
-    s += vx[j] * vy[jn] - vx[jn] * vy[j];
-  }
-  const float inter = 0.5f * fabsf(s);
-  const float uni =
-      fmaxf(0.5f * fabsf(area2_a) + 0.5f * fabsf(area2_b) - inter, EPS);
-  return inter / uni;
-}
 
 __global__ void quad_over_kernel(const float* __restrict__ quads,
                                  const int* __restrict__ nv,

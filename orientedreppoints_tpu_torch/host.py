@@ -5,6 +5,9 @@ Counterparts of:
   * ``data/pipelines.py::imrescale`` / ``RotateResize(keep_ratio=True)`` —
     the same size and factor arithmetic, with a bilinear resize on tensors;
   * ``data/pipelines.py::Normalize`` — BGR->RGB, then (x - mean) / std;
+  * the TTA scale canvases of ``apis.py::run_inference_tta`` — ``ceil32``
+    and ``cv2.resize(canvas, (w, h), interpolation=cv2.INTER_LINEAR)`` on a
+    float canvas, as ``resize_linear`` on the device;
   * ``core/rbox.py::rbbox2result`` — split dets into per-class arrays.
 """
 
@@ -53,6 +56,44 @@ def imrescale(img: torch.Tensor, scale) -> tuple[torch.Tensor, float]:
                           mode="bilinear", align_corners=False)[0]
         x = x.permute(1, 2, 0)
     return x, factor
+
+
+def ceil32(x: float) -> int:
+    """x rounded up to a multiple of 32."""
+    return int(np.ceil(x / 32.0)) * 32
+
+
+def _linear_taps(n_in: int, n_out: int, device):
+    """cv2's INTER_LINEAR taps along one axis: source index and weight of
+    each output index, with half-pixel centres and the edge clamp.  The
+    source position is computed in double and rounded to float, as cv2
+    computes it; the weights stay float32."""
+    scale = 1.0 / (n_out / n_in)
+    fx = ((np.arange(n_out) + 0.5) * scale - 0.5).astype(np.float32)
+    sx = np.floor(fx)
+    fx = fx - sx
+    sx = sx.astype(np.int64)
+    low, high = sx < 0, sx >= n_in - 1
+    fx[low | high] = 0.0
+    sx = np.clip(sx, 0, n_in - 1)
+    nxt = np.minimum(sx + 1, n_in - 1)
+    return (torch.from_numpy(sx).to(device), torch.from_numpy(nxt).to(device),
+            torch.from_numpy(fx).to(device))
+
+
+def resize_linear(imgs: torch.Tensor, size: tuple[int, int]) -> torch.Tensor:
+    """(B, H, W, C) float32 -> (B, h, w, C): bilinear with half-pixel
+    centres and no antialiasing, along each row first and then between
+    rows, as cv2.resize(..., INTER_LINEAR) computes a float image."""
+    x = imgs.to(torch.float32)
+    (h, w), (hi, wi) = size, x.shape[1:3]
+    if (h, w) == (hi, wi):
+        return x
+    sx, nx, fx = _linear_taps(wi, w, x.device)
+    x = x[:, :, sx] * (1 - fx)[:, None] + x[:, :, nx] * fx[:, None]
+    sy, ny, fy = _linear_taps(hi, h, x.device)
+    return (x[:, sy] * (1 - fy)[:, None, None]
+            + x[:, ny] * fy[:, None, None])
 
 
 class Normalize:

@@ -3,8 +3,10 @@ models/detector.py).
 
 decode_detections: per-level sigmoid in f32 -> top nms_pre by max class
 score -> offset_to_pts -> min-area rect -> / scale_factor -> background pad
-column -> batched multiclass rotated NMS.  Head outputs are NHWC, as in the
-JAX package.
+column -> batched multiclass rotated NMS.  decode_no_nms stops before the
+NMS, in the test-scale frame; merge_aug_and_nms maps each TTA aug's boxes
+back to the image frame and runs one single-image NMS over them all.  Head
+outputs are NHWC, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ from torch import nn
 
 from ..core.points import offset_to_pts
 from ..ops.minarearect import min_area_rect
-from ..ops.nms import multiclass_rnms_batch, topk_stable
+from ..ops.nms import multiclass_rnms, multiclass_rnms_batch, topk_stable
 from .fpn import FPN
 from .head import OrientedRepPointsHead
 from .resnet import ResNet
@@ -55,16 +57,10 @@ class OrientedRepPointsDetector(nn.Module):
         return self.bbox_head(self.neck(self.backbone(x)))
 
 
-def decode_detections(outs: dict, strides: Sequence[int] = POINT_STRIDES,
-                      nms_pre: int = 2000, score_thr: float = 0.05,
-                      iou_thr: float = 0.4, max_per_img: int = 2000,
-                      scale_factor: float | torch.Tensor = 1.0,
-                      with_reppoints: bool = True, pre_nms_cap: int = 4096):
-    """Head outputs -> (dets (B, max_per_img, 27|9), labels, valid).
-
-    dets rows are [reppoints(18)?, poly(8), score]; scale_factor (scalar or
-    (B, 1, 1)) is undone on polys and points.
-    """
+def _decode_candidates(outs: dict, strides: Sequence[int], nms_pre: int):
+    """Per level the top nms_pre locations by max class score -> (sigmoid
+    scores (B, N, C), point sets (B, N, 18), min-area rects (B, N, 8)) in
+    the test-scale frame."""
     lvl_scores, lvl_pts = [], []
     for lvl, stride in enumerate(strides):
         s = outs["cls_scores"][lvl]
@@ -81,13 +77,66 @@ def decode_detections(outs: dict, strides: Sequence[int] = POINT_STRIDES,
     all_pts = torch.cat(lvl_pts, 1)
     b, n, _ = all_pts.shape
     boxes = min_area_rect(all_pts.reshape(b * n, -1).contiguous())
+    return all_scores, all_pts, boxes.reshape(b, n, 8)
+
+
+def _pad_background(scores: torch.Tensor) -> torch.Tensor:
+    """The use_sigmoid_cls background column 0."""
+    return torch.cat([torch.zeros_like(scores[..., :1]), scores], -1)
+
+
+def decode_detections(outs: dict, strides: Sequence[int] = POINT_STRIDES,
+                      nms_pre: int = 2000, score_thr: float = 0.05,
+                      iou_thr: float = 0.4, max_per_img: int = 2000,
+                      scale_factor: float | torch.Tensor = 1.0,
+                      with_reppoints: bool = True, pre_nms_cap: int = 4096):
+    """Head outputs -> (dets (B, max_per_img, 27|9), labels, valid).
+
+    dets rows are [reppoints(18)?, poly(8), score]; scale_factor (scalar or
+    (B, 1, 1)) is undone on polys and points.
+    """
+    all_scores, all_pts, boxes = _decode_candidates(outs, strides, nms_pre)
     sf = torch.as_tensor(scale_factor, dtype=torch.float32,
                          device=all_pts.device)
-    boxes = boxes.reshape(b, n, 8) / sf
-    all_pts = all_pts / sf
-    padded = torch.cat([torch.zeros_like(all_scores[..., :1]), all_scores],
-                       -1)
     return multiclass_rnms_batch(
-        boxes, padded, score_thr, iou_thr, max_per_img,
-        reppoints=all_pts if with_reppoints else None,
+        boxes / sf, _pad_background(all_scores), score_thr, iou_thr,
+        max_per_img, reppoints=all_pts / sf if with_reppoints else None,
         pre_nms_cap=pre_nms_cap)
+
+
+def decode_no_nms(outs: dict, strides: Sequence[int] = POINT_STRIDES,
+                  nms_pre: int = 2000):
+    """Per-level top-k decode without NMS (the aug_test path): (boxes
+    (B, N, 8), scores (B, N, C+1) with the background column) in the
+    test-scale frame."""
+    all_scores, _, boxes = _decode_candidates(outs, strides, nms_pre)
+    return boxes, _pad_background(all_scores)
+
+
+def merge_aug_and_nms(aug_boxes, aug_scores, flips, img_shape, scale_factor,
+                      score_thr: float = 0.05, iou_thr: float = 0.4,
+                      max_per_img: int = 2000, pre_nms_cap: int = 4096):
+    """Multi-scale / flip TTA merge of one image: each aug's (N_a, 8) boxes
+    are unflipped in that aug's own frame (x -> w - x - 1), then divided by
+    its scale factor; the concatenated candidates go through one
+    single-image multiclass_rnms.
+
+    img_shape: one (h, w) or one per aug (the frame the flip was applied
+    in); scale_factor: one scalar or one per aug (float or 0-d tensor).
+    Returns (dets (max_per_img, 9), labels, valid).
+    """
+    n = len(aug_boxes)
+    shapes = (img_shape if isinstance(img_shape, (list, tuple))
+              and isinstance(img_shape[0], (list, tuple)) else [img_shape] * n)
+    sfs = (list(scale_factor) if isinstance(scale_factor, (list, tuple))
+           else [scale_factor] * n)
+    recovered = []
+    for boxes, flip, shp, sf in zip(aug_boxes, flips, shapes, sfs):
+        if flip:
+            boxes = boxes.clone()
+            boxes[:, 0::2] = shp[1] - boxes[:, 0::2] - 1
+        recovered.append(boxes / torch.as_tensor(sf, dtype=torch.float32,
+                                                 device=boxes.device))
+    return multiclass_rnms(torch.cat(recovered), torch.cat(aug_scores),
+                           score_thr, iou_thr, max_per_img,
+                           pre_nms_cap=pre_nms_cap)

@@ -7,15 +7,19 @@ from .deform_conv import (deform_sample_pair_backward_kernel,
 from .hull_iou import hull_quad_iou_kernel
 from .minarearect import min_area_rect_kernel
 from .nms import greedy_scan_kernel
-from .quad_iou import quad_over_mask_kernel
+from .quad_iou import (quad_iou_full_kernel, quad_iou_tri_kernel,
+                       quad_over_mask_kernel)
 
 KERNELS = {
     "min_area_rect": min_area_rect_kernel,
+    # both over-mask entries: batched, and single-image (a batch-1 launch)
     "quad_over_mask": quad_over_mask_kernel,
     "nms_scan": greedy_scan_kernel,
     "deform_sample_pair": deform_sample_pair_kernel,
     "hull_quad_iou": hull_quad_iou_kernel,
     "deform_sample_pair_backward": deform_sample_pair_backward_kernel,
+    "quad_iou_full": quad_iou_full_kernel,
+    "quad_iou_tri": quad_iou_tri_kernel,
 }
 
 

@@ -1,9 +1,11 @@
 """Build and load the CUDA kernels of ``csrc/`` (plain C ABI + ctypes).
 
-At first use every ``csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a`` into
-one shared library under ``build/orientedreppoints_tpu_torch/<hash>/``
-(next to the package's checkout), keyed on a hash of the sources and the
-flags, then loaded with ctypes.  A failed build raises; nothing falls back.
+At first use every ``csrc/*.cu`` is compiled for ``sm_90a``, one ``nvcc``
+for each source, all started together, and linked into one shared library
+under ``build/orientedreppoints_tpu_torch/<hash>/`` (next to the package's
+checkout), keyed on a hash of the sources, the headers they include
+(``csrc/*.cuh``) and the flags, then loaded with ctypes.  A failed build
+raises; nothing falls back.
 
 Each exported C function launches on the stream it is given, allocates
 nothing, and returns ``cudaGetLastError()`` as an int; ``launch`` raises if
@@ -28,8 +30,7 @@ BUILD_ROOT = _PKG.parent / "build" / "orientedreppoints_tpu_torch"
 # -fmad=false: no fused multiply-adds, so the kernels round as their plain
 # PyTorch versions (separate multiply and add) do
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-lineinfo"]
+              "-O3", "-fmad=false", "-Xcompiler", "-fPIC", "-lineinfo"]
 
 P = ctypes.c_void_p
 I = ctypes.c_int
@@ -44,6 +45,8 @@ SIGNATURES = {
     "orp_deform_sample_pair_bwd_f32": [P] * 8 + [I, I, I, I, P],
     "orp_deform_sample_pair_bwd_bf16": [P] * 8 + [I, I, I, I, P],
     "orp_hull_quad_iou": [P, P, P, P, I, I, I, P],
+    "orp_quad_iou_full": [P, P, P, I, I, I, P],
+    "orp_quad_iou_tri": [P, P, P, P, I, I, I, P],
 }
 
 _lib = None
@@ -59,24 +62,37 @@ def _nvcc() -> str:
 
 
 def build() -> tuple[Path, float]:
-    """Compile csrc/*.cu unless this hash of sources and flags is built.
-    Returns (library path, seconds spent compiling)."""
+    """Compile csrc/*.cu unless this hash of sources, headers and flags is
+    built.  Returns (library path, seconds spent compiling)."""
     sources = sorted(CSRC.glob("*.cu"))
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in sources + sorted(CSRC.glob("*.cuh")):
         h.update(src.name.encode() + src.read_bytes())
     out_dir = BUILD_ROOT / h.hexdigest()[:16]
     lib_path = out_dir / "liborp_kernels.so"
     if lib_path.exists():
         return lib_path, 0.0
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"liborp_kernels.{os.getpid()}.so"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+    nvcc, tag = _nvcc(), os.getpid()
+    tmp = out_dir / f"liborp_kernels.{tag}.so"
+    objs = [out_dir / f"{src.stem}.{tag}.o" for src in sources]
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}): {' '.join(cmd)}"
-                           f"\n{res.stdout}{res.stderr}")
+    compiles = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                for src, obj in zip(sources, objs)]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in compiles]
+    results = [(cmd, p.communicate()[0], p.returncode)
+               for cmd, p in zip(compiles, procs)]
+    link = [nvcc, "-shared", *NVCC_FLAGS, "-o", str(tmp), *map(str, objs)]
+    if all(rc == 0 for _, _, rc in results):
+        res = subprocess.run(link, capture_output=True, text=True)
+        results.append((link, res.stdout + res.stderr, res.returncode))
+    for cmd, log, rc in results:
+        if rc != 0:
+            raise RuntimeError(f"nvcc failed ({rc}): {' '.join(cmd)}\n{log}")
+    for obj in objs:
+        obj.unlink()
     os.replace(tmp, lib_path)  # atomic: a concurrent loader sees all or none
     return lib_path, time.perf_counter() - t0
 

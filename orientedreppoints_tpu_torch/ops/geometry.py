@@ -10,8 +10,8 @@ JAX package's XLA formulations and vectorised over a leading batch:
     ties are common (three hull points supporting the box give two edges
     the same area), and in the JAX package rounding decides them; the rule
     makes this version and the CUDA kernel pick the same box;
-  * quad_iou — ``quad_iou_single`` (Sutherland-Hodgman clip of the subject
-    quad by the CCW clip quad, masked shoelace), broadcast over pairs;
+  * rbox_to_quad and box_iou_rotated (the (n, 5) xywh-angle IoU matrix,
+    through quad_iou.quad_iou_matrix and its CUDA kernel);
   * the training geometry: points_in_polygon, polygon_area,
     clip_convex_by_quad, convex_giou (with the enclosing hull of the 13
     points), convex_iou (kernel 1's hull + the hull-IoU kernel) and
@@ -168,30 +168,26 @@ def _clip_half_plane(verts, count, a, b, out_cap: int):
     return out[..., :out_cap, :], emit.sum(-1)
 
 
-def quad_iou(q1: torch.Tensor, q2: torch.Tensor) -> torch.Tensor:
-    """Exact IoU of convex quads, broadcast over (..., 8) x (..., 8)."""
-    q1, q2 = torch.broadcast_tensors(q1.to(torch.float32),
-                                     q2.to(torch.float32))
-    a = q1.reshape(q1.shape[:-1] + (4, 2))
-    b = q2.reshape(q2.shape[:-1] + (4, 2))
-    shift = a.mean(-2, keepdim=True)
-    a = _orient_ccw(a - shift)
-    b = b - shift
-    clip = _orient_ccw(b)
-    poly = a
-    count = torch.full(a.shape[:-2], 4, dtype=torch.int64, device=a.device)
-    for i in range(4):
-        poly, count = _clip_half_plane(poly, count, clip[..., i, :],
-                                       clip[..., (i + 1) % 4, :], 8)
-    inter = _shoelace(poly, count).abs()
-    area_a = _shoelace(a, 4).abs()
-    area_b = _shoelace(b, 4).abs()
-    return inter / torch.clamp(area_a + area_b - inter, min=_EPS)
+def rbox_to_quad(rboxes: torch.Tensor) -> torch.Tensor:
+    """(n, 5) [cx, cy, w, h, angle] -> (n, 8) corners tl, tr, br, bl
+    rotated by angle."""
+    r = rboxes.to(torch.float32)
+    cx, cy, w, h, ang = r.unbind(1)
+    dx, dy = w / 2, h / 2
+    lx = torch.stack([-dx, dx, dx, -dx], 1)
+    ly = torch.stack([-dy, -dy, dy, dy], 1)
+    cos, sin = torch.cos(ang)[:, None], torch.sin(ang)[:, None]
+    gx = cos * lx - sin * ly + cx[:, None]
+    gy = sin * lx + cos * ly + cy[:, None]
+    return torch.stack([gx, gy], 2).reshape(-1, 8)
 
 
-def quad_iou_matrix(quads1: torch.Tensor, quads2: torch.Tensor):
-    """(n, m) exact IoU matrix of quad sets (n, 8) and (m, 8)."""
-    return quad_iou(quads1[:, None, :], quads2[None, :, :])
+def box_iou_rotated(rboxes1: torch.Tensor, rboxes2: torch.Tensor):
+    """(n, 5) x (m, 5) xywh-angle boxes -> (n, m) exact IoU matrix."""
+    from .quad_iou import quad_iou_matrix
+
+    return quad_iou_matrix(rbox_to_quad(rboxes1).contiguous(),
+                           rbox_to_quad(rboxes2).contiguous())
 
 
 def polygon_area(poly: torch.Tensor, count=None) -> torch.Tensor:

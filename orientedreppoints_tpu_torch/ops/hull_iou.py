@@ -48,8 +48,9 @@ def _shoelace_slots(vx, vy, cnt):
 
 
 def _hull_quad_iou_pairs(hx, hy, cnt, q):
-    """IoU of broadcast pairs: hull slots hx, hy (..., 9), counts (...),
-    quads (..., 8)."""
+    """IoU of broadcast pairs: subject slots hx, hy (..., V), counts (...),
+    quads (..., 8).  The clip stages keep V + 1 .. V + 4 slots: 10-13 for
+    a hull's 9 slots, 5-8 for a quad's 4 (the quad tile's caps)."""
     ox, oy = q[..., 0], q[..., 1]
     hx = hx - ox[..., None]
     hy = hy - oy[..., None]
@@ -65,9 +66,8 @@ def _hull_quad_iou_pairs(hx, hy, cnt, q):
     quad = torch.where((area2_b < 0)[..., None, None],
                        quad[..., [0, 3, 2, 1], :], quad)
     verts = torch.stack([hx, hy], -1)
-    cap = V
     for e in range(4):
-        cap = min(cap + 1, V + 4)
+        cap = hx.shape[-1] + 1 + e
         verts, cnt = _clip_half_plane(verts, cnt, quad[..., e, :],
                                       quad[..., (e + 1) % 4, :], cap)
     inter = 0.5 * _shoelace_slots(verts[..., 0], verts[..., 1], cnt).abs()

@@ -1,8 +1,11 @@
-"""Batched multiclass rotated NMS (counterpart of ops/nms.py).
+"""Rotated NMS: batched and single-image multiclass, greedy and soft
+(counterpart of ops/nms.py).
 
 The JAX package's TPU workarounds are not carried over: the blocked,
 unrolled fori_loop scan becomes one CUDA kernel over the bitmask
 (csrc/nms_scan.cu), and the shift-add prefix sum becomes torch.cumsum.
+The soft-NMS decay loop (an XLA while_loop in the JAX package) is a Python
+loop of small device ops here, with one host sync per selection.
 """
 
 from __future__ import annotations
@@ -10,7 +13,7 @@ from __future__ import annotations
 import torch
 
 from . import _ext
-from .quad_iou import quad_over_mask
+from .quad_iou import quad_iou_matrix, quad_over_mask, quad_over_matrix
 
 _NEG = -1e9
 
@@ -140,3 +143,85 @@ def multiclass_rnms_batch(bboxes: torch.Tensor, scores: torch.Tensor,
         out_labels = torch.nn.functional.pad(out_labels, (0, pad))
         det_valid = torch.nn.functional.pad(det_valid, (0, pad))
     return dets, out_labels, det_valid
+
+
+def multiclass_rnms(bboxes: torch.Tensor, scores: torch.Tensor,
+                    score_thr: float, iou_thr: float, max_per_img: int,
+                    reppoints: torch.Tensor | None = None,
+                    pre_nms_cap: int = 4096):
+    """Single-image multiclass rotated NMS: bboxes (N, 8), scores (N, C+1),
+    reppoints (N, 18) optional -> dets (max_per_img, 27|9), labels, valid;
+    multiclass_rnms_batch over a batch of one (one batch-1 over-mask
+    launch, the single-image entry of the JAX package)."""
+    dets, labels, valid = multiclass_rnms_batch(
+        bboxes[None], scores[None], score_thr, iou_thr, max_per_img,
+        None if reppoints is None else reppoints[None], pre_nms_cap)
+    return dets[0], labels[0], valid[0]
+
+
+def rotated_nms_mask(quads: torch.Tensor, scores: torch.Tensor,
+                     iou_thr: float, valid: torch.Tensor | None = None):
+    """Greedy rotated NMS of (N, 8) quads by descending (N,) score; invalid
+    rows are never kept.  Returns keep (N,) bool in the original order.
+
+    Equal scores are taken in descending index order, as the JAX package's
+    reversed ascending argsort takes them."""
+    n = quads.shape[0]
+    if valid is None:
+        valid = torch.ones(n, dtype=torch.bool, device=quads.device)
+    order = torch.argsort(torch.where(valid, scores, _NEG),
+                          stable=True).flip(0)
+    svalid = valid[order]
+    nv = svalid.sum(dtype=torch.int32)
+    mask = quad_over_matrix(quads[order].to(torch.float32).contiguous(),
+                            iou_thr, nv)
+    keep_sorted = greedy_scan(mask[None], svalid[None], nv.reshape(1))[0]
+    keep = torch.zeros(n, dtype=torch.bool, device=quads.device)
+    keep[order] = keep_sorted
+    return keep
+
+
+def _soft_suppress(iou, scores, valid, method: str, sigma: float,
+                   iou_thr: float, min_score: float,
+                   max_keep: int | None = None):
+    """Soft-NMS decay loop over a precomputed (N, N) IoU matrix.
+
+    Repeatedly take the best unprocessed valid score; stop once it is
+    <= min_score (every later pick would fail too, so the kept set is
+    exact) or max_keep picks are made; decay every other row's score —
+    linear: s *= 1 - iou where iou > iou_thr; gaussian: s *= exp(-iou^2 /
+    sigma).  Returns (decayed scores, keep).  One host sync per pick.
+    """
+    n = scores.shape[0]
+    cap = n if max_keep is None else min(n, int(max_keep))
+    cur = scores.to(torch.float32).clone()
+    processed = torch.zeros(n, dtype=torch.bool, device=scores.device)
+    for _ in range(cap):
+        masked = torch.where(processed | ~valid, _NEG, cur)
+        j = torch.argmax(masked)  # the first of equal maxima, as jnp.argmax
+        if not bool(masked[j] > min_score):
+            break
+        processed[j] = True
+        iou_j = iou[j]
+        if method == "linear":
+            decay = torch.where(iou_j > iou_thr, 1.0 - iou_j, 1.0)
+        else:
+            decay = torch.exp(-(iou_j * iou_j) / sigma)
+        cur = cur * torch.where(processed, 1.0, decay)
+    return cur, processed
+
+
+def soft_rnms(quads: torch.Tensor, scores: torch.Tensor, iou_thr: float = 0.3,
+              sigma: float = 0.5, min_score: float = 1e-3,
+              method: str = "gaussian", valid: torch.Tensor | None = None,
+              max_keep: int | None = None):
+    """Soft-NMS over (N, 8) rotated quads with the exact quad IoU (the full
+    f32 matrix: csrc/quad_iou.cu on CUDA).  Returns (decayed scores (N,),
+    keep (N,) bool) in the original order."""
+    if valid is None:
+        valid = torch.ones(quads.shape[0], dtype=torch.bool,
+                           device=quads.device)
+    q = quads.to(torch.float32).contiguous()
+    iou = quad_iou_matrix(q, q)
+    return _soft_suppress(iou, scores, valid, method, sigma, iou_thr,
+                          min_score, max_keep)

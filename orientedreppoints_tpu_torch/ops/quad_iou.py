@@ -1,13 +1,28 @@
-"""Rotated-NMS suppression bitmask (counterpart of ops/pallas_quad_iou.py,
-batched entry ``quad_over_matrix_batch_pallas``).
+"""Exact quad-quad IoU for rotated NMS (counterpart of
+ops/pallas_quad_iou.py: ``quad_iou_matrix_pallas`` and
+``quad_iou_matrix_batch_pallas`` with their kernels ``_quad_kernel`` and
+``_make_quad_kernel_tri``, and the over-mask entries
+``quad_over_matrix_pallas`` / ``quad_over_matrix_batch_pallas`` with
+``_make_quad_over_kernel``).
 
-For score-sorted quads (B, N, 8) and valid-prefix lengths nv (B,), the mask
-is (B, N, W) int64 words with W = ceil(N / 64): bit t of word w in row i is
-set iff IoU(i, 64 w + t) > thr (strict), the column is right of the
-diagonal, and both rows lie inside the valid prefix.
+Every entry evaluates one pair function, the Pallas tile's quad IoU
+(``quad_iou_pairs``: subject quad of the row, clip quad of the column).  The
+CUDA kernels evaluate it in csrc/quad_clip.cuh, built with -fmad=false, so a
+kernel and its plain version give the same bits:
 
-``quad_over_mask`` runs the CUDA kernel (csrc/quad_over.cu) for CUDA
-tensors and the plain PyTorch version for CPU tensors.
+  * quad_iou_matrix / quad_iou_matrix_batch: the f32 (N, M) matrix, in full
+    (csrc/quad_iou.cu, orp_quad_iou_full) or, with upper_tri, only where
+    col > row inside the valid prefix num_valid, zeros elsewhere
+    (orp_quad_iou_tri);
+  * quad_over_mask / quad_over_matrix: for score-sorted quads (B, N, 8) and
+    valid-prefix lengths nv (B,), (B, N, W) int64 words with
+    W = ceil(N / 64): bit t of word w in row i is set iff IoU(i, 64 w + t)
+    > thr (strict), the column is right of the diagonal, and both lie
+    inside the prefix (csrc/quad_over.cu); quad_over_matrix is the
+    single-image entry, a batch-1 launch.
+
+Each entry runs its CUDA kernel for CUDA tensors and the plain PyTorch
+version for CPU tensors.
 """
 
 from __future__ import annotations
@@ -15,9 +30,108 @@ from __future__ import annotations
 import torch
 
 from . import _ext
-from .geometry import quad_iou
+from .hull_iou import _hull_quad_iou_pairs
 
-_CHUNK_ROWS = 64  # rows of pairs the plain version holds at once
+_CHUNK_PAIRS = 1 << 20  # pairs the plain versions hold at once
+
+
+def quad_iou_pairs(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """IoU of broadcast quad pairs (..., 8) x (..., 8), subject a and clip
+    quad b, in the Pallas tile's order of operations: recentre on b's
+    vertex 0, a's shoelace, b turned counter-clockwise ((4 - k) % 4), clip
+    stages with caps 5-8, masked shoelace, max(union, 1e-8).  A quad is a
+    hull of count 4 in 4 slots."""
+    a, b = torch.broadcast_tensors(a.to(torch.float32), b.to(torch.float32))
+    cnt = torch.full(a.shape[:-1], 4, dtype=torch.int32, device=a.device)
+    return _hull_quad_iou_pairs(a[..., 0::2], a[..., 1::2], cnt, b)
+
+
+def _live(rows, cols, nv):
+    """The upper-triangle, valid-prefix mask of the tri entries."""
+    return (cols > rows) & (rows < nv) & (cols < nv)
+
+
+def quad_iou_matrix_plain(a, b, upper_tri: bool = False, num_valid=None):
+    """Plain version of quad_iou_matrix_batch: rows in chunks of about
+    _CHUNK_PAIRS pairs; with upper_tri only the rows inside the prefix."""
+    bsz, n, _ = a.shape
+    m = b.shape[1]
+    out = torch.zeros((bsz, n, m), dtype=torch.float32, device=a.device)
+    rows_needed = n
+    if upper_tri:
+        nv = num_valid.to(torch.int64).reshape(bsz, 1, 1)
+        rows_needed = min(n, int(num_valid.max())) if bsz else 0
+    cols = torch.arange(m, device=a.device)[None, None, :]
+    step = max(1, _CHUNK_PAIRS // max(1, bsz * m))
+    for r0 in range(0, rows_needed, step):
+        r1 = min(rows_needed, r0 + step)
+        iou = quad_iou_pairs(a[:, r0:r1, None, :], b[:, None, :, :])
+        if upper_tri:
+            rows = torch.arange(r0, r1, device=a.device)[None, :, None]
+            iou = torch.where(_live(rows, cols, nv), iou, 0.0)
+        out[:, r0:r1] = iou
+    return out
+
+
+def quad_iou_matrix_batch(a: torch.Tensor, b: torch.Tensor,
+                          upper_tri: bool = False,
+                          num_valid: torch.Tensor | None = None):
+    """(B, N, 8) x (B, M, 8) float32 quads -> (B, N, M) float32 IoU.
+
+    upper_tri: only entries with col > row inside the valid prefix
+    num_valid ((B,) int32, default N), zeros elsewhere; without it
+    num_valid is ignored, as in the JAX package.
+    """
+    if upper_tri and num_valid is None:
+        num_valid = torch.full((a.shape[0],), a.shape[1], dtype=torch.int32,
+                               device=a.device)
+    if a.device.type == "cpu":
+        return quad_iou_matrix_plain(a, b, upper_tri, num_valid)
+    if upper_tri:
+        return quad_iou_tri_kernel(a, b, num_valid)
+    return quad_iou_full_kernel(a, b)
+
+
+def quad_iou_matrix(a: torch.Tensor, b: torch.Tensor, upper_tri: bool = False,
+                    num_valid=None):
+    """(N, 8) x (M, 8) -> (N, M) float32 IoU; num_valid a scalar (int or
+    0-d tensor), see quad_iou_matrix_batch."""
+    if num_valid is not None:
+        num_valid = torch.as_tensor(num_valid, dtype=torch.int32,
+                                    device=a.device).reshape(1)
+    return quad_iou_matrix_batch(a[None], b[None], upper_tri, num_valid)[0]
+
+
+def quad_iou_full_kernel(a, b):
+    bsz, n, _ = a.shape
+    m = b.shape[1]
+    _ext.check_cuda(a, "quads_a", torch.float32, (bsz, n, 8))
+    _ext.check_cuda(b, "quads_b", torch.float32, (bsz, m, 8))
+    out = torch.empty((bsz, n, m), dtype=torch.float32, device=a.device)
+    _ext.launch("orp_quad_iou_full", a.data_ptr(), b.data_ptr(),
+                out.data_ptr(), bsz, n, m, _ext.stream_ptr(a))
+    quad_iou_full_kernel.launches += 1
+    return out
+
+
+quad_iou_full_kernel.launches = 0
+
+
+def quad_iou_tri_kernel(a, b, num_valid):
+    bsz, n, _ = a.shape
+    m = b.shape[1]
+    _ext.check_cuda(a, "quads_a", torch.float32, (bsz, n, 8))
+    _ext.check_cuda(b, "quads_b", torch.float32, (bsz, m, 8))
+    _ext.check_cuda(num_valid, "num_valid", torch.int32, (bsz,))
+    out = torch.empty((bsz, n, m), dtype=torch.float32, device=a.device)
+    _ext.launch("orp_quad_iou_tri", a.data_ptr(), b.data_ptr(),
+                num_valid.data_ptr(), out.data_ptr(), bsz, n, m,
+                _ext.stream_ptr(a))
+    quad_iou_tri_kernel.launches += 1
+    return out
+
+
+quad_iou_tri_kernel.launches = 0
 
 
 def pack_bits(over: torch.Tensor) -> torch.Tensor:
@@ -39,20 +153,20 @@ def unpack_bits(words: torch.Tensor, n: int) -> torch.Tensor:
 
 def quad_over_mask_plain(quads: torch.Tensor, iou_thr: float,
                          num_valid: torch.Tensor) -> torch.Tensor:
-    """Plain version: quad_iou over pairs, threshold, triangle and prefix
-    masks, packed; rows are processed in chunks to bound memory."""
+    """Plain version: pack_bits(tri IoU > thr), the tri IoU of the plain
+    quad_iou_matrix over row chunks."""
     b, n, _ = quads.shape
     words = (n + 63) // 64
     out = torch.zeros((b, n, words), dtype=torch.int64, device=quads.device)
     nv = num_valid.to(torch.int64).reshape(b, 1, 1)
     cols = torch.arange(n, device=quads.device)[None, None, :]
-    rows_needed = int(num_valid.max()) if b else 0
-    for r0 in range(0, rows_needed, _CHUNK_ROWS):
-        r1 = min(r0 + _CHUNK_ROWS, rows_needed)
-        iou = quad_iou(quads[:, r0:r1, None, :], quads[:, None, :, :])
+    rows_needed = min(n, int(num_valid.max())) if b else 0
+    step = max(1, _CHUNK_PAIRS // max(1, b * n))
+    for r0 in range(0, rows_needed, step):
+        r1 = min(r0 + step, rows_needed)
+        iou = quad_iou_pairs(quads[:, r0:r1, None, :], quads[:, None, :, :])
         rows = torch.arange(r0, r1, device=quads.device)[None, :, None]
-        over = (iou > iou_thr) & (cols > rows) & (rows < nv) & (cols < nv)
-        out[:, r0:r1] = pack_bits(over)
+        out[:, r0:r1] = pack_bits((iou > iou_thr) & _live(rows, cols, nv))
     return out
 
 
@@ -63,6 +177,16 @@ def quad_over_mask(quads: torch.Tensor, iou_thr: float,
     if quads.device.type == "cpu":
         return quad_over_mask_plain(quads, iou_thr, num_valid)
     return quad_over_mask_kernel(quads, iou_thr, num_valid)
+
+
+def quad_over_matrix(quads: torch.Tensor, iou_thr: float, num_valid=None):
+    """Single-image entry: (N, 8) score-sorted quads, prefix length (int or
+    0-d tensor, default N) -> (N, ceil(N/64)) int64 bitmask; one batch-1
+    launch of the over-mask kernel on CUDA."""
+    n = quads.shape[0]
+    nv = torch.as_tensor(n if num_valid is None else num_valid,
+                         dtype=torch.int32, device=quads.device).reshape(1)
+    return quad_over_mask(quads[None], iou_thr, nv)[0]
 
 
 def quad_over_mask_kernel(quads: torch.Tensor, iou_thr: float,

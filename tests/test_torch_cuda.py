@@ -96,3 +96,27 @@ def test_training_kernels_match_plain_versions_on_the_card(cuda):
             assert g.dtype == w.dtype == dt
             scale = max(1.0, float(w.float().abs().max()))
             assert (g.float() - w.float()).abs().max() <= tol * scale
+
+
+@pytest.mark.cuda
+def test_quad_iou_kernels_match_plain_versions_on_the_card(cuda):
+    """Kernels 4 and 5 (full and upper-triangle f32 IoU) and the single-image
+    over-mask give the plain versions' bits; the over-mask is (tri > thr)."""
+    rng = np.random.default_rng(3)
+    quads = torch.tensor(rng.uniform(0, 120, (3, 200, 1, 2))
+                         + rng.normal(0, 15, (3, 200, 4, 2)),
+                         dtype=torch.float32, device=cuda).view(3, 200, 8)
+    quads[:, :100] += 2e4  # class-offset coordinates
+    other = quads[:, torch.randperm(200, device=cuda)[:150]].contiguous()
+    full = quad_iou.quad_iou_matrix_batch(quads, other)
+    assert torch.equal(full, quad_iou.quad_iou_matrix_plain(quads, other))
+    assert (full > 0.3).sum() > 100
+    nv = torch.tensor([200, 120, 0], dtype=torch.int32, device=cuda)
+    tri = quad_iou.quad_iou_matrix_batch(quads, quads, True, nv)
+    assert torch.equal(tri, quad_iou.quad_iou_matrix_plain(quads, quads,
+                                                           True, nv))
+    assert tri[2].max() == 0 and (tri[:2] > 0.3).sum() > 10
+    words = quad_iou.quad_over_matrix(quads[1], 0.4, nv[1])
+    assert torch.equal(words, quad_iou.pack_bits(tri[1] > 0.4))
+    assert torch.equal(words, quad_iou.quad_over_mask_plain(
+        quads[1:2], 0.4, nv[1:2])[0])

@@ -208,7 +208,7 @@ def test_quad_iou_matrix_matches():
     quads = class_offset_quads(np.random.default_rng(8), 1, 48)[0]
     ref = np.asarray(geo_ref.quad_iou_matrix(jnp.asarray(quads),
                                              jnp.asarray(quads)))
-    got = geometry.quad_iou_matrix(torch.from_numpy(quads),
+    got = quad_iou.quad_iou_matrix(torch.from_numpy(quads),
                                    torch.from_numpy(quads)).numpy()
     assert (ref > 0.4).sum() > 48  # overlaps beyond the diagonal
     np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5)

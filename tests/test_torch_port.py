@@ -60,6 +60,21 @@ NO_JAX_SCRIPT = textwrap.dedent("""
                        gt_valid=np.ones((2, 1), bool),
                        img_hw=np.int32([[64, 64], [64, 48]])))
     assert np.isfinite(float(losses["loss_total"]))
+    # TTA (two scales x flip) and soft-NMS
+    import torch
+    from orientedreppoints_tpu_torch.apis import run_inference_tta
+    from orientedreppoints_tpu_torch.ops.nms import soft_rnms
+    model.eval()
+    ds = [dict(img=np.zeros((50, 64, 3), np.float32), scale_factor=1.0,
+               img_info=dict(file_name="a.png"))]
+    res = run_inference_tta(model, ds, pred.test_cfg,
+                            [(0.5, False), (1.0, False), (1.0, True)],
+                            canvas=(64, 64))
+    assert len(res["a"]) == 15 and sum(len(a) for a in res["a"]) > 0
+    quads = torch.tensor([[0., 0, 10, 0, 10, 10, 0, 10],
+                          [1., 1, 11, 1, 11, 11, 1, 11]])
+    scores, keep = soft_rnms(quads, torch.tensor([0.9, 0.8]))
+    assert keep.all() and float(scores[1]) < 0.8
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "flax", "cv2",
                                            "orientedreppoints_tpu"))
@@ -102,6 +117,11 @@ def test_cuda_entries_raise_without_a_gpu():
     with pytest.raises(ValueError, match="CUDA tensor"):
         quad_iou.quad_over_mask_kernel(torch.zeros(1, 8, 8), 0.4,
                                        torch.zeros(1, dtype=torch.int32))
+    q = torch.zeros(1, 8, 8)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        quad_iou.quad_iou_full_kernel(q, q)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        quad_iou.quad_iou_tri_kernel(q, q, torch.zeros(1, dtype=torch.int32))
     with pytest.raises(ValueError, match="CUDA tensor"):
         hull_iou.hull_quad_iou_kernel(torch.zeros(1, 4, 9, 2),
                                       torch.ones(1, 4, dtype=torch.int32),
@@ -135,5 +155,9 @@ def test_cpu_tensors_never_launch_a_kernel():
         torch.from_numpy(rng.normal(size=(4, 18)).astype(np.float32)))
     hull_iou.hull_quad_iou_matrix(hulls[None], counts[None],
                                   torch.zeros(1, 3, 8))
-    assert len(ops.KERNELS) == 6
+    q = torch.from_numpy(rng.uniform(0, 50, (6, 8)).astype(np.float32))
+    quad_iou.quad_iou_matrix(q, q)
+    quad_iou.quad_iou_matrix(q, q, upper_tri=True, num_valid=4)
+    quad_iou.quad_over_matrix(q, 0.4, 4)
+    assert len(ops.KERNELS) == 8
     assert ops.launch_counts() == {name: 0 for name in ops.KERNELS}
