@@ -5,7 +5,8 @@ core/assigners.py).
     nearest points of that level by wh-normalised centre distance, closest
     gt wins, the earlier gt on ties;
   * max_iou_assign — MaxIoUAssigner over the convex IoU (ops.geometry.
-    convex_iou: kernel 1's hulls and the hull-IoU kernel), with step 4's
+    convex_iou: kernel 1's hulls and the hull-IoU kernel, which writes -1
+    for the pairs of a padded gt or an invalid point), with step 4's
     gt_max_assign_all: every proposal whose IoU equals a gt's max (compared
     for exact equality) goes to that gt, later gts overwriting earlier ones.
 
@@ -98,9 +99,7 @@ def max_iou_assign(proposals, proposals_valid, gt_polys, gt_valid,
     """proposals (B, N, 18), proposals_valid (B, N), gt_polys (B, G, 8),
     gt_valid (B, G).  Returns (assigned (B, N) int32, overlaps (B, G, N))
     with -1 where the gt or the proposal is not valid."""
-    overlaps = convex_iou(gt_polys, proposals)
-    overlaps = torch.where(gt_valid[..., None] & proposals_valid[:, None, :],
-                           overlaps, -1.0)
+    overlaps = convex_iou(gt_polys, proposals, gt_valid, proposals_valid)
     assigned = max_iou_assign_from_overlaps(
         overlaps, proposals_valid, gt_valid, pos_iou_thr=pos_iou_thr,
         neg_iou_thr=neg_iou_thr, min_pos_iou=min_pos_iou)

@@ -44,7 +44,7 @@ SIGNATURES = {
     "orp_deform_sample_pair_bf16": [P, P, P, P, P, P, I, I, I, I, P],
     "orp_deform_sample_pair_bwd_f32": [P] * 8 + [I, I, I, I, P],
     "orp_deform_sample_pair_bwd_bf16": [P] * 8 + [I, I, I, I, P],
-    "orp_hull_quad_iou": [P, P, P, P, I, I, I, P],
+    "orp_hull_quad_iou": [P, P, P, P, P, P, I, I, I, P],
     "orp_quad_iou_full": [P, P, P, I, I, I, P],
     "orp_quad_iou_tri": [P, P, P, P, I, I, I, P],
 }
@@ -122,6 +122,15 @@ def launch(name: str, *args) -> None:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
 
 
+def check_dtype_shape(t: torch.Tensor, name: str, dtype, shape=None) -> None:
+    """Validate a kernel input's dtype and shape."""
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, "
+                         f"got {tuple(t.shape)}")
+
+
 def check_cuda(t: torch.Tensor, name: str, dtype, shape=None) -> None:
     """Validate a kernel input: CUDA, dtype, contiguity and shape."""
     if not t.is_cuda:
@@ -130,10 +139,6 @@ def check_cuda(t: torch.Tensor, name: str, dtype, shape=None) -> None:
         # the library carries its own CUDA runtime, whose current device is
         # the first one; multi-GPU serving is not ported yet
         raise NotImplementedError(f"{name}: kernels run on cuda:0 only")
-    if t.dtype != dtype:
-        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    check_dtype_shape(t, name, dtype, shape)
     if not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
-    if shape is not None and tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: expected shape {tuple(shape)}, "
-                         f"got {tuple(t.shape)}")

@@ -9,8 +9,10 @@ its (K*C, Cout) weight.  Offsets are (dy, dx) pairs per kernel position,
 relative to the base grid; coordinates are f32 whatever the table dtype,
 and corners outside the map read zero.
 
-``deform_sample_pair`` runs the CUDA kernel (csrc/deform_sample.cu) for
-CUDA tensors and the plain PyTorch gather + lerp for CPU tensors; its
+``deform_sample_pair`` runs the CUDA kernel (csrc/deform_sample.cu: one
+warp a row, 16-byte chunks of channels, or a scalar loop where C does not
+split into them; the same bits as the plain version) for CUDA tensors and
+the plain PyTorch gather + lerp for CPU tensors; its
 backward ``deform_sample_pair_backward`` likewise runs
 csrc/deform_sample_bwd.cu or the plain scatter.  ``DeformSamplePair`` ties
 the two together as one autograd node (the counterpart of the JAX
@@ -124,6 +126,9 @@ def deform_sample_pair_kernel(table_a, table_b, offsets, shapes,
         raise TypeError(f"deform_sample_pair: no kernel for {table_a.dtype}")
     if sum(b * h * w for b, h, w in shapes) != rows:
         raise ValueError("deform_sample_pair: shapes do not cover the table")
+    if 2 * k > 32:  # a lane of the warp holds each of the row's offsets
+        raise ValueError(f"deform_sample_pair: kernel_size {kernel_size} "
+                         "above 4 is not supported by the kernel")
     for name, t, shape in (("table_a", table_a, (rows, c)),
                            ("table_b", table_b, (rows, c)),
                            ("offsets", offsets, (rows, 2 * k))):

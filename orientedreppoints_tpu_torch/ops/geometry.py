@@ -14,7 +14,7 @@ JAX package's XLA formulations and vectorised over a leading batch:
     through quad_iou.quad_iou_matrix and its CUDA kernel);
   * the training geometry: points_in_polygon, polygon_area,
     clip_convex_by_quad, convex_giou (with the enclosing hull of the 13
-    points), convex_iou (kernel 1's hull + the hull-IoU kernel) and
+    points), convex_iou (kernel 1's hull + the masked hull-IoU kernel) and
     chamfer_distance_2d.  Where the JAX package differentiates (convex_giou
     in the GIoU loss), autograd does here: the hull is a gather at indices
     chosen without gradient, and the clip is differentiable arithmetic.
@@ -241,14 +241,16 @@ def convex_giou(points: torch.Tensor, gt_quads: torch.Tensor):
     return iou - (c_area - union) / torch.clamp(c_area, min=_EPS)
 
 
-def convex_iou(gt_quads: torch.Tensor, points: torch.Tensor):
+def convex_iou(gt_quads: torch.Tensor, points: torch.Tensor,
+               gt_valid=None, points_valid=None):
     """Batched convex IoU matrix: gt quads (B, G, 8) x point sets
-    (B, N, 18) -> (B, G, N).
+    (B, N, 18) -> (B, G, N); with the optional masks gt_valid (B, G) and
+    points_valid (B, N), -1.0 wherever either is not valid.
 
     Every image is shifted by the mean of all its gt corners, padded zero
     rows included (as the JAX package does); then kernel 1's hulls
     (convex_hull_entry) go through the hull-IoU kernel, one launch each for
-    the batch.
+    the batch, which writes the (B, G, N) layout itself.
     """
     from .hull_iou import hull_quad_iou_matrix
     from .minarearect import convex_hull_entry
@@ -262,7 +264,8 @@ def convex_iou(gt_quads: torch.Tensor, points: torch.Tensor):
     quads = (quads - shift).reshape(b, g, 8)
     hulls, counts = convex_hull_entry(pts)
     iou = hull_quad_iou_matrix(hulls.reshape(b, n, -1, 2),
-                               counts.reshape(b, n), quads)
+                               counts.reshape(b, n), quads, gt_valid,
+                               points_valid)
     return iou.transpose(1, 2)
 
 

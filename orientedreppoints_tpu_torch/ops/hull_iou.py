@@ -1,6 +1,6 @@
 """IoU of point-set hulls with gt quads (counterpart of
 ops/pallas_quad_iou.py, ``hull_quad_iou_matrix_pallas`` and its kernel
-``_hull_kernel``).
+``_hull_kernel``), with the refine assigner's validity masks.
 
 For hulls (B, N, 9, 2) with vertex counts (B, N) (padding repeats vertex 0)
 and quads (B, G, 8), the result is the (B, N, G) f32 IoU matrix.  Per pair,
@@ -9,6 +9,8 @@ quad's vertex 0, the hull's signed area by the masked shoelace over its
 slots, orient the quad counter-clockwise (a clockwise quad is read as
 vertices 0, 3, 2, 1), Sutherland-Hodgman clip by its four half-planes with
 stage caps 10, 11, 12, 13, then inter / max(area_a + area_b - inter, 1e-8).
+Optional masks gt_valid (B, G) and rows_valid (B, N) (None: all valid) make
+every pair whose gt or point set is not valid -1.0, as the assigner has it.
 
 The refine assigner compares IoUs for exact equality, so the CUDA kernel
 (csrc/hull_iou.cu) and the plain version below must give the same bits:
@@ -18,7 +20,8 @@ with -fmad=false.  The JAX package's XLA fallback
 (``geometry.convex_intersection_area``) rounds differently.
 
 ``hull_quad_iou_matrix`` runs the kernel for CUDA tensors and the plain
-version for CPU tensors.
+version for CPU tensors.  The kernel writes (B, G, N), the layout the
+assigner reads, and the entry returns it as a transposed (B, N, G) view.
 """
 
 from __future__ import annotations
@@ -77,9 +80,10 @@ def _hull_quad_iou_pairs(hx, hy, cnt, q):
     return inter / union
 
 
-def hull_quad_iou_matrix_plain(hulls, counts, quads):
+def hull_quad_iou_matrix_plain(hulls, counts, quads, gt_valid=None,
+                               rows_valid=None):
     """Plain version: the Pallas tile's arithmetic over broadcast pairs,
-    in row chunks of about _CHUNK_PAIRS pairs."""
+    in row chunks of about _CHUNK_PAIRS pairs; then -1.0 where masked."""
     b, n = counts.shape
     g = quads.shape[1]
     out = torch.empty((b, n, g), dtype=torch.float32, device=quads.device)
@@ -95,30 +99,52 @@ def hull_quad_iou_matrix_plain(hulls, counts, quads):
             hy[:, r0:r1, None, :].expand(shape + (V,)),
             cnt[:, r0:r1, None].expand(shape),
             q.expand(shape + (8,)))
+    if gt_valid is not None:
+        out = torch.where(gt_valid[:, None, :], out, -1.0)
+    if rows_valid is not None:
+        out = torch.where(rows_valid[:, :, None], out, -1.0)
     return out
 
 
 def hull_quad_iou_matrix(hulls: torch.Tensor, counts: torch.Tensor,
-                         quads: torch.Tensor) -> torch.Tensor:
-    """(B, N, 9, 2) f32 hulls, (B, N) int32 counts, (B, G, 8) f32 quads ->
-    (B, N, G) f32 IoU."""
+                         quads: torch.Tensor, gt_valid=None,
+                         rows_valid=None) -> torch.Tensor:
+    """(B, N, 9, 2) f32 hulls, (B, N) int32 counts, (B, G, 8) f32 quads,
+    optional (B, G) and (B, N) bool masks -> (B, N, G) f32 IoU, -1.0 where
+    the gt or the row is not valid."""
     if quads.device.type == "cpu":
-        return hull_quad_iou_matrix_plain(hulls, counts, quads)
-    return hull_quad_iou_kernel(hulls, counts, quads)
+        return hull_quad_iou_matrix_plain(hulls, counts, quads, gt_valid,
+                                          rows_valid)
+    return hull_quad_iou_kernel(hulls, counts, quads, gt_valid,
+                                rows_valid).transpose(1, 2)
 
 
-def hull_quad_iou_kernel(hulls, counts, quads):
+def hull_quad_iou_kernel(hulls, counts, quads, gt_valid=None,
+                         rows_valid=None):
+    """The CUDA kernel; returns the (B, G, N) layout."""
     b, n = counts.shape
     g = quads.shape[1]
+    masks = ((gt_valid, "gt_valid", (b, g)),
+             (rows_valid, "rows_valid", (b, n)))
+    for m, name, shape in masks:  # before the device check: raise on CPU too
+        if m is not None:
+            _ext.check_dtype_shape(m, name, torch.bool, shape)
     _ext.check_cuda(hulls, "hulls", torch.float32, (b, n, V, 2))
     _ext.check_cuda(counts, "counts", torch.int32, (b, n))
     _ext.check_cuda(quads, "quads", torch.float32, (b, g, 8))
-    out = torch.empty((b, n, g), dtype=torch.float32, device=quads.device)
+    for m, name, shape in masks:
+        if m is not None:
+            _ext.check_cuda(m, name, torch.bool, shape)
+    out = torch.empty((b, g, n), dtype=torch.float32, device=quads.device)
     _ext.launch("orp_hull_quad_iou", hulls.data_ptr(), counts.data_ptr(),
-                quads.data_ptr(), out.data_ptr(), b, n, g,
-                _ext.stream_ptr(quads))
+                quads.data_ptr(), _ptr(gt_valid), _ptr(rows_valid),
+                out.data_ptr(), b, n, g, _ext.stream_ptr(quads))
     hull_quad_iou_kernel.launches += 1
     return out
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
 
 
 hull_quad_iou_kernel.launches = 0

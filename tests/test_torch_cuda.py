@@ -120,3 +120,82 @@ def test_quad_iou_kernels_match_plain_versions_on_the_card(cuda):
     assert torch.equal(words, quad_iou.pack_bits(tri[1] > 0.4))
     assert torch.equal(words, quad_iou.quad_over_mask_plain(
         quads[1:2], 0.4, nv[1:2])[0])
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return torch.equal(a.contiguous().view(torch.int32),
+                       b.contiguous().view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_hull_iou_kernel_masks_and_ragged_shapes_bit_for_bit(cuda):
+    """N 1000 and G 75 (not multiples of the kernel's 128 hulls and 64 gts
+    a block); image 0 ordinary with padded gts, image 1 all gts padded,
+    image 2 all hulls degenerate (count 1); a tenth of the point sets
+    spread wide so that their hulls overlap many gts; a fifth of the rows
+    invalid."""
+    rng = np.random.default_rng(4)
+    b, n, g = 3, 1000, 75
+    spread = np.where(rng.random((b * n, 1, 1)) < 0.1, 150.0, 20.0)
+    pts = rng.uniform(0, 400, (b * n, 1, 2)) + rng.normal(
+        0, 1, (b * n, 9, 2)) * spread
+    pts[2 * n:] = pts[2 * n:, :1]
+    p = torch.tensor(pts.reshape(-1, 18), dtype=torch.float32, device=cuda)
+    hulls, counts = minarearect.convex_hull_entry(p)
+    h, c = hulls.view(b, n, 9, 2), counts.view(b, n)
+    assert (c[2] == 1).all() and (c[:2] > 2).float().mean() > 0.9
+    quads = torch.tensor(rng.uniform(0, 400, (b, g, 1, 2))
+                         + rng.normal(0, 30, (b, g, 4, 2)),
+                         dtype=torch.float32, device=cuda).view(b, g, 8)
+    gt_valid = torch.tensor(rng.random((b, g)) < 0.7, device=cuda)
+    gt_valid[1] = False
+    quads[~gt_valid] = 0.0  # padded gts are zero rows, as the loader pads
+    rows_valid = torch.tensor(rng.random((b, n)) < 0.8, device=cuda)
+
+    want = hull_iou.hull_quad_iou_matrix_plain(h, c, quads)
+    assert same_bits(hull_iou.hull_quad_iou_matrix(h, c, quads), want)
+    live = rows_valid[:, :, None] & gt_valid[:, None, :]
+    want_m = hull_iou.hull_quad_iou_matrix_plain(h, c, quads, gt_valid,
+                                                 rows_valid)
+    assert same_bits(want_m, torch.where(live, want, -1.0))
+    for gv, rv in ((gt_valid, rows_valid), (gt_valid, None),
+                   (None, rows_valid)):
+        got = hull_iou.hull_quad_iou_matrix(h, c, quads, gv, rv)
+        assert got.shape == (b, n, g)
+        assert same_bits(got, hull_iou.hull_quad_iou_matrix_plain(
+            h, c, quads, gv, rv))
+    got = hull_iou.hull_quad_iou_kernel(h, c, quads, gt_valid, rows_valid)
+    assert got.shape == (b, g, n) and got.is_contiguous()
+    assert (got[1] == -1).all() and (got[2][live[2].T] == 0).all()
+    assert (got[0] > 0.1).sum() > 200
+    # the wide hulls overlap many gts each
+    assert ((got[0] > 0).sum(0) >= 10).sum() >= 20
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [256, 64, 24])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_deform_sample_kernel_bit_for_bit(cuda, c, dtype):
+    """The DCN forward against its plain version, bit for bit: C 256 and
+    64 take the 16-byte path, C 24 the scalar loop; a 1x1 level, rows
+    (372) not a multiple of the kernel's 8 a block, and offsets that throw
+    a tenth of the samples far outside the map."""
+    rng = np.random.default_rng(5)
+    shapes = [(2, 13, 11), (2, 7, 6), (2, 1, 1)]
+    rows = sum(bb * hh * w for bb, hh, w in shapes)
+    ta = torch.tensor(rng.normal(size=(rows, c)), device=cuda).to(dtype)
+    tb = torch.tensor(rng.normal(size=(rows, c)), device=cuda).to(dtype)
+    off = rng.normal(0, 3, (rows, 18))
+    far = rng.random((rows, 18)) < 0.1
+    off[far] = rng.choice([-60.0, 60.0], far.sum())
+    off = torch.tensor(off, device=cuda).to(dtype)
+    got = deform_conv.deform_sample_pair(ta, tb, off, shapes)
+    want = deform_conv.deform_sample_pair_plain(ta, tb, off, shapes)
+    for x, y in zip(got, want):
+        assert x.dtype == y.dtype == dtype and x.shape == (rows, 9 * c)
+        assert torch.equal(x.view(torch.int16 if dtype == torch.bfloat16
+                                  else torch.int32),
+                           y.view(torch.int16 if dtype == torch.bfloat16
+                                  else torch.int32))
+        assert (y != 0).float().mean() > 0.5

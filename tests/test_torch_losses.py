@@ -107,6 +107,39 @@ class TestHullIoU:
             assert torch.equal(got[i], self._port(c[1], c[2], c[3]))
 
 
+    def test_masked_plain_is_where_of_unmasked(self):
+        """-1.0 where the gt or the row is not valid, the unmasked bits
+        elsewhere: image 0 with its two padded gts masked, image 1 with no
+        valid gt, image 2 with a third of its rows invalid; either mask may
+        be None."""
+        cases = [hull_case(s) for s in (20, 21, 22)]
+        hulls = torch.stack([c[1] for c in cases])
+        counts = torch.stack([c[2] for c in cases])
+        quads = torch.from_numpy(np.stack([c[3] for c in cases]))
+        b, n, g = counts.shape + quads.shape[1:2]
+        gt_valid = torch.ones((b, g), dtype=torch.bool)
+        gt_valid[0, -2:] = False
+        gt_valid[1] = False
+        rows_valid = torch.ones((b, n), dtype=torch.bool)
+        rows_valid[2, ::3] = False
+        full = hull_iou.hull_quad_iou_matrix(hulls, counts, quads)
+        both = hull_iou.hull_quad_iou_matrix(hulls, counts, quads, gt_valid,
+                                             rows_valid)
+        assert (both[1] == -1).all() and (both[2, ::3] == -1).all()
+        assert (both[0][:, :-2] > 0.1).sum() >= 10
+        for gv, rv in ((gt_valid, rows_valid), (gt_valid, None),
+                       (None, rows_valid)):
+            live = torch.ones((b, n, g), dtype=torch.bool)
+            if gv is not None:
+                live &= gv[:, None, :]
+            if rv is not None:
+                live &= rv[:, :, None]
+            got = hull_iou.hull_quad_iou_matrix(hulls, counts, quads, gv, rv)
+            assert got.shape == (b, n, g)
+            assert torch.equal(got.view(torch.int32),
+                               torch.where(live, full, -1.0).view(torch.int32))
+
+
 class TestConvexHullEntry:
     """The plain hull rounds as kernel 1 writes it: (p - c) + c."""
 
@@ -324,6 +357,35 @@ def test_max_iou_assign_from_overlaps_matches_exactly():
         torch.from_numpy(gv))
     np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
     assert (np.asarray(ref) > 0).sum() > 50
+
+
+def test_max_iou_assign_matches_exactly():
+    """The port's max_iou_assign (masks passed into the hull-IoU entry)
+    against the JAX one per image: image 0 with three padded zero gts,
+    image 1 with none valid, a sixth of the proposals invalid.  The
+    assignment and the -1 pattern are equal; the overlaps agree within
+    1e-6 (the hulls and the XLA fallback round apart by an ulp)."""
+    rng = np.random.default_rng(19)
+    b, g, n = 3, 12, 64
+    pts = np.stack([point_sets(rng, n, 10.0, 110.0) for _ in range(b)])
+    quads = np.stack([rotated_quads(rng, g, 10.0, 110.0, (8.0, 50.0))
+                      for _ in range(b)])
+    gv = np.ones((b, g), bool)
+    gv[0, -3:] = False
+    gv[1] = False
+    quads[~gv] = 0.0
+    pv = rng.random((b, n)) < 0.85
+    ref, ref_over = jax.jit(jax.vmap(assigners_ref.max_iou_assign))(
+        pts, pv, quads, gv)
+    got, over = assigners.max_iou_assign(
+        torch.from_numpy(pts), torch.from_numpy(pv), torch.from_numpy(quads),
+        torch.from_numpy(gv))
+    ref, ref_over = np.asarray(ref), np.asarray(ref_over)
+    np.testing.assert_array_equal(got.numpy(), ref)
+    np.testing.assert_array_equal(over.numpy() == -1, ref_over == -1)
+    np.testing.assert_allclose(over.numpy(), ref_over, rtol=0, atol=1e-6)
+    assert (ref[0] > 0).sum() >= 10 and (ref[1] == 0).all()
+    assert (ref_over > 0.1).sum() >= 50
 
 
 @pytest.mark.parametrize("max_pos", [64, 512], ids=["overflow", "no_overflow"])

@@ -133,6 +133,47 @@ def test_cuda_entries_raise_without_a_gpu():
             [(1, 2, 3)])
 
 
+def _hull_call(gt_valid="ok", rows_valid="ok"):
+    b, n, g = 2, 5, 3
+    masks = {"ok": None, "gt": torch.ones(b, g, dtype=torch.bool),
+             "rows": torch.ones(b, n, dtype=torch.bool)}
+    return lambda: hull_iou.hull_quad_iou_kernel(
+        torch.zeros(b, n, 9, 2), torch.ones(b, n, dtype=torch.int32),
+        torch.zeros(b, g, 8),
+        masks["gt"] if gt_valid == "ok" else gt_valid,
+        masks["rows"] if rows_valid == "ok" else rows_valid)
+
+
+@pytest.mark.parametrize("call, error, match", [
+    (_hull_call(), ValueError, "CUDA tensor"),
+    (_hull_call(gt_valid=None, rows_valid=None), ValueError, "CUDA tensor"),
+    (_hull_call(gt_valid=torch.ones(2, 3, dtype=torch.uint8)), TypeError,
+     "gt_valid: expected torch.bool"),
+    (_hull_call(gt_valid=torch.ones(2, 4, dtype=torch.bool)), ValueError,
+     r"gt_valid: expected shape \(2, 3\)"),
+    (_hull_call(rows_valid=torch.ones(2, 5)), TypeError,
+     "rows_valid: expected torch.bool"),
+    (_hull_call(rows_valid=torch.ones(5, 2, dtype=torch.bool)), ValueError,
+     r"rows_valid: expected shape \(2, 5\)"),
+    (lambda: deform_conv.deform_sample_pair_kernel(
+        torch.zeros(6, 8), torch.zeros(6, 8), torch.zeros(6, 18),
+        [(1, 2, 3)]), ValueError, "CUDA tensor"),
+    (lambda: deform_conv.deform_sample_pair_kernel(
+        torch.zeros(6, 8), torch.zeros(6, 8), torch.zeros(6, 50),
+        [(1, 2, 3)], kernel_size=5), ValueError, "kernel_size 5"),
+], ids=["hull_cpu", "hull_cpu_no_masks", "gt_valid_dtype", "gt_valid_shape",
+        "rows_valid_dtype", "rows_valid_shape", "dcn_fwd_cpu",
+        "dcn_fwd_kernel_size"])
+def test_kernel_wrappers_refuse_before_any_launch(call, error, match):
+    """The wrappers of the redesigned kernels check their inputs (device,
+    the masks' dtype and shape, the DCN's kernel size) before a launch;
+    the masks are checked first, so that they are refused on the CPU too."""
+    ops.reset_launch_counts()
+    with pytest.raises(error, match=match):
+        call()
+    assert ops.launch_counts() == {name: 0 for name in ops.KERNELS}
+
+
 def test_cpu_tensors_never_launch_a_kernel():
     ops.reset_launch_counts()
     rng = np.random.default_rng(0)
