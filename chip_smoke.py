@@ -7,8 +7,10 @@ Phases, each printing one line or more (a failed phase exits non-zero):
   1. device: the card, its power limit, and the build of the CUDA kernels;
   2. kernels: each kernel against its plain PyTorch version on the card, at
      the shapes of the R-50 1344^2 batch-4 serving path (min-area rect with
-     its hull output, over-mask, scan, DCN sampling, the latter bit for bit
-     and also timed at the training and the 2016^2 TTA shapes), of the
+     its hull output, over-mask bit for bit with the share of live pairs
+     whose clip empties at each stage, scan exactly with its time a row,
+     DCN sampling bit for bit and also timed at the training and the 2016^2
+     TTA shapes), of the
      batch-2 training step (hull IoU with the step's masks, bit for bit
      over every pair, with the share of live pairs whose clip empties at
      each stage; DCN backward) and of the quad-IoU entries (full and
@@ -22,7 +24,9 @@ Phases, each printing one line or more (a failed phase exits non-zero):
      random weights perturbed so that the decode has thousands of
      candidates; launch counts, finiteness, images/s and peak memory;
   4. decode: the same head outputs decoded through the kernels and through
-     the plain versions, det for det;
+     the plain versions, det for det, and both NMS kernels checked and timed
+     on that decode's own candidates (the top 4096 class-offset boxes an
+     image);
   5. tta: run_inference_tta with the multi-scale x flip recipe TTA_AUGS
      (scales 0.5, 1.0, 1.5, each on its own /32 canvas, x flip; R-50 bf16,
      batch 2) over 4 seeded 1024^2 images resized to fill the canvas: per
@@ -88,7 +92,6 @@ NMS_THR = 0.4
 LEVELS = [(BATCH, 168, 168), (BATCH, 84, 84), (BATCH, 42, 42),
           (BATCH, 21, 21), (BATCH, 11, 11)]  # 1344^2 canvas, strides 8..128
 RECT_TOL = 1e-3  # px, corners up to order; coordinates <= ~1.5e3 in f32
-IOU_TIE = 1e-4  # over-mask bits may differ only this close to the threshold
 TRAIN_BATCH = 2  # data.imgs_per_gpu
 TRAIN_CANVAS = 1344
 TRAIN_HW = ((1280, 1280), (1024, 1024))  # true image sizes on the canvas
@@ -258,6 +261,61 @@ def tri_live(nv):
     return lambda rows, cols: (cols > rows) & (rows < nv) & (cols < nv)
 
 
+def over_mask_case(entry, q, nv, thr=NMS_THR, reps=10):
+    """The over-mask kernel (entry() launches it on quads q (B, N, 8) with
+    prefixes nv and threshold thr) against its plain version, bit for bit:
+    (the kernel line's fields, the plain version's words).  The live pairs
+    are those of the upper triangle inside the prefixes; their clip-stage
+    exits come from clip_pair_ops."""
+    from orientedreppoints_tpu_torch.ops import quad_iou
+
+    n = q.shape[1]
+    got = entry()
+    want = quad_iou.quad_over_mask_plain(q, thr, nv)
+    diff = int(quad_iou.unpack_bits(got ^ want, n).sum())
+    exits = [0] * 5
+    ops = clip_pair_ops(*quad_subjects(q), q, tri_live(nv), exits)
+    v = nv.to(torch.int64).clamp(0, n)
+    live = max(1, int((v * (v - 1) // 2).sum()))
+    return dict(
+        max_abs_err=float(diff), differing_bits=diff, ok=diff == 0,
+        set_bits=int(quad_iou.unpack_bits(want, n).sum()), live_pairs=live,
+        live_stage0_exit_share=exits[0] / live,
+        live_exit_share_by_stage=[x / live for x in exits[:4]],
+        live_clip_nonempty_share=exits[4] / live,
+        ms=cuda_ms(entry, reps),
+        plain_ms=cuda_ms(lambda: quad_iou.quad_over_mask_plain(q, thr, nv),
+                         1),
+        library_ms=None,
+        **bound(q.numel() * 4 + nv.numel() * 4 + want.numel() * 8, ops)), \
+        want
+
+
+def scan_case(words, valid, nv, reps=20):
+    """The scan kernel against its plain version on one bitmask: the same
+    keep exactly; the time per row is the kernel's over the longest prefix
+    (the images run side by side)."""
+    from orientedreppoints_tpu_torch.ops import nms
+
+    n = valid.shape[1]
+    keep = nms.greedy_scan(words, valid, nv)
+    keep_plain = nms.greedy_scan_plain(words, valid, nv)
+    ms = cuda_ms(lambda: nms.greedy_scan(words, valid, nv), reps)
+    rows = max(1, int(nv.max()))
+    inside = torch.arange(n, device=words.device) < nv[:, None].long()
+    row_words = words.shape[-1] - torch.arange(n, device=words.device) // 64
+    return dict(
+        max_abs_err=float((keep != keep_plain).sum()),
+        ok=bool(torch.equal(keep, keep_plain)), kept=int(keep.sum()),
+        ms=ms, rows_walked=rows, ns_per_row=ms * 1e6 / rows,
+        plain_ms=cuda_ms(lambda: nms.greedy_scan_plain(words, valid, nv), 1),
+        library_ms=None,
+        # the kept rows' mask words from their own word on, valid in, keep
+        # out; no arithmetic
+        **bound(float(((keep & inside) * row_words).sum()) * 8
+                + 2 * keep.numel(), 0.0))
+
+
 def min_area_rect_ops(counts) -> float:
     """Op model of one min-area rect per set with a hull of h vertices:
     the centroid 20, per gift-wrapping step (h + 1 of them) 9 distances
@@ -338,8 +396,8 @@ def nms_quads(rng, b, n, classes=15):
 
 
 def phase_kernels(dev, rng):
-    from orientedreppoints_tpu_torch.ops import (deform_conv, minarearect,
-                                                 nms, quad_iou)
+    from orientedreppoints_tpu_torch.ops import minarearect, quad_iou
+
     res = {}
 
     # min-area rect: the decode's B * sum(min(2000, HW)) = 25304 sets
@@ -364,46 +422,18 @@ def phase_kernels(dev, rng):
     say("kernel", name="min_area_rect", sets=n, ties=ties,
         tol_px=RECT_TOL, **res["min_area_rect"])
 
-    # over-mask: B 4, N 4096 class-offset quads, nv = 4096
-    nq = NQ
-    q = torch.tensor(nms_quads(rng, BATCH, nq), dtype=torch.float32,
+    # over-mask: B 4, N 4096 class-offset quads, nv = 4096; the scan over
+    # the plain version's words
+    q = torch.tensor(nms_quads(rng, BATCH, NQ), dtype=torch.float32,
                      device=dev)
-    nv = torch.full((BATCH,), nq, dtype=torch.int32, device=dev)
-    mask = quad_iou.quad_over_mask(q, NMS_THR, nv)
-    mask_plain = quad_iou.quad_over_mask_plain(q, NMS_THR, nv)
-    diff = quad_iou.unpack_bits(mask ^ mask_plain, nq)
-    bi, ri, ci = diff.nonzero(as_tuple=True)
-    iou = quad_iou.quad_iou_pairs(q[bi, ri], q[bi, ci])
-    set_bits = int(quad_iou.unpack_bits(mask_plain, nq).sum())
-    res["quad_over_mask"] = dict(
-        max_abs_err=float(int(diff.any())), mismatches=int(diff.sum()),
-        ok=bool(((iou - NMS_THR).abs() < IOU_TIE).all()), set_bits=set_bits,
-        ms=cuda_ms(lambda: quad_iou.quad_over_mask(q, NMS_THR, nv), 10),
-        plain_ms=cuda_ms(
-            lambda: quad_iou.quad_over_mask_plain(q, NMS_THR, nv), 1),
-        library_ms=None,
-        **bound(q.numel() * 4 + mask.numel() * 8,
-                clip_pair_ops(*quad_subjects(q), q, tri_live(nv))))
-    say("kernel", name="quad_over_mask", batch=BATCH, n=nq,
-        iou_tie=IOU_TIE, **res["quad_over_mask"])
-
-    # scan: the kernel's mask through both scans, which must agree exactly
-    valid = torch.ones((BATCH, nq), dtype=torch.bool, device=dev)
-    keep = nms.greedy_scan(mask, valid, nv)
-    keep_plain = nms.greedy_scan_plain(mask, valid, nv)
-    words = mask.shape[-1]
-    kept_rows = keep & (torch.arange(nq, device=dev) < nv[:, None].long())
-    row_words = words - torch.arange(nq, device=dev) // 64  # from its word
-    res["nms_scan"] = dict(
-        max_abs_err=float((keep != keep_plain).sum()),
-        ok=bool(torch.equal(keep, keep_plain)), kept=int(keep.sum()),
-        ms=cuda_ms(lambda: nms.greedy_scan(mask, valid, nv), 20),
-        plain_ms=cuda_ms(lambda: nms.greedy_scan_plain(mask, valid, nv), 1),
-        library_ms=None,
-        # the kept rows' mask words, valid in, keep out; no arithmetic
-        **bound(float((kept_rows * row_words).sum()) * 8 + 2 * keep.numel(),
-                0.0))
-    say("kernel", name="nms_scan", **res["nms_scan"])
+    nv = torch.full((BATCH,), NQ, dtype=torch.int32, device=dev)
+    res["quad_over_mask"], words = over_mask_case(
+        lambda: quad_iou.quad_over_mask(q, NMS_THR, nv), q, nv)
+    say("kernel", name="quad_over_mask", batch=BATCH, n=NQ,
+        **res["quad_over_mask"])
+    valid = torch.ones((BATCH, NQ), dtype=torch.bool, device=dev)
+    res["nms_scan"] = scan_case(words, valid, nv)
+    say("kernel", name="nms_scan", batch=BATCH, n=NQ, **res["nms_scan"])
 
     # paired DCN sampling over the 1344^2 batch-4 pyramid, C = 256, then
     # at the training and the 2016^2 TTA shapes
@@ -772,34 +802,20 @@ def phase_quad_kernels(dev, rng):
     over_vs_tri = int(quad_iou.unpack_bits(
         mask ^ quad_iou.pack_bits(tri > NMS_THR), nq).sum())
     del mask, tri
-    words = quad_iou.quad_over_matrix(q, NMS_THR, nq)
-    words_p = quad_iou.quad_over_mask_plain(q[None], NMS_THR, nv[:1])[0]
-    diff = int(quad_iou.unpack_bits(words ^ words_p, nq).sum())
-    res["quad_over_mask_single"] = dict(
-        max_abs_err=float(diff), differing_bits=diff,
+    res["quad_over_mask_single"], words = over_mask_case(
+        lambda: quad_iou.quad_over_matrix(q, NMS_THR, nv[0])[None], q[None],
+        nv[:1])
+    res["quad_over_mask_single"].update(
         over_mask_vs_tri_differing_bits=over_vs_tri,
-        ok=diff == 0 and over_vs_tri == 0,
-        set_bits=int(quad_iou.unpack_bits(words_p, nq).sum()),
-        ms=cuda_ms(lambda: quad_iou.quad_over_matrix(q, NMS_THR, nq), 10),
-        plain_ms=cuda_ms(lambda: quad_iou.quad_over_mask_plain(
-            q[None], NMS_THR, nv[:1]), 1),
-        library_ms=None,
-        **bound(q.numel() * 4 + 4 + words.numel() * 8,
-                clip_pair_ops(*quad_subjects(q[None]), q[None],
-                              tri_live(nv[:1]))))
+        ok=res["quad_over_mask_single"]["ok"] and over_vs_tri == 0)
     say("kernel", name="quad_over_mask_single", n=nq,
         **res["quad_over_mask_single"])
 
     # the scan at the merge's shape (one image), over the same words
     valid = torch.ones((1, nq), dtype=torch.bool, device=dev)
-    keep = nms.greedy_scan(words[None], valid, nv[:1])
-    keep_p = nms.greedy_scan_plain(words[None], valid, nv[:1])
-    same = bool(torch.equal(keep, keep_p))
-    say("kernel_shape", name="nms_scan", batch=1, n=nq, kept=int(keep.sum()),
-        same_keep=same,
-        ms=cuda_ms(lambda: nms.greedy_scan(words[None], valid, nv[:1]), 20),
-        plain_ms=cuda_ms(lambda: nms.greedy_scan_plain(
-            words[None], valid, nv[:1]), 1), ok=same)
+    scan = scan_case(words, valid, nv[:1])
+    say("kernel_shape", name="nms_scan", batch=1, n=nq, **scan)
+    same = scan["ok"]
 
     # the entries of kernel 4 through the kernel and the plain version
     qs = q[:nq // 2].contiguous()
@@ -1172,6 +1188,7 @@ def plain_decode():
 
 def phase_decode(pred, outs):
     from orientedreppoints_tpu_torch.models.detector import decode_detections
+    from orientedreppoints_tpu_torch.ops import nms, quad_iou
 
     tc = pred.test_cfg
     kw = dict(nms_pre=tc["nms_pre"], score_thr=tc["score_thr"],
@@ -1179,8 +1196,11 @@ def phase_decode(pred, outs):
               pre_nms_cap=tc.get("pre_nms_cap", 4096))
     outs = {k: [t.float() for t in outs[k]]
             for k in ("cls_scores", "pts_refine")}
+    overs, scans = [], []
     with torch.inference_mode():
-        dets, labels, valid = decode_detections(outs, **kw)
+        with recording(nms, "quad_over_mask", overs), \
+                recording(nms, "greedy_scan", scans):
+            dets, labels, valid = decode_detections(outs, **kw)
         with plain_decode():
             dets_p, labels_p, valid_p = decode_detections(outs, **kw)
     same_valid = bool(torch.equal(valid, valid_p))
@@ -1193,7 +1213,20 @@ def phase_decode(pred, outs):
         err_poly = float(rect_err(d[:, 18:26], p[:, 18:26]).max())
         err_score = float((d[:, 26] - p[:, 26]).abs().max())
     ok = (same_labels and err_pts == 0.0 and err_score == 0.0
-          and err_poly <= RECT_TOL)
+          and err_poly <= RECT_TOL and len(overs) == len(scans) == 1)
+    # both NMS kernels on this batch's own candidates (the top 4096
+    # class-offset boxes an image), bit for bit and timed
+    (q, thr, nv), _, _ = overs[0]
+    (words, top_valid, _), _, _ = scans[0]
+    with torch.inference_mode():
+        over, want = over_mask_case(
+            lambda: quad_iou.quad_over_mask(q, thr, nv), q, nv, thr)
+        scan = scan_case(want, top_valid, nv)
+    ok = ok and over["ok"] and scan["ok"] and torch.equal(words, want)
+    for name, line in (("quad_over_mask", over), ("nms_scan", scan)):
+        say("kernel_shape", name=name, shape="decode_candidates",
+            batch=int(q.shape[0]), n=int(q.shape[1]),
+            num_valid=nv.tolist(), **line)
     say("decode", dets=int(valid.sum()), same_valid=same_valid,
         same_labels=same_labels, max_err_reppoints=err_pts,
         max_err_poly_px=err_poly, max_err_score=err_score, ok=ok)

@@ -1,6 +1,7 @@
-// Exact IoU of two convex quads, shared by the over-mask kernel
-// (quad_over.cu) and the f32 IoU-matrix kernels (quad_iou.cu), so that an
-// over-mask bit is exactly (f32 IoU > thr) of the same pair.
+// Exact IoU of two convex quads, for the f32 IoU-matrix kernels
+// (quad_iou.cu).  The over-mask kernel (quad_over.cu) evaluates the same
+// arithmetic through clip_ring.cuh, so that an over-mask bit is exactly
+// (f32 IoU > thr) of the same pair.
 //
 // The arithmetic of the Pallas tile (orientedreppoints_tpu/ops/
 // pallas_quad_iou.py, _quad_tile), operation for operation: recentre the

@@ -27,8 +27,14 @@ class Conv2d(nn.Conv2d):
 
 class GroupNorm(nn.GroupNorm):
     def forward(self, x):
-        return F.group_norm(x, self.num_groups, self.weight.to(x.dtype),
-                            self.bias.to(x.dtype), self.eps)
+        w, b = self.weight.to(x.dtype), self.bias.to(x.dtype)
+        if x[0].numel() == self.num_groups:
+            # one value a group (F.group_norm refuses it at batch 1): as in
+            # flax, x - mean is 0 (NaN where x is not finite), so the
+            # result is the bias
+            shape = (1, -1) + (1,) * (x.dim() - 2)
+            return (x - x) * w.view(shape) + b.view(shape)
+        return F.group_norm(x, self.num_groups, w, b, self.eps)
 
 
 class FrozenBatchNorm(nn.Module):

@@ -38,7 +38,7 @@ F32 = ctypes.c_float
 # exported function -> argument types (pointers and the stream are c_void_p)
 SIGNATURES = {
     "orp_min_area_rect": [P, P, P, P, I, P],
-    "orp_quad_over_mask": [P, P, P, I, I, I, F32, P],
+    "orp_quad_over_mask": [P, P, P, I, I, F32, P],
     "orp_nms_scan": [P, P, P, P, I, I, P],
     "orp_deform_sample_pair_f32": [P, P, P, P, P, P, I, I, I, I, P],
     "orp_deform_sample_pair_bf16": [P, P, P, P, P, P, I, I, I, I, P],

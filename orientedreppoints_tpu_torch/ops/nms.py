@@ -46,7 +46,8 @@ def greedy_scan(mask: torch.Tensor, valid: torch.Tensor,
     """Greedy suppression over score-sorted rows.
 
     mask: (B, N, W) int64 bitmask from quad_over_mask (row i suppresses
-    column j > i where its bit is set); valid: (B, N) bool;
+    column j > i where its bit is set; bits at j <= i are 0, which the
+    kernel relies on); valid: (B, N) bool;
     num_valid: (B,) int32 valid-prefix lengths.  Returns keep (B, N) bool.
     """
     if mask.device.type == "cpu":

@@ -7,8 +7,9 @@ ops/pallas_quad_iou.py: ``quad_iou_matrix_pallas`` and
 
 Every entry evaluates one pair function, the Pallas tile's quad IoU
 (``quad_iou_pairs``: subject quad of the row, clip quad of the column).  The
-CUDA kernels evaluate it in csrc/quad_clip.cuh, built with -fmad=false, so a
-kernel and its plain version give the same bits:
+CUDA kernels evaluate it in csrc/quad_clip.cuh (the f32 matrices) and
+csrc/clip_ring.cuh (the over-mask), in the same order of operations, built
+with -fmad=false, so a kernel and its plain version give the same bits:
 
   * quad_iou_matrix / quad_iou_matrix_batch: the f32 (N, M) matrix, in full
     (csrc/quad_iou.cu, orp_quad_iou_full) or, with upper_tri, only where
@@ -197,8 +198,7 @@ def quad_over_mask_kernel(quads: torch.Tensor, iou_thr: float,
     words = (n + 63) // 64
     out = torch.empty((b, n, words), dtype=torch.int64, device=quads.device)
     _ext.launch("orp_quad_over_mask", quads.data_ptr(), num_valid.data_ptr(),
-                out.data_ptr(), b, n, words, float(iou_thr),
-                _ext.stream_ptr(quads))
+                out.data_ptr(), b, n, float(iou_thr), _ext.stream_ptr(quads))
     quad_over_mask_kernel.launches += 1
     return out
 

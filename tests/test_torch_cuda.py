@@ -199,3 +199,88 @@ def test_deform_sample_kernel_bit_for_bit(cuda, c, dtype):
                            y.view(torch.int16 if dtype == torch.bfloat16
                                   else torch.int32))
         assert (y != 0).float().mean() > 0.5
+
+
+def nms_case_quads(rng, b, n):
+    """Score-sorted-like NMS candidates (b, n, 8): jittered copies of n/8
+    base boxes shifted by class to ~3e4, with identical quads (IoU exactly
+    1), zero-area quads (four collinear points, and four equal points), and
+    axis-aligned pairs at ~2.9e4 whose IoU lies within 1e-4 of 0.4."""
+    base = rng.integers(0, n // 8, (b, n))
+    c = rng.uniform(0, 1344, (b, n // 8, 2))[np.arange(b)[:, None], base]
+    c = c + rng.normal(0, 8, (b, n, 2))
+    wh = rng.uniform(16, 96, (b, n, 2))
+    ang = rng.uniform(0, np.pi, (b, n))
+    lx = np.array([-0.5, 0.5, 0.5, -0.5]) * wh[..., :1]
+    ly = np.array([-0.5, -0.5, 0.5, 0.5]) * wh[..., 1:]
+    cs, sn = np.cos(ang)[..., None], np.sin(ang)[..., None]
+    q = np.stack([cs * lx - sn * ly + c[..., :1],
+                  sn * lx + cs * ly + c[..., 1:]], -1).reshape(b, n, 8)
+    q += (base % 15)[..., None] * 2000.0
+    q[:, 1:40:3] = q[:, 0:39:3]  # identical neighbours
+    t = np.arange(4)[:, None] * np.array([7.0, 3.0])
+    q[:, 50:60] = (q[:, 50:60, None, :2] + t).reshape(b, 10, 8)  # collinear
+    q[:, 60:70] = np.tile(q[:, 60:70, :2], 4)  # a point
+    # IoU(a, a shifted by dx) = 0.4 at dx = 300 / 7 for 100 x 100 boxes; f32
+    # steps of 2^-9 px at 2.9e4 move the IoU by ~2e-5
+    dx = 300.0 / 7.0 + rng.uniform(-5e-3, 5e-3, (b, 20))
+    sq = np.array([0, 0, 100, 0, 100, 100, 0, 100], np.float64)
+    org = rng.uniform(0, 1000, (b, 20, 1)) * np.array([1.0, 0.0] * 4)
+    q[:, 100:140:2] = sq + org + 29000.0
+    q[:, 101:141:2] = sq + org + 29000.0 + np.array([1.0, 0.0] * 4) * \
+        dx[..., None]
+    return torch.tensor(q, dtype=torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1000, 4100])
+def test_over_mask_ragged_shapes_bit_for_bit(cuda, n):
+    """The over-mask at N not a multiple of 64, with nv 0, mid-tile and N in
+    one batch, against its plain version bit for bit; the single-image
+    entry too."""
+    rng = np.random.default_rng(6)
+    q = nms_case_quads(rng, 3, n).to(cuda)
+    nv = torch.tensor([n, 0, 517], dtype=torch.int32, device=cuda)
+    got = quad_iou.quad_over_mask(q, 0.4, nv)
+    want = quad_iou.quad_over_mask_plain(q, 0.4, nv)
+    assert got.shape == (3, n, (n + 63) // 64)
+    assert torch.equal(got, want)
+    assert (want[1] == 0).all() and (want[2, 517:] == 0).all()
+    bits = quad_iou.unpack_bits(want, n)
+    assert bits[0].sum() > 1000 and bits[2].sum() > 50
+    # the near-threshold pairs and the identical quads are in the case
+    iou = quad_iou.quad_iou_pairs(q[0, 100:140:2], q[0, 101:141:2])
+    assert ((iou - 0.4).abs() < 1e-4).all()
+    assert bool(bits[0, 100:140:2, 101:141:2].diagonal().any())
+    assert bool((~bits[0, 100:140:2, 101:141:2].diagonal()).any())
+    assert bits[0, 0:39:3, 1:40:3].diagonal().all()
+    single = quad_iou.quad_over_matrix(q[2], 0.4, nv[2])
+    assert torch.equal(single, want[2])
+    assert torch.equal(quad_iou.quad_over_matrix(q[0], 0.4), want[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1000, 4100])
+def test_scan_ragged_cases_match_plain(cuda, n):
+    """B 4 with distinct nv: a sparse mask with a fifth of the rows invalid
+    inside the prefix, a mask in which row 0 suppresses every later row, an
+    empty mask, a dense mask; N not a multiple of 64; valid rows past nv."""
+    rng = np.random.default_rng(7)
+    nv = np.array([n, 700, 333, 64 * 5 + 17], np.int32)
+    over = np.triu(rng.random((4, n, n)) < np.array(
+        [0.003, 0.0, 0.0, 0.3])[:, None, None], 1)
+    over[1, 0, 1:] = True
+    rows = np.arange(n)
+    over &= (rows[None, :, None] < nv[:, None, None]) & (
+        rows[None, None, :] < nv[:, None, None])
+    valid = rng.random((4, n)) >= 0.2
+    valid[1, 0] = True
+    mask = quad_iou.pack_bits(torch.from_numpy(over)).to(cuda)
+    v = torch.from_numpy(valid).to(cuda)
+    nvt = torch.from_numpy(nv).to(cuda)
+    got = nms.greedy_scan(mask, v, nvt)
+    want = nms.greedy_scan_plain(mask, v, nvt)
+    assert torch.equal(got, want)
+    assert not want[1, 1:700].any() and want[1, 700:].sum() > 0
+    assert torch.equal(want[2], v[2])
+    assert 0 < want[3, :nv[3]].sum() < nv[3] // 2

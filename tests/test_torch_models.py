@@ -66,6 +66,23 @@ def test_conv_module(act):
     assert_close_nhwc(mod(nchw(x)), ref.apply(v, x))
 
 
+@pytest.mark.parametrize("act", [True, False])
+def test_conv_module_one_value_a_group(act):
+    """Width 32 in 32 groups, batch 1, a 1x1 map: each group holds one
+    value, which flax normalises to the bias (F.group_norm refuses it)."""
+    x = np.random.RandomState(5).randn(1, 1, 1, 16).astype(np.float32)
+    ref = ConvModuleRef(32, 3, norm="gn", act=act)
+    v, mod = init_pair(ref, ConvModule(16, 32, 3, act=act), [x])
+    bias = v["params"]["gn"]["bias"]
+    assert np.abs(bias).min() > 0
+    want = np.asarray(ref.apply(v, x))
+    got = mod(nchw(x)).detach().permute(0, 2, 3, 1).numpy()
+    assert got.shape == want.shape == (1, 1, 1, 32)
+    assert float(np.abs(got - want).max()) <= 1e-6
+    np.testing.assert_allclose(want[0, 0, 0], np.maximum(bias, 0) if act
+                               else bias, atol=1e-6)
+
+
 def test_frozen_batch_norm():
     x = np.random.RandomState(4).randn(2, 5, 7, 24).astype(np.float32)
     ref = BNRef(24)

@@ -137,16 +137,24 @@ class TestQuadOverMask:
         assert torch.equal(quad_iou.unpack_bits(words, 130), bits)
 
 
-@pytest.mark.parametrize("density", [0.02, 0.3])
-def test_greedy_scan_matches_exactly(density):
+@pytest.mark.parametrize("density, n, nv, invalid", [
+    pytest.param(0.02, 200, [200, 150, 0], 0.0, id="0.02"),
+    pytest.param(0.3, 200, [200, 150, 0], 0.0, id="0.3"),
+    # N not a multiple of 64, prefixes ending mid-word, a fifth of the rows
+    # invalid inside the prefix (and valid rows past it)
+    pytest.param(0.002, 4100, [4100, 2021], 0.2, id="invalid_rows_n4100"),
+])
+def test_greedy_scan_matches_exactly(density, n, nv, invalid):
     rng = np.random.default_rng(5)
-    b, n = 3, 200
+    nv = np.array(nv, np.int32)
+    b = len(nv)
     over = np.triu(rng.random((b, n, n)) < density, 1)
-    nv = np.array([200, 150, 0], np.int32)
     rows = np.arange(n)
     over &= (rows[None, :, None] < nv[:, None, None]) & (
         rows[None, None, :] < nv[:, None, None])
     valid = rows[None, :] < nv[:, None]
+    if invalid:
+        valid = rng.random((b, n)) >= invalid
     ref = np.asarray(nms_ref.greedy_scan_sorted(
         jnp.asarray(over), jnp.asarray(valid), num_valid=jnp.asarray(nv)))
     got = nms.greedy_scan(quad_iou.pack_bits(torch.from_numpy(over)),
