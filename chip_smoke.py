@@ -7,18 +7,20 @@ Phases, each printing one line or more (a failed phase exits non-zero):
   1. device: the card, its power limit, and the build of the CUDA kernels;
   2. kernels: each kernel against its plain PyTorch version on the card, at
      the shapes of the R-50 1344^2 batch-4 serving path (min-area rect with
-     its hull output, over-mask bit for bit with the share of live pairs
-     whose clip empties at each stage, scan exactly with its time a row,
-     DCN sampling bit for bit and also timed at the training and the 2016^2
-     TTA shapes), of the
+     its hull output, also timed at the training step's three calls;
+     over-mask bit for bit with the share of live pairs whose clip empties
+     at each stage; scan exactly with its time a row; DCN sampling bit for
+     bit and also timed at the training and the 2016^2 TTA shapes), of the
      batch-2 training step (hull IoU with the step's masks, bit for bit
      over every pair, with the share of live pairs whose clip empties at
-     each stage; DCN backward) and of the quad-IoU entries (full and
-     upper-triangle f32 IoU, the single-image over-mask and the scan at
-     batch 1, the over-mask against the triangle, soft_rnms and
-     box_iou_rotated), with times, each kernel's bound and, where one
-     PyTorch call computes the same function, that call's time
+     each stage; DCN backward on f32 sample grads) and of the quad-IoU
+     entries (full and upper-triangle f32 IoU, the single-image over-mask
+     and the scan at batch 1, the over-mask against the triangle,
+     soft_rnms and box_iou_rotated), with times, each kernel's bound and,
+     where one PyTorch call computes the same function, that call's time
      (grid_sample for the DCN kernels);
+  2b. host: host.imrescale (cv2's uint8 resize) on the card equals the
+     same call on the CPU at sizes that resize;
   3. slice: Predictor on configs/dota/orientedreppoints_r50_demo.py (R-50,
      canvas 1344^2, bf16, batch 4) over 8 seeded 1024^2 images, with seeded
      random weights perturbed so that the decode has thousands of
@@ -119,6 +121,9 @@ TTA_SIZE = 1024
 NQ = 4096  # NMS candidates an image: pre_nms_cap
 TRI_NV = [NQ, 3000, 1000, 0]  # the upper-triangle kernel's prefixes
 HBM_BYTES_PER_MS = 3.35e12 / 1e3  # H100 SXM
+# GPU clock cycles to cover the host's enqueue of one timed call (~100 us
+# at ~2 GHz, more than a wrapper's allocations and ctypes launch take)
+HOST_CYCLES_PER_CALL = 2e5
 FP32_OPS_PER_MS = 33.5e12 / 1e3  # 67 TFLOP/s with an FMA counted as two
 # grid_sample against the plain DCN in f32: the normalised grid moves a
 # sample by up to ~1e-5 px (at w = 168), so values differ by that times the
@@ -167,11 +172,15 @@ def say(phase: str, **fields) -> None:
 
 
 def cuda_ms(fn, reps: int) -> float:
-    """Mean milliseconds per call over reps calls, after one warm-up."""
+    """Mean device milliseconds per call over reps calls, after one
+    warm-up.  The card is first kept busy (torch.cuda._sleep) for longer
+    than the host takes to enqueue the calls, so that a small kernel is
+    timed back to back and not at the host's launch rate."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(reps * HOST_CYCLES_PER_CALL))
     start.record()
     for _ in range(reps):
         fn()
@@ -325,19 +334,20 @@ def min_area_rect_ops(counts) -> float:
     return float((50 + (h + 1) * 279 + h * (6 * h + 50)).sum())
 
 
-def dcn_bytes_ops(rows, c, k, elem, backward):
+def dcn_bytes_ops(rows, c, k, elem, backward, grad_elem=4):
     """Bytes and ops of the paired DCN sampling over rows x k samples of C
     channels in an elem-byte dtype.  Forward: two tables and the offsets
     in, two (rows, k C) buffers out; per sample 30 ops of plan, per
     channel and table 7 (four weighted corners).  Backward: tables,
-    offsets and the two buffers' grads in, table and offset grads out;
-    per channel and table 22 (four weighted scatters, two corner
-    differences and their products with the grad)."""
-    tables, offs, cols = 2 * rows * c * elem, rows * 2 * k * elem, \
-        2 * rows * k * c * elem
+    offsets and the two buffers' grads (grad_elem bytes: f32, as the
+    autograd node hands them over) in, table and offset grads out; per
+    channel and table 22 (four weighted scatters, two corner differences
+    and their products with the grad)."""
+    tables, offs = 2 * rows * c * elem, rows * 2 * k * elem
     if backward:
-        return tables + offs + cols + tables + offs, rows * k * (30 + 44 * c)
-    return tables + offs + cols, rows * k * (30 + 14 * c)
+        return (tables + offs + 2 * rows * k * c * grad_elem + tables + offs,
+                rows * k * (30 + 44 * c))
+    return tables + offs + 2 * rows * k * c * elem, rows * k * (30 + 14 * c)
 
 
 def rect_err(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -413,7 +423,7 @@ def phase_kernels(dev, rng):
         max_abs_err=err, ok=ok and hull_exact,
         shape=[n, 18], hull_exact=hull_exact,
         hull_max_abs_err=float((hull - hull_p).abs().max()),
-        ms=cuda_ms(lambda: minarearect.min_area_rect(p), 20),
+        ms=cuda_ms(lambda: minarearect.min_area_rect(p), 100),
         plain_ms=cuda_ms(lambda: minarearect.min_area_rect_plain(p), 3),
         hull_plain_ms=cuda_ms(lambda: minarearect.convex_hull_plain(p), 3),
         library_ms=None,
@@ -682,14 +692,34 @@ def phase_train_kernels(dev, rng):
         hull_plain_ms=hull_plain_ms, **res["hull_quad_iou"])
     del got, want
 
+    # the min-area rect at the step's other two calls: APAA's rects of the
+    # init and refine point sets of B x max_pos candidates
+    apaa = torch.tensor(point_sets(rng, b * 1024), dtype=torch.float32,
+                        device=dev)
+    err, ties, ok = rect_check(minarearect.min_area_rect(apaa),
+                               minarearect.min_area_rect_plain(apaa))
+    hull_a, count_a = minarearect.convex_hull_entry(apaa)
+    hull_ap, count_ap = minarearect.convex_hull_plain(apaa)
+    exact = torch.equal(hull_a, hull_ap) and torch.equal(count_a, count_ap)
+    res["min_area_rect_train"] = dict(ok=ok and exact and hull_exact)
+    for what, x, counts in (("train_apaa", apaa, count_ap),
+                            ("train_convex_iou", sets, counts_p)):
+        say("kernel_shape", name="min_area_rect", shape=what,
+            sets=int(x.shape[0]), max_abs_err=err if x is apaa else None,
+            ties=ties if x is apaa else None, hull_exact=exact
+            if x is apaa else hull_exact,
+            ms=cuda_ms(lambda: minarearect.min_area_rect_kernel(x), 100),
+            plain_ms=cuda_ms(lambda: minarearect.min_area_rect_plain(x), 3),
+            **bound(x.shape[0] * (72 + 108), min_area_rect_ops(counts)))
+
     rows = sum(bb * h * w for bb, h, w in TRAIN_LEVELS)
     c, k = 256, 9
     errs, times = {}, {}
     for dt in (torch.float32, torch.bfloat16):
         ta, tb = (torch.randn(rows, c, device=dev).to(dt) for _ in range(2))
         offs = (torch.randn(rows, 2 * k, device=dev) * 3).to(dt)
-        ga, gb = (torch.randn(rows, k * c, device=dev).to(dt)
-                  for _ in range(2))
+        # the sample grads come from the autograd node's f32 matmul
+        ga, gb = (torch.randn(rows, k * c, device=dev) for _ in range(2))
         args = (ta, tb, offs, ga, gb, TRAIN_LEVELS)
         got = deform_conv.deform_sample_pair_backward(*args)
         want = deform_conv.deform_sample_pair_backward_plain(*args)
@@ -1125,6 +1155,28 @@ def candidates(outs, tc):
     return counts.clamp(max=tc.get("pre_nms_cap", 4096)).tolist()
 
 
+def phase_host(dev, rng):
+    """host.imrescale (cv2's uint8 INTER_LINEAR in int32) on the card
+    against the same call on the CPU, at sizes that resize under the demo
+    config's (1333, 1024) test scale: integer arithmetic, so equal."""
+    from orientedreppoints_tpu_torch.host import imrescale
+
+    ok, lines = True, []
+    for h, w in ((1023, 767), (1500, 2000), (800, 800)):
+        img = torch.from_numpy(rng.integers(0, 256, (h, w, 3),
+                                            dtype=np.uint8))
+        want, factor = imrescale(img, (1333, 1024))
+        got, factor_dev = imrescale(img.to(dev), (1333, 1024))
+        same = (got.dtype == want.dtype == torch.uint8
+                and factor_dev == factor
+                and torch.equal(got.cpu(), want))
+        ok &= same
+        lines.append(dict(size=[h, w], out=list(want.shape[:2]),
+                          equal=same))
+    say("host", name="imrescale", cases=lines, ok=ok)
+    return ok
+
+
 def phase_slice(dev, rng, ops_mod, card):
     from orientedreppoints_tpu_torch.serving import Predictor
 
@@ -1397,10 +1449,15 @@ def main() -> int:
     rng = np.random.default_rng(SEED)
     rng_train = np.random.default_rng(SEED + 1)
     rng_quad = np.random.default_rng(SEED + 2)
+    rng_host = np.random.default_rng(SEED + 3)
     kernels = phase_kernels(dev, rng)
-    kernels.update(phase_train_kernels(dev, rng_train))
+    train_res = phase_train_kernels(dev, rng_train)
+    kernels["min_area_rect"]["ok"] &= train_res.pop(
+        "min_area_rect_train")["ok"]
+    kernels.update(train_res)
     quad_res, ok_entries = phase_quad_kernels(dev, rng_quad)
     kernels.update(quad_res)
+    ok_host = phase_host(dev, rng_host)
     ok_slice, launches, pred, outs = phase_slice(dev, rng, ops_mod, card)
     ok_decode = phase_decode(pred, outs)
     del outs
@@ -1440,7 +1497,7 @@ def main() -> int:
         for name, r in kernels.items()]}))
     print(card)
     if not (all(r["ok"] for r in kernels.values()) and ok_entries
-            and ok_slice and ok_decode and ok_tta and ok_tta_check
+            and ok_host and ok_slice and ok_decode and ok_tta and ok_tta_check
             and ok_iou and ok_train and ok_check):
         print("chip_smoke: a phase failed", file=sys.stderr)
         return 1

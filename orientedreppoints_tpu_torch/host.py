@@ -3,7 +3,8 @@
 Counterparts of:
   * ``utils/config.py::Config.fromfile`` — python-file configs;
   * ``data/pipelines.py::imrescale`` / ``RotateResize(keep_ratio=True)`` —
-    the same size and factor arithmetic, with a bilinear resize on tensors;
+    the same size and factor arithmetic, and cv2.resize's INTER_LINEAR on a
+    uint8 image in its own fixed-point arithmetic, on the tensor's device;
   * ``data/pipelines.py::Normalize`` — BGR->RGB, then (x - mean) / std;
   * the TTA scale canvases of ``apis.py::run_inference_tta`` — ``ceil32``
     and ``cv2.resize(canvas, (w, h), interpolation=cv2.INTER_LINEAR)`` on a
@@ -17,7 +18,6 @@ import importlib.util
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 
 def load_config(path: str) -> dict:
@@ -43,19 +43,18 @@ def rescale_size(h: int, w: int, scale) -> tuple[int, int, float]:
 
 
 def imrescale(img: torch.Tensor, scale) -> tuple[torch.Tensor, float]:
-    """(H, W, C) image tensor -> (rescaled float32 image, factor).
-
-    Bilinear with half-pixel centres and no antialiasing, which is what
-    cv2.INTER_LINEAR computes (cv2 rounds uint8 outputs; this keeps f32).
-    """
+    """(H, W, C) image tensor -> (rescaled image, factor), as
+    ``cv2.resize(img, size, interpolation=cv2.INTER_LINEAR)`` computes it:
+    a uint8 image through cv2's fixed-point taps (``resize_uint8``, uint8
+    out), any other dtype through its float path (``resize_linear``,
+    float32 out)."""
     h, w = img.shape[:2]
     nh, nw, factor = rescale_size(h, w, scale)
-    x = img.to(torch.float32)
-    if (nh, nw) != (h, w):
-        x = F.interpolate(x.permute(2, 0, 1)[None], size=(nh, nw),
-                          mode="bilinear", align_corners=False)[0]
-        x = x.permute(1, 2, 0)
-    return x, factor
+    if (nh, nw) == (h, w):
+        return img, factor
+    if img.dtype == torch.uint8:
+        return resize_uint8(img, (nh, nw)), factor
+    return resize_linear(img[None], (nh, nw))[0], factor
 
 
 def ceil32(x: float) -> int:
@@ -63,22 +62,22 @@ def ceil32(x: float) -> int:
     return int(np.ceil(x / 32.0)) * 32
 
 
-def _linear_taps(n_in: int, n_out: int, device):
-    """cv2's INTER_LINEAR taps along one axis: source index and weight of
-    each output index, with half-pixel centres and the edge clamp.  The
-    source position is computed in double and rounded to float, as cv2
-    computes it; the weights stay float32."""
+def _linear_taps(n_in: int, n_out: int, clamp: bool = True):
+    """cv2's INTER_LINEAR taps along one axis: the two source indices and
+    the weight f of the second, for each output index, with half-pixel
+    centres.  The position is computed in double and rounded to float, as
+    cv2 computes it; f stays float32.  clamp: where a position lies left of
+    the first or right of the last source pixel, that pixel alone (f = 0),
+    as cv2's float path and its uint8 path along a row do; its uint8 path
+    between rows keeps f there and only clamps the two source rows."""
     scale = 1.0 / (n_out / n_in)
-    fx = ((np.arange(n_out) + 0.5) * scale - 0.5).astype(np.float32)
-    sx = np.floor(fx)
-    fx = fx - sx
-    sx = sx.astype(np.int64)
-    low, high = sx < 0, sx >= n_in - 1
-    fx[low | high] = 0.0
-    sx = np.clip(sx, 0, n_in - 1)
-    nxt = np.minimum(sx + 1, n_in - 1)
-    return (torch.from_numpy(sx).to(device), torch.from_numpy(nxt).to(device),
-            torch.from_numpy(fx).to(device))
+    f = ((np.arange(n_out) + 0.5) * scale - 0.5).astype(np.float32)
+    s = np.floor(f)
+    f = (f - s).astype(np.float32)
+    s = s.astype(np.int64)
+    if clamp:
+        f[(s < 0) | (s >= n_in - 1)] = 0.0
+    return np.clip(s, 0, n_in - 1), np.clip(s + 1, 0, n_in - 1), f
 
 
 def resize_linear(imgs: torch.Tensor, size: tuple[int, int]) -> torch.Tensor:
@@ -89,11 +88,40 @@ def resize_linear(imgs: torch.Tensor, size: tuple[int, int]) -> torch.Tensor:
     (h, w), (hi, wi) = size, x.shape[1:3]
     if (h, w) == (hi, wi):
         return x
-    sx, nx, fx = _linear_taps(wi, w, x.device)
+    sx, nx, fx = (torch.from_numpy(a).to(x.device)
+                  for a in _linear_taps(wi, w))
     x = x[:, :, sx] * (1 - fx)[:, None] + x[:, :, nx] * fx[:, None]
-    sy, ny, fy = _linear_taps(hi, h, x.device)
+    sy, ny, fy = (torch.from_numpy(a).to(x.device)
+                  for a in _linear_taps(hi, h))
     return (x[:, sy] * (1 - fy)[:, None, None]
             + x[:, ny] * fy[:, None, None])
+
+
+def _fixed_taps(n_in: int, n_out: int, clamp: bool, device):
+    """The taps of a uint8 resize: the two source indices and cv2's 11-bit
+    coefficients round((1 - f) * 2048) and round(f * 2048), half to even
+    as cvRound."""
+    s0, s1, f = _linear_taps(n_in, n_out, clamp)
+    c0 = np.rint((np.float32(1.0) - f) * np.float32(2048.0)).astype(np.int32)
+    c1 = np.rint(f * np.float32(2048.0)).astype(np.int32)
+    return [torch.from_numpy(a).to(device) for a in (s0, s1, c0, c1)]
+
+
+def resize_uint8(img: torch.Tensor, size: tuple[int, int]) -> torch.Tensor:
+    """(H, W, C) uint8 -> (h, w, C) uint8, cv2.resize(..., INTER_LINEAR)
+    bit for bit: int32 arithmetic on the tensor's device.  Along each row,
+    S = x[s0] c0 + x[s1] c1; between rows, cv2's vector path
+    (((S0 >> 4) b0) >> 16) + (((S1 >> 4) b1) >> 16) + 2) >> 2, clipped to
+    0..255.  (At an exact 2x downscale cv2 takes INTER_AREA, whose 2 x 2
+    mean with rounding this gives too: every coefficient is 1024.)"""
+    h, w = size
+    x = img.to(torch.int32)
+    s0, s1, c0, c1 = _fixed_taps(x.shape[1], w, True, x.device)
+    x = x[:, s0] * c0[:, None] + x[:, s1] * c1[:, None]
+    r0, r1, b0, b1 = _fixed_taps(x.shape[0], h, False, x.device)
+    y = (((x[r0] >> 4) * b0[:, None, None]) >> 16) + \
+        (((x[r1] >> 4) * b1[:, None, None]) >> 16)
+    return ((y + 2) >> 2).clamp(0, 255).to(torch.uint8)
 
 
 class Normalize:

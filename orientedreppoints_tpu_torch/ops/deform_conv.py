@@ -14,12 +14,14 @@ warp a row, 16-byte chunks of channels, or a scalar loop where C does not
 split into them; the same bits as the plain version) for CUDA tensors and
 the plain PyTorch gather + lerp for CPU tensors; its
 backward ``deform_sample_pair_backward`` likewise runs
-csrc/deform_sample_bwd.cu or the plain scatter.  ``DeformSamplePair`` ties
-the two together as one autograd node (the counterpart of the JAX
-package's ``_pair_core`` custom_vjp; the weight grads come from autograd
-through the two matmuls).  Only the JAX package's default variants are
-ported (not ORP_DCN_GATHER=fused, ORP_PAIR_GATHER=cat or
-ORP_PAIR_SCATTER=window).
+csrc/deform_sample_bwd.cu or the plain scatter.  ``DeformSamplePair`` is the
+whole paired DCN as one autograd node over (table_a, table_b, offsets,
+weight_a, weight_b), the counterpart of the JAX package's ``_pair_core``
+custom_vjp: it owns the two matmuls, so that the sample grads reach the
+backward kernel in f32 and the weight grads are f32 sums returned in the
+weights' dtype, as ``_pair_core_bwd`` computes them.  Only the JAX
+package's default variants are ported (not ORP_DCN_GATHER=fused,
+ORP_PAIR_GATHER=cat or ORP_PAIR_SCATTER=window).
 """
 
 from __future__ import annotations
@@ -161,12 +163,14 @@ def deform_sample_pair_backward_plain(table_a, table_b, offsets, grad_a,
                                       grad_b, shapes, kernel_size: int = 3):
     """Plain version of the backward of deform_sample_pair.
 
-    grad_a, grad_b: (rows, K*C) grads of the two im2col buffers.  Returns
-    the grads of table_a, table_b (rows, C) and offsets (rows, 2K) in their
-    dtypes.  Table grads: per corner, grad * lerp weight scattered into an
-    f32 (rows, 2C) table (both instances side by side, as the JAX package
+    grad_a, grad_b: (rows, K*C) f32 grads of the two im2col buffers.
+    Returns the grads of table_a, table_b (rows, C) and offsets (rows, 2K)
+    in their dtypes.  Table grads: per corner, the grad rounded to the table
+    dtype (the JAX package's gs_a_dt) * lerp weight, scattered into an f32
+    (rows, 2C) table (both instances side by side, as the JAX package
     scatters them), rounded once.  Offset grads: (dy, dx) per sample, the
-    f32 sum over channels and both instances of grad * d(sample)/d(coord).
+    f32 sum over channels and both instances of the f32 grad *
+    d(sample)/d(coord).
     """
     k = kernel_size * kernel_size
     rows, c = table_a.shape
@@ -174,11 +178,14 @@ def deform_sample_pair_backward_plain(table_a, table_b, offsets, grad_a,
     okf = [o.to(torch.float32) for o in ok]
     weights = ((1 - wy) * (1 - wx), (1 - wy) * wx, wy * (1 - wx), wy * wx)
     grads = [g.reshape(-1, c).to(torch.float32) for g in (grad_a, grad_b)]
+    rounded = [g.to(t.dtype).to(torch.float32)
+               for g, t in zip(grads, (table_a, table_b))]
     gtab = torch.zeros((rows, 2 * c), dtype=torch.float32,
                        device=table_a.device)
     for i, o, cw in zip(idx, okf, weights):
         w = (cw * o)[:, None]
-        gtab.index_add_(0, i, torch.cat([grads[0] * w, grads[1] * w], 1))
+        gtab.index_add_(0, i, torch.cat([rounded[0] * w, rounded[1] * w], 1))
+    del rounded
     gwy = torch.zeros_like(wy)
     gwx = torch.zeros_like(wx)
     for table, g in zip((table_a, table_b), grads):
@@ -196,7 +203,7 @@ def deform_sample_pair_backward_plain(table_a, table_b, offsets, grad_a,
 
 def deform_sample_pair_backward(table_a, table_b, offsets, grad_a, grad_b,
                                 shapes, kernel_size: int = 3):
-    """Grads of (table_a, table_b, offsets) from the grads of the two
+    """Grads of (table_a, table_b, offsets) from the f32 grads of the two
     im2col buffers; the kernel for CUDA tensors, the plain version for CPU
     tensors."""
     if table_a.device.type == "cpu":
@@ -218,10 +225,10 @@ def deform_sample_pair_backward_kernel(table_a, table_b, offsets, grad_a,
                          "the table")
     for name, t, shape in (("table_a", table_a, (rows, c)),
                            ("table_b", table_b, (rows, c)),
-                           ("offsets", offsets, (rows, 2 * k)),
-                           ("grad_a", grad_a, (rows, k * c)),
-                           ("grad_b", grad_b, (rows, k * c))):
+                           ("offsets", offsets, (rows, 2 * k))):
         _ext.check_cuda(t, name, table_a.dtype, shape)
+    for name, t in (("grad_a", grad_a), ("grad_b", grad_b)):
+        _ext.check_cuda(t, name, torch.float32, (rows, k * c))
     # f32 scratch for the atomics, both instances side by side
     gtab = torch.zeros((rows, 2 * c), dtype=torch.float32,
                        device=table_a.device)
@@ -240,24 +247,54 @@ def deform_sample_pair_backward_kernel(table_a, table_b, offsets, grad_a,
 deform_sample_pair_backward_kernel.launches = 0
 
 
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b summed in f32 with an f32 result, as the JAX package's einsums
+    with preferred_element_type=float32 (a plain matrix product, left to
+    the library as the JAX package leaves it to XLA)."""
+    if a.dtype == torch.float32:
+        return a @ b
+    if a.is_cuda:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return a.to(torch.float32) @ b.to(torch.float32)
+
+
 class DeformSamplePair(torch.autograd.Function):
-    """deform_sample_pair as one autograd node: forward and backward each
-    run the kernel (CUDA tensors) or the plain version (CPU tensors)."""
+    """The paired DCN as one autograd node over (table_a, table_b, offsets,
+    weight_a, weight_b), as the JAX package's _pair_core.  Forward: both
+    im2col buffers (kernel or plain version), then cols @ W in the table
+    dtype (the library sums in f32 and rounds once).  Backward: the sample
+    grads g @ W^T in f32 go to the sampling backward (kernel or plain
+    version), and the weight grads cols^T @ g are f32 sums returned in the
+    weights' dtype."""
 
     @staticmethod
-    def forward(ctx, table_a, table_b, offsets, shapes, kernel_size):
-        ctx.save_for_backward(table_a, table_b, offsets)
+    def forward(ctx, table_a, table_b, offsets, weight_a, weight_b, shapes,
+                kernel_size):
+        dt = table_a.dtype
+        cols_a, cols_b = deform_sample_pair(table_a, table_b, offsets,
+                                            shapes, kernel_size)
+        wa = weight_a.reshape(-1, weight_a.shape[-1]).to(dt)
+        wb = weight_b.reshape(-1, weight_b.shape[-1]).to(dt)
+        ctx.save_for_backward(table_a, table_b, offsets, cols_a, cols_b, wa,
+                              wb)
         ctx.shapes, ctx.kernel_size = shapes, kernel_size
-        return deform_sample_pair(table_a, table_b, offsets, shapes,
-                                  kernel_size)
+        ctx.weights = ((weight_a.shape, weight_a.dtype),
+                       (weight_b.shape, weight_b.dtype))
+        return cols_a @ wa, cols_b @ wb
 
     @staticmethod
     def backward(ctx, grad_a, grad_b):
         # autograd materialises a missing output grad as zeros
+        table_a, table_b, offsets, cols_a, cols_b, wa, wb = ctx.saved_tensors
+        grad_a, grad_b = grad_a.contiguous(), grad_b.contiguous()
         grads = deform_sample_pair_backward(
-            *ctx.saved_tensors, grad_a.contiguous(), grad_b.contiguous(),
-            ctx.shapes, ctx.kernel_size)
-        return (*grads, None, None)
+            table_a, table_b, offsets, _mm_f32(grad_a, wa.t()),
+            _mm_f32(grad_b, wb.t()), ctx.shapes, ctx.kernel_size)
+        gw = [_mm_f32(cols.t(), g).reshape(shape).to(dtype)
+              for cols, g, (shape, dtype) in zip((cols_a, cols_b),
+                                                 (grad_a, grad_b),
+                                                 ctx.weights)]
+        return (*grads, *gw, None, None)
 
 
 def deform_conv2d_pyramid_pair(feats_a, feats_b, offsets, weight_a, weight_b,
@@ -273,12 +310,9 @@ def deform_conv2d_pyramid_pair(feats_a, feats_b, offsets, weight_a, weight_b,
     table_a = torch.cat([f.reshape(-1, c) for f in feats_a])
     table_b = torch.cat([f.reshape(-1, c) for f in feats_b])
     off = torch.cat([o.reshape(-1, o.shape[-1]) for o in offsets])
-    cols_a, cols_b = DeformSamplePair.apply(table_a, table_b,
-                                            off.to(table_a.dtype), shapes,
-                                            kernel_size)
-    dt = table_a.dtype
-    out_a = cols_a @ weight_a.reshape(-1, weight_a.shape[-1]).to(dt)
-    out_b = cols_b @ weight_b.reshape(-1, weight_b.shape[-1]).to(dt)
+    out_a, out_b = DeformSamplePair.apply(table_a, table_b,
+                                          off.to(table_a.dtype), weight_a,
+                                          weight_b, shapes, kernel_size)
     return _split_levels(out_a, shapes), _split_levels(out_b, shapes)
 
 

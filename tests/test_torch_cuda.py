@@ -86,8 +86,8 @@ def test_training_kernels_match_plain_versions_on_the_card(cuda):
         ta = torch.randn(rows, 64, device=cuda).to(dt)
         tb = torch.randn(rows, 64, device=cuda).to(dt)
         off = (torch.randn(rows, 18, device=cuda) * 3).to(dt)
-        ga = torch.randn(rows, 9 * 64, device=cuda).to(dt)
-        gb = torch.randn(rows, 9 * 64, device=cuda).to(dt)
+        ga = torch.randn(rows, 9 * 64, device=cuda)  # f32 sample grads
+        gb = torch.randn(rows, 9 * 64, device=cuda)
         got = deform_conv.deform_sample_pair_backward(ta, tb, off, ga, gb,
                                                       shapes)
         want = deform_conv.deform_sample_pair_backward_plain(
@@ -199,6 +199,93 @@ def test_deform_sample_kernel_bit_for_bit(cuda, c, dtype):
                            y.view(torch.int16 if dtype == torch.bfloat16
                                   else torch.int32))
         assert (y != 0).float().mean() > 0.5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [256, 48, 20])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_deform_sample_backward_kernel_matches_plain(cuda, c, dtype):
+    """The DCN backward against its plain version, f32 sample grads: C 256
+    and 48 take the tile kernel, C 20 the scalar one; levels wider and
+    taller than a tile with ragged edges, a level of width 1 and one of a
+    single pixel; a tenth of the offsets thrown far off the map and a tenth
+    thrown 6-12 px, onto the map but outside a tile's window.  Table grads
+    are f32 sums reordered by the atomics (bf16: one rounding step), both
+    relative to each tensor's largest grad (chip_smoke.DCN_BWD_RTOL)."""
+    rng = np.random.default_rng(8)
+    shapes = [(2, 13, 37), (2, 9, 1), (2, 7, 19), (1, 1, 1)]
+    rows = sum(bb * hh * w for bb, hh, w in shapes)
+    ta = torch.tensor(rng.normal(size=(rows, c)), device=cuda).to(dtype)
+    tb = torch.tensor(rng.normal(size=(rows, c)), device=cuda).to(dtype)
+    off = rng.normal(0, 3, (rows, 18))
+    pick = rng.random((rows, 18))
+    off[pick < 0.1] = rng.choice([-60.0, 60.0], (pick < 0.1).sum())
+    mid = (pick >= 0.1) & (pick < 0.2)
+    off[mid] = rng.uniform(6, 12, mid.sum()) * rng.choice([-1.0, 1.0],
+                                                          mid.sum())
+    off = torch.tensor(off, device=cuda).to(dtype)
+    ga = torch.tensor(rng.normal(size=(rows, 9 * c)), dtype=torch.float32,
+                      device=cuda)
+    gb = torch.tensor(rng.normal(size=(rows, 9 * c)), dtype=torch.float32,
+                      device=cuda)
+    got = deform_conv.deform_sample_pair_backward(ta, tb, off, ga, gb, shapes)
+    want = deform_conv.deform_sample_pair_backward_plain(ta, tb, off, ga, gb,
+                                                         shapes)
+    tol = 1e-5 if dtype == torch.float32 else 2 ** -7
+    for g, w, shape in zip(got, want, ((rows, c), (rows, c), (rows, 18))):
+        assert g.dtype == w.dtype == dtype and g.shape == shape
+        scale = max(1.0, float(w.float().abs().max()))
+        assert (g.float() - w.float()).abs().max() <= tol * scale
+        assert (w != 0).float().mean() > 0.5
+
+
+def rect_err(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Per-row max corner distance over b's corner rotations/reversal."""
+    a, b = a.view(-1, 4, 2), b.view(-1, 4, 2)
+    return torch.stack([(a - bb.roll(s, 1)).abs().amax((1, 2))
+                        for bb in (b, b.flip(1)) for s in range(4)]).amin(0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 2047, 3001])
+def test_min_area_rect_kernel_matches_plain(cuda, n):
+    """The min-area rect (4 lanes a set, eight sets a warp) against its
+    plain versions: n not a multiple of 8 (lanes past n), coincident sets, collinear
+    sets, sets of two distinct points, sets with a duplicated hull vertex,
+    and sets at ~3e4.  Hull and count exactly; rects within 1e-3 px, or a
+    tie (the same area within the tie rule's relative 1e-5)."""
+    from orientedreppoints_tpu_torch.ops.geometry import TIE_RTOL
+
+    rng = np.random.default_rng(9)
+    pts = rng.uniform(0, 1344, (n, 1, 2)) + rng.normal(0, 24, (n, 9, 2))
+    m = n // 6
+    pts[:m] = pts[:m, :1]  # coincident
+    t = rng.integers(-8, 9, (m, 9, 1)).astype(np.float64)
+    pts[m:2 * m] = np.round(pts[m:2 * m, :1]) + t * np.array([3.0, 1.0])
+    pts[2 * m:3 * m, 2::2] = pts[2 * m:3 * m, :1]  # two distinct points
+    pts[2 * m:3 * m, 3::2] = pts[2 * m:3 * m, 1:2]
+    pts[3 * m:4 * m, 4:] = pts[3 * m:4 * m, 3:4]  # repeated vertices
+    pts[4 * m:5 * m] += 3e4
+    p = torch.tensor(pts.reshape(n, 18), dtype=torch.float32, device=cuda)
+    rect, hull, count = minarearect.min_area_rect_kernel(p)
+    hull_p, count_p = minarearect.convex_hull_plain(p)
+    assert torch.equal(hull, hull_p) and torch.equal(count, count_p)
+    want = minarearect.min_area_rect_plain(p)
+    assert torch.isfinite(rect).all()
+    err = rect_err(rect, want)
+    off = err > 1e-3 * (1 + p.abs().amax(1) / 1e3)
+
+    def area(r):
+        r = r.view(-1, 4, 2).double()
+        return (r[:, 1] - r[:, 0]).norm(dim=-1) * (r[:, 2] - r[:, 1]).norm(
+            dim=-1)
+    rel = (area(rect) - area(want)).abs() / area(want).clamp(min=1e-6)
+    assert bool((rel[off] <= 2 * TIE_RTOL).all())
+    if n > 6:
+        assert (count[:m] == 1).all() and (count[m:2 * m] <= 2).all()
+        assert (count[2 * m:3 * m] == 2).all()
+        assert (count[5 * m:] > 3).float().mean() > 0.9
 
 
 def nms_case_quads(rng, b, n):

@@ -12,20 +12,26 @@ from orientedreppoints_tpu.utils.config import Config
 from orientedreppoints_tpu_torch import host
 
 
-@pytest.mark.parametrize("shape", [(200, 260), (130, 97), (64, 64)])
-@pytest.mark.parametrize("scale", [(128, 96), (1333, 1024), (100, 50)])
+@pytest.mark.parametrize("shape, scale", [
+    *[(shape, scale) for shape in ((200, 260), (130, 97), (64, 64))
+      for scale in ((128, 96), (1333, 1024), (100, 50))],
+    ((1000, 1000), (500, 500)),  # exact 2x downscale: cv2 takes INTER_AREA
+    ((1023, 767), (1333, 1024)),  # the demo config's test scale, upscale
+    ((1, 37), (100, 50)),  # one source row: both vertical taps clamp to it
+    ((37, 1), (100, 50)),  # one source column
+    ((2, 3), (700, 600)),  # every output pixel in a 1-pixel border
+])
 def test_imrescale_matches_rotate_resize(shape, scale):
     rng = np.random.RandomState(0)
     img = (rng.rand(*shape, 3) * 255).astype(np.uint8)
     ref = RotateResize(img_scale=scale, keep_ratio=True)(
         {"img": img, "img_shape": img.shape, "bbox_fields": []})
     out, factor = host.imrescale(torch.from_numpy(img), scale)
-    # size and factor arithmetic is exact; pixels differ by cv2's uint8
-    # rounding (0.5) plus its fixed-point bilinear weights, < 1 level
+    # size and factor arithmetic, and cv2's fixed-point uint8 taps: exact
     assert tuple(out.shape) == ref["img"].shape
     assert factor == ref["scale_factor"]
-    err = np.abs(out.numpy() - ref["img"].astype(np.float32)).max()
-    assert err < 1.0, err
+    assert out.dtype == torch.uint8
+    np.testing.assert_array_equal(out.numpy(), ref["img"])
 
 
 def test_normalize_matches():

@@ -5,10 +5,10 @@ batch 2, MAX_GT 8, max_pos 64 (tests/test_train.py's sizes): the JAX
 model's initial weights with the head perturbed (test_torch_slice.
 perturb_head: with std-0.01 point convs all 9 points coincide and the
 refine assigner degenerates) go through flax_to_torch into the port.
-Checked, all in f32: the paired-DCN autograd node and its plain backward
-against jax.vjp; compute_losses and its grads on the same head outputs;
-one and two SGD steps from the same weights; the LR schedule and
-device_normalize.
+Checked, all in f32 unless named: the paired-DCN autograd node and its
+plain backward against jax.vjp (also in bf16); compute_losses and its
+grads on the same head outputs; one and two SGD steps from the same
+weights; the LR schedule and device_normalize.
 """
 
 import contextlib
@@ -166,6 +166,63 @@ def test_dcn_autograd_node_and_plain_backward():
         tol = 1e-4 * max(1.0, float(np.abs(want).max()))
         assert got.grad is not None
         assert np.abs(got.grad.numpy() - want).max() <= tol
+
+
+def test_dcn_autograd_node_bf16_matches_jax_vjp():
+    """bf16 features, offsets and output grads, f32 weights, as the head
+    runs in bf16: the node's weight grads are f32 sums returned in f32 (not
+    rounded to bf16), as the JAX package's _pair_core_bwd returns them, and
+    every grad agrees with jax.vjp of deform_conv2d_pyramid_pair within the
+    rounding that the two place differently."""
+    rng = np.random.default_rng(1)
+    b, c, cout = 2, 16, 8
+    hws = [(8, 10), (4, 5), (2, 3), (1, 2)]
+    fa = [rng.normal(size=(b, h, w, c)).astype(np.float32) for h, w in hws]
+    fb = [rng.normal(size=(b, h, w, c)).astype(np.float32) for h, w in hws]
+    off = [(rng.normal(size=(b, h, w, 18)) * 2).astype(np.float32)
+           for h, w in hws]
+    wa = rng.normal(size=(9, c, cout)).astype(np.float32)
+    wb = rng.normal(size=(9, c, cout)).astype(np.float32)
+    ga = [rng.normal(size=(b, h, w, cout)).astype(np.float32) for h, w in hws]
+    gb = [rng.normal(size=(b, h, w, cout)).astype(np.float32) for h, w in hws]
+
+    def bf(xs):
+        return [jnp.asarray(x, jnp.bfloat16) for x in xs]
+
+    @jax.jit
+    def grads(inputs, cot):
+        return jax.vjp(dcn_ref.deform_conv2d_pyramid_pair, *inputs)[1](cot)
+
+    ref = jax.tree_util.tree_leaves(grads(
+        (bf(fa), bf(fb), bf(off), jnp.asarray(wa), jnp.asarray(wb)),
+        (bf(ga), bf(gb))))
+
+    def tbf(x):
+        return torch.from_numpy(x).to(torch.bfloat16)
+
+    leaves = ([tbf(x).requires_grad_(True) for x in fa + fb + off]
+              + [torch.from_numpy(x).requires_grad_(True) for x in (wa, wb)])
+    n = len(hws)
+    outs_a, outs_b = deform_conv.deform_conv2d_pyramid_pair(
+        leaves[:n], leaves[n:2 * n], leaves[2 * n:3 * n], leaves[-2],
+        leaves[-1])
+    torch.autograd.backward(outs_a + outs_b, [tbf(g) for g in ga + gb])
+    for w in leaves[-2:]:
+        assert w.grad.dtype == torch.float32
+        assert not torch.equal(w.grad, w.grad.to(torch.bfloat16).float())
+    # relative to each grad's largest element.  Tables: the JAX package
+    # scatter-adds in bf16 (up to 36 roundings of a value), the port sums in
+    # f32 and rounds once (measured 1.4e-2).  Offsets: both round the sum to
+    # bf16 (2^-8 of a value), and JAX forms the corner differences in bf16
+    # (measured 6.5e-3).  Weights: JAX lerps the samples in bf16, the port
+    # in f32 with one rounding, and both sum cols^T g in f32 (measured
+    # 4.7e-3).
+    tols = [3e-2] * (2 * n) + [1e-2] * n + [1e-2] * 2
+    for got, want, tol in zip(leaves, ref, tols):
+        want = np.asarray(want).astype(np.float32)
+        assert got.grad.dtype == got.dtype
+        err = np.abs(got.grad.float().numpy() - want).max()
+        assert err <= tol * np.abs(want).max(), (err, np.abs(want).max())
 
 
 @pytest.fixture(scope="module")
