@@ -14,7 +14,8 @@ Phases, each printing one line or more (a failed phase exits non-zero):
      batch-2 training step (hull IoU with the step's masks, bit for bit
      over every pair, with the share of live pairs whose clip empties at
      each stage; DCN backward on f32 sample grads) and of the quad-IoU
-     entries (full and upper-triangle f32 IoU, the single-image over-mask
+     entries (full and upper-triangle f32 IoU bit for bit with the share
+     of pairs whose clip empties at each stage, the single-image over-mask
      and the scan at batch 1, the over-mask against the triangle,
      soft_rnms and box_iou_rotated), with times, each kernel's bound and,
      where one PyTorch call computes the same function, that call's time
@@ -42,7 +43,9 @@ Phases, each printing one line or more (a failed phase exits non-zero):
      merged candidates through the kernels and through the plain
      over-mask and scan giving the same dets;
   7. iou_path: soft_rnms and the upper-triangle IoU entry over the merged
-     TTA candidates of one image, the path of the f32 IoU kernels;
+     TTA candidates of one image, the path of the f32 IoU kernels; then
+     soft_rnms end to end (its picks, one host sync each) beside its IoU
+     matrix alone, and box_iou_rotated's time;
   8. train: the config's SGD step (R-50, canvas 1344^2, bf16, batch 2,
      frozen_stages 1, max_gt 512, max_pos 1024) on a seeded batch of 150
      rotated gts per image, seeded random weights with the point convs
@@ -199,10 +202,9 @@ def bound(nbytes: float, ops: float) -> dict:
 
 
 def clip_pair_ops(sub, cnt, quads, live=None, exits=None) -> float:
-    """f32 operations of the pair IoU (quad_clip.cuh, hull_iou.cu) over
-    subjects sub (B, N, V, 2) with vertex counts cnt (B, N) and clip quads
-    (B, M, 8), over the live (B, N, M) pairs only if live(rows, cols) gives
-    a mask.  Work that depends on one side only counts once for each row
+    """f32 operations of the pair IoU (clip_ring.cuh) over subjects sub
+    (B, N, V, 2) with vertex counts cnt (B, N) and clip quads (B, M, 8),
+    over the live (B, N, M) pairs only if live(rows, cols) gives a mask.  Work that depends on one side only counts once for each row
     or column with a live pair (an area does not change when the pair is
     recentred, so a kernel may take it once): a subject's area and half of
     it 4 n0 + 1, a clip quad's shift to its vertex 0, area, half area and
@@ -258,6 +260,16 @@ def clip_pair_ops(sub, cnt, quads, live=None, exits=None) -> float:
     return total + 33.0 * float(col_live.sum())
 
 
+def exit_shares(exits, live: int) -> dict:
+    """A kernel line's clip-stage fields from clip_pair_ops' exits over
+    live pairs: the share whose clip empties at each stage, and the share
+    that keeps a vertex."""
+    share = 1.0 / max(1, live)
+    return dict(live_pairs=live, live_stage0_exit_share=exits[0] * share,
+                live_exit_share_by_stage=[x * share for x in exits[:4]],
+                live_clip_nonempty_share=exits[4] * share)
+
+
 def quad_subjects(quads):
     """(B, N, 8) quads as clip_pair_ops subjects: 4 slots, count 4."""
     b, n, _ = quads.shape
@@ -285,13 +297,10 @@ def over_mask_case(entry, q, nv, thr=NMS_THR, reps=10):
     exits = [0] * 5
     ops = clip_pair_ops(*quad_subjects(q), q, tri_live(nv), exits)
     v = nv.to(torch.int64).clamp(0, n)
-    live = max(1, int((v * (v - 1) // 2).sum()))
     return dict(
         max_abs_err=float(diff), differing_bits=diff, ok=diff == 0,
-        set_bits=int(quad_iou.unpack_bits(want, n).sum()), live_pairs=live,
-        live_stage0_exit_share=exits[0] / live,
-        live_exit_share_by_stage=[x / live for x in exits[:4]],
-        live_clip_nonempty_share=exits[4] / live,
+        set_bits=int(quad_iou.unpack_bits(want, n).sum()),
+        **exit_shares(exits, int((v * (v - 1) // 2).sum())),
         ms=cuda_ms(entry, reps),
         plain_ms=cuda_ms(lambda: quad_iou.quad_over_mask_plain(q, thr, nv),
                          1),
@@ -685,9 +694,7 @@ def phase_train_kernels(dev, rng):
                 ops))
     say("kernel", name="hull_quad_iou", batch=b, hulls=n, gts=g,
         valid_gts=TRAIN_GTS, valid_rows=int(rows_valid.sum()),
-        pairs=b * n * g, live_pairs=live_pairs,
-        live_exit_share_by_stage=[x / max(1, live_pairs) for x in exits[:4]],
-        live_clip_nonempty_share=exits[4] / max(1, live_pairs),
+        pairs=b * n * g, **exit_shares(exits, live_pairs),
         hull_sets=b * n, hull_exact=hull_exact, hull_ms=hull_ms,
         hull_plain_ms=hull_plain_ms, **res["hull_quad_iou"])
     del got, want
@@ -796,6 +803,8 @@ def phase_quad_kernels(dev, rng):
     full = quad_iou.quad_iou_matrix(q, q)
     full_p = quad_iou.quad_iou_matrix_plain(q[None], q[None])[0]
     bits = differing_bits(full, full_p)
+    exits = [0] * 5
+    ops = clip_pair_ops(*quad_subjects(q[None]), q[None], exits=exits)
     res["quad_iou_full"] = dict(
         max_abs_err=float((full - full_p).abs().max()), differing_bits=bits,
         ok=bits == 0, iou_gt_0p4=int((full_p > NMS_THR).sum()),
@@ -803,16 +812,18 @@ def phase_quad_kernels(dev, rng):
         plain_ms=cuda_ms(lambda: quad_iou.quad_iou_matrix_plain(
             q[None], q[None]), 1),
         library_ms=None,
-        **bound(2 * q.numel() * 4 + full.numel() * 4,
-                clip_pair_ops(*quad_subjects(q[None]), q[None])))
-    say("kernel", name="quad_iou_full", n=nq, m=nq, **res["quad_iou_full"])
+        **bound(2 * q.numel() * 4 + full.numel() * 4, ops))
+    say("kernel", name="quad_iou_full", n=nq, m=nq,
+        **exit_shares(exits, nq * nq), **res["quad_iou_full"])
     del full, full_p
 
     nv = torch.tensor(TRI_NV, dtype=torch.int32, device=dev)
     tri = quad_iou.quad_iou_matrix_batch(q4, q4, True, nv)
     tri_p = quad_iou.quad_iou_matrix_plain(q4, q4, True, nv)
     bits = differing_bits(tri, tri_p)
-    live = tri_live(nv)
+    exits = [0] * 5
+    ops = clip_pair_ops(*quad_subjects(q4), q4, tri_live(nv), exits)
+    v = nv.to(torch.int64).clamp(0, nq)
     res["quad_iou_tri"] = dict(
         max_abs_err=float((tri - tri_p).abs().max()), differing_bits=bits,
         ok=bits == 0,
@@ -821,9 +832,9 @@ def phase_quad_kernels(dev, rng):
         plain_ms=cuda_ms(lambda: quad_iou.quad_iou_matrix_plain(
             q4, q4, True, nv), 1),
         library_ms=None,
-        **bound(2 * q4.numel() * 4 + nv.numel() * 4 + tri.numel() * 4,
-                clip_pair_ops(*quad_subjects(q4), q4, live)))
+        **bound(2 * q4.numel() * 4 + nv.numel() * 4 + tri.numel() * 4, ops))
     say("kernel", name="quad_iou_tri", batch=4, n=nq, num_valid=TRI_NV,
+        **exit_shares(exits, int((v * (v - 1) // 2).sum())),
         **res["quad_iou_tri"])
     del tri_p
 
@@ -1097,8 +1108,11 @@ def phase_iou_path(record, ops_mod, test_cfg):
     """The f32 IoU kernels' path: soft_rnms over one image's merged TTA
     candidates (the top 2048 boxes by best class score) and the
     upper-triangle IoU entry over them, score-sorted with their valid
-    prefix."""
-    from orientedreppoints_tpu_torch.ops import nms, quad_iou
+    prefix.  After the counted run: what kernel 4 is worth to its callers,
+    soft_rnms end to end (host clock, median of 3; one host sync a pick)
+    beside its IoU matrix alone, and box_iou_rotated over 2048 x 2048
+    seeded boxes (device time)."""
+    from orientedreppoints_tpu_torch.ops import geometry, nms, quad_iou
 
     args, _, _ = record[0]
     boxes = torch.cat(args[0])  # each aug in its test-scale frame
@@ -1116,9 +1130,32 @@ def phase_iou_path(record, ops_mod, test_cfg):
     ok = (all(launches[k] > 0 for k in IOU_PATH_KERNELS)
           and bool(torch.isfinite(decayed).all()) and int(keep.sum()) > 0
           and bool(torch.isfinite(tri).all()))
+    # picks: one host sync each, and one more for the pick that stops
+    picks = int(keep.sum())
+    soft_ms = []
+    with torch.inference_mode():
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            nms.soft_rnms(quads, top, method="gaussian")
+            torch.cuda.synchronize()
+            soft_ms.append((time.perf_counter() - t0) * 1e3)
+        rng = np.random.default_rng(SEED + 4)
+        rb = torch.tensor(np.concatenate([
+            rng.uniform(0, 1344, (2048, 2)), rng.uniform(8, 120, (2048, 2)),
+            rng.uniform(-np.pi, np.pi, (2048, 1))], 1), dtype=torch.float32,
+            device=quads.device)
+        box_ms = cuda_ms(lambda: geometry.box_iou_rotated(rb, rb), 10)
+        iou_ms = cuda_ms(lambda: quad_iou.quad_iou_matrix(quads, quads), 10)
+    soft_med = statistics.median(soft_ms)
     say("iou_path", candidates=int(quads.shape[0]), num_valid=int(nv),
-        soft_kept=int(keep.sum()), tri_pairs_gt_0p4=int((tri > 0.4).sum()),
-        launches=launches, ok=ok)
+        soft_kept=picks, tri_pairs_gt_0p4=int((tri > 0.4).sum()),
+        launches=launches, soft_rnms_ms_median=soft_med, soft_rnms_ms=soft_ms,
+        soft_picks=picks,
+        soft_host_syncs=picks + int(picks < quads.shape[0]),
+        soft_ms_per_pick=soft_med / max(1, picks),
+        soft_iou_matrix_ms=iou_ms, box_iou_rotated_ms=box_ms,
+        box_iou_rotated_boxes=[2048, 2048], ok=ok)
     return ok, launches
 
 

@@ -1,11 +1,13 @@
 // The pair IoU of a subject polygon (a hull of up to V vertices, or a quad
 // with V = 4) and a convex clip quad, for kernels that run one thread per
 // subject over a tile of clip quads staged in shared memory: the hull IoU
-// (hull_iou.cu, V = 9) and the NMS over-mask (quad_over.cu, V = 4).
+// (hull_iou.cu, V = 9), the NMS over-mask (quad_over.cu, V = 4) and the f32
+// IoU matrices (quad_iou.cu, V = 4).
 //
 // Same arithmetic as the Pallas tile (orientedreppoints_tpu/ops/
-// pallas_quad_iou.py, _quad_tile) and as quad_clip.cuh's quad_iou,
-// operation for operation: recentre the pair on the quad's vertex 0, the
+// pallas_quad_iou.py, _quad_tile), operation for operation: recentre the
+// pair on the quad's vertex 0 (class-offset NMS coordinates reach ~3e4,
+// where f32 cross products of raw coordinates lose the overlap), the
 // subject's signed area by the shoelace over its first count slots, orient
 // the quad counter-clockwise (a clockwise quad is read as vertices 0, 3, 2,
 // 1), Sutherland-Hodgman clip by its four half-planes into V + 1 .. V + 4

@@ -7,9 +7,9 @@
 // For score-sorted quads, bit j of row i is set iff IoU(i, j) > thr
 // (strict), j > i, and i, j < nv[b].  IoU is clip_ring.cuh's pair IoU with
 // subject = row i (a hull of count 4 in V = 4 slots) and clip quad =
-// column j: the arithmetic of quad_clip.cuh's quad_iou, which the f32
-// IoU-matrix kernels (quad_iou.cu) evaluate, so a bit here is exactly
-// (f32 IoU > thr) there.
+// column j, the pair function that the f32 IoU-matrix kernels
+// (quad_iou.cu) evaluate too, so a bit here is exactly (f32 IoU > thr)
+// there.
 //
 // Output: (B, N, W) uint64 words, W = ceil(N / 64); bit t of word w is
 // column 64 w + t (the mmcv rnms layout).

@@ -7,9 +7,10 @@ ops/pallas_quad_iou.py: ``quad_iou_matrix_pallas`` and
 
 Every entry evaluates one pair function, the Pallas tile's quad IoU
 (``quad_iou_pairs``: subject quad of the row, clip quad of the column).  The
-CUDA kernels evaluate it in csrc/quad_clip.cuh (the f32 matrices) and
-csrc/clip_ring.cuh (the over-mask), in the same order of operations, built
-with -fmad=false, so a kernel and its plain version give the same bits:
+CUDA kernels evaluate it with csrc/clip_ring.cuh (one thread a row over a
+64 x 64 tile of clip quads staged in shared memory), in the same order of
+operations, built with -fmad=false, so a kernel and its plain version give
+the same bits:
 
   * quad_iou_matrix / quad_iou_matrix_batch: the f32 (N, M) matrix, in full
     (csrc/quad_iou.cu, orp_quad_iou_full) or, with upper_tri, only where

@@ -101,7 +101,9 @@ def test_training_kernels_match_plain_versions_on_the_card(cuda):
 @pytest.mark.cuda
 def test_quad_iou_kernels_match_plain_versions_on_the_card(cuda):
     """Kernels 4 and 5 (full and upper-triangle f32 IoU) and the single-image
-    over-mask give the plain versions' bits; the over-mask is (tri > thr)."""
+    over-mask give the plain versions' bits; the over-mask is (tri > thr).
+    Then both kernels at shapes that cross their 64 x 64 tiles, with
+    prefixes 0, 1, 64, 65, N - 1, N and above N, bit for bit."""
     rng = np.random.default_rng(3)
     quads = torch.tensor(rng.uniform(0, 120, (3, 200, 1, 2))
                          + rng.normal(0, 15, (3, 200, 4, 2)),
@@ -120,6 +122,24 @@ def test_quad_iou_kernels_match_plain_versions_on_the_card(cuda):
     assert torch.equal(words, quad_iou.pack_bits(tri[1] > 0.4))
     assert torch.equal(words, quad_iou.quad_over_mask_plain(
         quads[1:2], 0.4, nv[1:2])[0])
+    # shapes across the 64-wide tiles: N, M ragged, M < 64, N < M and
+    # N > M, rows with 16-byte stores (M % 4 == 0) and scalar ones
+    for n, m in ((70, 132), (200, 37), (130, 200), (200, 132), (64, 65)):
+        a = quads[:, :n].contiguous()
+        c = (other if m <= 150 else quads)[:, :m].contiguous()
+        assert same_bits(quad_iou.quad_iou_matrix_batch(a, c),
+                         quad_iou.quad_iou_matrix_plain(a, c))
+        for nvs in ((0, 1, 64), (65, n - 1, n), (n + 1, 1 << 30, m)):
+            nv = torch.tensor(nvs, dtype=torch.int32, device=cuda)
+            got = quad_iou.quad_iou_matrix_batch(a, c, True, nv)
+            want = quad_iou.quad_iou_matrix_plain(a, c, True, nv)
+            assert same_bits(got, want), (n, m, nvs)
+    # the triangle at every prefix of the list, one image, N = M = 200
+    for v in (0, 1, 64, 65, 199, 200, 201):
+        nv = torch.tensor([v], dtype=torch.int32, device=cuda)
+        got = quad_iou.quad_iou_matrix(quads[0], quads[0], True, nv[0])
+        want = quad_iou.quad_iou_matrix_plain(quads[:1], quads[:1], True, nv)
+        assert same_bits(got, want[0]), v
 
 
 def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:

@@ -147,6 +147,37 @@ def test_quad_iou_vs_pallas_interpret(monkeypatch, batched, upper_tri):
     assert (ref > 0.3).sum() >= (3 if upper_tri else 20)
 
 
+@pytest.mark.parametrize("n,m,nv", [(130, 70, None), (130, 130, 0),
+                                    (130, 130, 65), (130, 130, 200)])
+def test_quad_iou_ragged_tiles_vs_pallas_interpret(monkeypatch, n, m, nv):
+    """The plain full (nv None) and tri entries at shapes that cross the
+    CUDA kernels' 64 x 64 tiles (N, M not multiples of 64, N != M) and at
+    prefixes 0, mid-tile and above N, against Pallas in interpret mode:
+    1e-6, as test_quad_iou_vs_pallas_interpret."""
+    monkeypatch.setenv("ORP_FORCE_PALLAS_INTERPRET", "1")
+    a, c = iou_case(4, 1, n, m)
+    if nv is None:
+        ref = pallas_quad_iou.quad_iou_matrix_pallas(jnp.asarray(a[0]),
+                                                     jnp.asarray(c[0]))
+        got = quad_iou.quad_iou_matrix(torch.from_numpy(a[0]),
+                                       torch.from_numpy(c[0]))
+    else:
+        ref = pallas_quad_iou.quad_iou_matrix_batch_pallas(
+            jnp.asarray(a), jnp.asarray(c), upper_tri=True,
+            num_valid=jnp.asarray([nv], jnp.int32))
+        got = quad_iou.quad_iou_matrix_batch(
+            torch.from_numpy(a), torch.from_numpy(c), True,
+            torch.tensor([nv], dtype=torch.int32))
+    got, ref = np.asarray(got), np.asarray(ref)
+    assert got.shape == ref.shape == ((n, m) if nv is None else (1, n, m))
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-6)
+    assert (ref > 0.3).sum() >= (0 if nv == 0 else 20)
+    if nv is not None:
+        rows, cols = np.indices((n, m))
+        dead = (cols <= rows) | (rows >= nv) | (cols >= nv)
+        assert (got[0][dead] == 0).all()
+
+
 def test_over_mask_single_entry_vs_pallas_interpret(monkeypatch):
     """The single-image over-mask is pack_bits(tri IoU > thr) of the same
     pairs; bits may differ from Pallas only at IoU ties with thr."""
