@@ -1,5 +1,5 @@
-"""Drive the PyTorch port's serving path, training step and TTA test path
-on one NVIDIA GPU.
+"""Drive the PyTorch port's serving path, training step, TTA test path and
+evaluation path on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -46,19 +46,32 @@ Phases, each printing one line or more (a failed phase exits non-zero):
      TTA candidates of one image, the path of the f32 IoU kernels; then
      soft_rnms end to end (its picks, one host sync each) beside its IoU
      matrix alone, and box_iou_rotated's time;
-  8. train: the config's SGD step (R-50, canvas 1344^2, bf16, batch 2,
+  8. eval: tools/synth_benchmark.py's evaluation path without training:
+     12 val scenes of 768^2 rendered and cut into 48 tiles of 512^2, the
+     COCO-poly json, the dataset with configs/dota/synth_r18_512.py's test
+     pipeline; run_inference with R-18 (bf16, canvas 512^2, batch 4,
+     seeded weights perturbed as below) counted, then tiles/s (median of 3
+     passes, the dataset's loading included) and peak memory;
+     the same tiles through the plain DCN forward, over-mask and scan
+     (each min-area-rect call checked against its plain version) equal
+     det for det and Task1 file for file; Task1 files -> merge_by_poly ->
+     Task1 mAP (area) and mAOE (IoU 0.7) with each stage's seconds (random
+     weights score near 0; not gated); the scene labels as detections
+     score mAP 1 and mAOE 0; apis.evaluate_results gives a finite mAP;
+  9. train: the config's SGD step (R-50, canvas 1344^2, bf16, batch 2,
      frozen_stages 1, max_gt 512, max_pos 1024) on a seeded batch of 150
      rotated gts per image, seeded random weights with the point convs
      scaled up (else all 9 points coincide and the refine assigner
      degenerates): 1 warm-up step, 5 timed steps; per step the losses and
      assignment statistics, then step ms, images/s, peak memory, launches;
-  9. train_check: one f32 step from the same weights and batch through the
-     kernels and through the plain versions: the same refine assignment,
-     the same losses, the grads within the atomics' tolerance.
-Each counted run (slice, tta, iou_path, train) sets the launch counts to 0
-just before and reads them just after; it fails if a kernel of its path
-was not launched.  Then one JSON line with every kernel's numbers, the
-card's line from nvidia-smi, and {"ok": true, "device": {...}} last.
+  10. train_check: one f32 step from the same weights and batch through
+     the kernels and through the plain versions: the same refine
+     assignment, the same losses, the grads within the atomics' tolerance.
+Each counted run (slice, tta, iou_path, eval, train) sets the launch
+counts to 0 just before and reads them just after; it fails if a kernel of
+its path was not launched.  Then one JSON line with every kernel's
+numbers, the card's line from nvidia-smi, and {"ok": true, "device":
+{...}} last.
 
 bound_ms is the least time the card could take for a kernel's work on this
 run's inputs: the larger of its bytes (each input read once, each output
@@ -83,6 +96,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -168,6 +182,24 @@ TRAIN_KERNELS = ("min_area_rect", "hull_quad_iou", "deform_sample_pair",
 TTA_KERNELS = ("min_area_rect", "deform_sample_pair", "quad_over_mask",
                "nms_scan")  # the over-mask here is the single-image entry
 IOU_PATH_KERNELS = ("quad_iou_full", "quad_iou_tri")
+# phase eval: tools/synth_benchmark.py's val set (12 scenes of 768^2 with
+# 24 objects, seed 0 + 10000, prefix V) cut into 512^2 tiles at gap 256,
+# scored with R-18 (configs/dota/synth_r18_512.py) at canvas 512^2, batch 4
+EVAL_CONFIG = "configs/dota/synth_r18_512.py"
+EVAL_SCENES = 12
+EVAL_SCENE_SIZE = 768
+EVAL_OBJECTS = 24
+EVAL_SEED = 10000
+EVAL_SUBSIZE = 512
+EVAL_GAP = 256
+EVAL_BATCH = 4
+# cls_out's bias: R-18's random head moves a logit by only ~0.02 over the
+# map and ~0.035 between classes (f32 on the CPU at 256^2), so the bias
+# decides which classes pass score_thr (logit -2.944), each at every
+# location.  This seeded draw passes two of them: every tile keeps
+# max_per_img (512) dets, ~2,000 a scene and class reach the numpy merge,
+# and the phase stays within its ~90 s
+EVAL_BIAS = (-5.0, -2.0)
 
 
 def say(phase: str, **fields) -> None:
@@ -767,19 +799,28 @@ def phase_train_kernels(dev, rng):
 
 
 @contextlib.contextmanager
+def swapped(swaps):
+    """Set each (module, name, fn) of swaps for the duration, then put the
+    originals back."""
+    saved = [getattr(mod, name) for mod, name, _ in swaps]
+    for mod, name, fn in swaps:
+        setattr(mod, name, fn)
+    try:
+        yield
+    finally:
+        for (mod, name, _), fn in zip(swaps, saved):
+            setattr(mod, name, fn)
+
+
 def plain_quad_iou():
     """Route the f32 IoU entries (soft_rnms, box_iou_rotated) through the
     plain version on the card."""
     from orientedreppoints_tpu_torch.ops import nms, quad_iou
 
-    saved = (nms.quad_iou_matrix, quad_iou.quad_iou_matrix)
     plain = (lambda a, b: quad_iou.quad_iou_matrix_plain(a[None],
                                                          b[None])[0])
-    nms.quad_iou_matrix = quad_iou.quad_iou_matrix = plain
-    try:
-        yield
-    finally:
-        nms.quad_iou_matrix, quad_iou.quad_iou_matrix = saved
+    return swapped([(nms, "quad_iou_matrix", plain),
+                    (quad_iou, "quad_iou_matrix", plain)])
 
 
 def differing_bits(a: torch.Tensor, b: torch.Tensor) -> int:
@@ -1022,18 +1063,17 @@ def phase_tta(model, cfg, test_cfg, dataset, ops_mod, card):
     return ok, launches
 
 
-@contextlib.contextmanager
-def plain_merge():
-    """Route the TTA merge's NMS through the plain versions on the card."""
+def merge_swaps():
+    """The NMS's over-mask and scan -> their plain versions."""
     from orientedreppoints_tpu_torch.ops import nms, quad_iou
 
-    saved = (nms.quad_over_mask, nms.greedy_scan)
-    nms.quad_over_mask = quad_iou.quad_over_mask_plain
-    nms.greedy_scan = nms.greedy_scan_plain
-    try:
-        yield
-    finally:
-        nms.quad_over_mask, nms.greedy_scan = saved
+    return [(nms, "quad_over_mask", quad_iou.quad_over_mask_plain),
+            (nms, "greedy_scan", nms.greedy_scan_plain)]
+
+
+def plain_merge():
+    """Route the TTA merge's NMS through the plain versions on the card."""
+    return swapped(merge_swaps())
 
 
 def same_dets(a, b) -> tuple[bool, float, float]:
@@ -1159,19 +1199,208 @@ def phase_iou_path(record, ops_mod, test_cfg):
     return ok, launches
 
 
-def perturbed_weights(rng):
-    """Seeded random weights with cls_out's bias drawn above score_thr and
-    the point convs scaled up, so that the decode sees thousands of
-    candidates and spread point sets (random init scores ~0.0099 everywhere
-    and puts all 9 points together)."""
+@contextlib.contextmanager
+def plain_inference(record):
+    """Route run_inference through the plain versions of the DCN forward,
+    the over-mask and the scan on the card, while the min-area rect runs
+    its kernel and appends each call's check against its plain version
+    to record (the two differ by rounding, up to RECT_TOL; equal inputs
+    downstream keep the rest of the comparison exact)."""
+    from orientedreppoints_tpu_torch.models import detector
+    from orientedreppoints_tpu_torch.ops import deform_conv, geometry
+
+    swaps = [(deform_conv, "deform_sample_pair",
+              deform_conv.deform_sample_pair_plain)] + merge_swaps()
+    with swapped(swaps), checking(detector, "min_area_rect",
+                                  geometry.min_area_rect, rect_compare,
+                                  record):
+        yield
+
+
+def same_results(a, b) -> bool:
+    """run_inference results equal array for array."""
+    return a.keys() == b.keys() and all(
+        len(a[k]) == len(b[k]) and all(np.array_equal(x, y)
+                                       for x, y in zip(a[k], b[k]))
+        for k in a)
+
+
+def count_lines(folder) -> int:
+    return sum(open(os.path.join(folder, f)).read().count("\n")
+               for f in os.listdir(folder))
+
+
+def phase_eval(dev, ops_mod, card):
+    """The synthetic benchmark's evaluation path without training: render
+    the val scenes, tile them, build the dataset from the config's test
+    pipeline, run_inference with seeded weights (counted), the same tiles
+    through the plain versions (det for det, Task1 files byte for byte),
+    then write -> merge -> Task1 mAP and mAOE, an oracle of the scene
+    labels (mAP 1, mAOE 0) and apis.evaluate_results on the tiles."""
+    from orientedreppoints_tpu_torch import apis
+    from orientedreppoints_tpu_torch.data.synth import (SYNTH_CLASS_SPECS,
+                                                        generate_synth_dota)
+    from orientedreppoints_tpu_torch.devkit import evaluation, result_merge
+    from orientedreppoints_tpu_torch.devkit.dota2coco import dota2coco_train
+    from orientedreppoints_tpu_torch.devkit.dota_utils import (
+        DOTA10_CLASSES, parse_dota_poly)
+    from orientedreppoints_tpu_torch.devkit.img_split import ImgSplit
+    from orientedreppoints_tpu_torch.host import load_config
+
+    secs = {}
+    clock = [time.perf_counter()]
+
+    def stage(name):
+        now = time.perf_counter()
+        secs[name] = now - clock[0]
+        clock[0] = now
+
+    classnames = list(SYNTH_CLASS_SPECS)
+    with tempfile.TemporaryDirectory() as wd:
+        def path(*p):
+            return os.path.join(wd, *p)
+
+        names = generate_synth_dota(path("val_raw"), EVAL_SCENES,
+                                    size=EVAL_SCENE_SIZE,
+                                    n_objects=EVAL_OBJECTS, seed=EVAL_SEED,
+                                    prefix="V")
+        stage("render_s")
+        ImgSplit(path("val_raw"), path("val_split"), gap=EVAL_GAP,
+                 subsize=EVAL_SUBSIZE).splitdata()
+        stage("split_s")
+        cfg = load_config(EVAL_CONFIG)
+        cfg["data"]["test"].update(
+            ann_file=dota2coco_train(path("val_split"), path("test.json")),
+            img_prefix=path("val_split", "images"), test_mode=True)
+        ds = apis.build_dataset(cfg["data"]["test"])
+        stage("json_dataset_s")
+        scene_gts = {n: parse_dota_poly(path("val_raw", "labelTxt",
+                                             n + ".txt")) for n in names}
+        say("eval_data", scenes=len(names), scene_size=EVAL_SCENE_SIZE,
+            tiles=len(ds), tile_size=EVAL_SUBSIZE, gap=EVAL_GAP,
+            scene_gts=sum(len(v) for v in scene_gts.values()),
+            tile_gts=sum(len(a["labels"]) for a in ds.anns),
+            tile_gts_difficult=sum(int(a["difficult"].astype(bool).sum())
+                                   for a in ds.anns), **secs)
+
+        model, _ = apis.init_detector(
+            cfg, state_dict=perturbed_weights(np.random.default_rng(SEED + 5),
+                                              EVAL_CONFIG, EVAL_BIAS),
+            compute_dtype=cfg["tpu"]["compute_dtype"], device=dev)
+        tc = cfg["test_cfg"]
+        kw = dict(canvas=tuple(cfg["tpu"]["canvas_buckets"][-1]),
+                  batch_size=EVAL_BATCH, num_fg=len(ds.CLASSES))
+        clock[0] = time.perf_counter()
+        apis.run_inference(model, ds, tc, max_images=EVAL_BATCH, **kw)
+        torch.cuda.synchronize()
+        stage("warmup_batch_s")
+        torch.cuda.reset_peak_memory_stats()
+        ops_mod.reset_launch_counts()
+        results = apis.run_inference(model, ds, tc, **kw)
+        torch.cuda.synchronize()
+        launches = ops_mod.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            apis.run_inference(model, ds, tc, **kw)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        clock[0] = time.perf_counter()
+
+        rects = []
+        with plain_inference(rects):
+            results_plain = apis.run_inference(model, ds, tc, **kw)
+        torch.cuda.synchronize()
+        stage("plain_inference_s")
+        same = same_results(results, results_plain)
+        result_merge.write_task1_results(results, DOTA10_CLASSES,
+                                         path("task1_raw"))
+        stage("write_task1_s")
+        result_merge.write_task1_results(results_plain, DOTA10_CLASSES,
+                                         path("task1_plain"))
+        task1_equal = all(
+            open(path("task1_raw", f), "rb").read()
+            == open(path("task1_plain", f), "rb").read()
+            for f in os.listdir(path("task1_raw")))
+        clock[0] = time.perf_counter()
+        result_merge.merge_by_poly(path("task1_raw"), path("task1_merged"))
+        stage("merge_s")
+        detpath = path("task1_merged", "Task1_{:s}.txt")
+        annopath = path("val_raw", "labelTxt", "{:s}.txt")
+        mAP, aps = evaluation.eval_dota_task1(detpath, annopath, names,
+                                              classnames=classnames,
+                                              use_07_metric=False)
+        stage("eval_task1_s")
+        mAOE, aoes, mod90, _ = evaluation.eval_maoe(
+            detpath, annopath, names, classnames=classnames, ovthresh=0.7,
+            return_mod90=True)
+        stage("eval_maoe_s")
+
+        # the oracle: each scene's labels as its detections, score 1, in
+        # float64 (printed as labelTxt prints them)
+        oracle = {n: [np.array([list(o["poly"]) + [1.0] for o in objs
+                                if o["name"] == c], np.float64).reshape(-1, 9)
+                      for c in DOTA10_CLASSES]
+                  for n, objs in scene_gts.items()}
+        result_merge.write_task1_results(oracle, DOTA10_CLASSES,
+                                         path("oracle"))
+        oracle_det = path("oracle", "Task1_{:s}.txt")
+        o_map, o_aps = evaluation.eval_dota_task1(
+            oracle_det, annopath, names, classnames=classnames,
+            use_07_metric=False)
+        o_maoe, _ = evaluation.eval_maoe(oracle_det, annopath, names,
+                                         classnames=classnames, ovthresh=0.7)
+        stage("oracle_s")
+        tile_map, _ = apis.evaluate_results(results, ds)
+        stage("evaluate_results_s")
+        dets_tiles = [sum(len(a) for a in per_class)
+                      for per_class in results.values()]
+        dets_merged = count_lines(path("task1_merged"))
+        per_class = {c: sum(len(r[i]) for r in results.values())
+                     for i, c in enumerate(DOTA10_CLASSES)}
+
+    tiles = len(dets_tiles)
+    # the oracle's AP sums its recall steps in float64: 1 within 1e-12
+    ok_oracle = abs(o_map - 1.0) <= 1e-12 and o_maoe == 0.0
+    ok = (all(launches[k] > 0 for k in SERVING_KERNELS)
+          and min(dets_tiles) > 0 and tiles == len(ds) and same
+          and task1_equal and len(rects) == launches["min_area_rect"]
+          and all(r["ok"] for r in rects) and ok_oracle
+          and bool(np.isfinite([mAP, mAOE, mod90, tile_map]).all()))
+    say("eval", config=EVAL_CONFIG, batch=EVAL_BATCH,
+        dtype=cfg["tpu"]["compute_dtype"],
+        tiles=tiles, launches=launches,
+        tiles_per_s_median=statistics.median(tiles / t for t in times),
+        tiles_per_s=[tiles / t for t in times],
+        max_memory_allocated_bytes=peak,
+        dets_per_tile_min=min(dets_tiles), dets_per_tile_max=max(dets_tiles),
+        dets_tiles=sum(dets_tiles), dets_merged=dets_merged,
+        dets_per_class={c: n for c, n in per_class.items() if n},
+        plain_equal_det_for_det=same, task1_byte_equal=task1_equal,
+        min_area_rect_calls_checked=len(rects),
+        min_area_rect_max_err=max(r["max_abs_err"] for r in rects),
+        min_area_rect_ties=sum(r["ties"] for r in rects),
+        mAP=mAP, per_class_ap=aps, mAOE_deg=mAOE, per_class_aoe=aoes,
+        mAOE_mod90_deg=mod90, oracle_mAP=o_map, oracle_mAOE_deg=o_maoe,
+        oracle_per_class_ap=o_aps, evaluate_results_mAP=tile_map, **secs,
+        card=card, ok=ok)
+    return ok, launches
+
+
+def perturbed_weights(rng, config=CONFIG, bias_range=(-2.0, 1.0)):
+    """Seeded random weights of config with cls_out's bias drawn from
+    bias_range (above score_thr) and the point convs scaled up, so that
+    the decode sees thousands of candidates and spread point sets (random
+    init scores ~0.0099 everywhere and puts all 9 points together)."""
     from orientedreppoints_tpu_torch.apis import init_detector
 
-    model, _ = init_detector(CONFIG, compute_dtype="float32", device="cpu",
+    model, _ = init_detector(config, compute_dtype="float32", device="cpu",
                              seed=SEED)
     sd = {k: v.clone() for k, v in model.state_dict().items()}
     bias = sd["bbox_head.cls_out.bias"]
     sd["bbox_head.cls_out.bias"] = torch.from_numpy(
-        rng.uniform(-2.0, 1.0, bias.shape).astype(np.float32))
+        rng.uniform(*bias_range, bias.shape).astype(np.float32))
     for name in ("pts_init_out", "pts_refine_out"):
         sd[f"bbox_head.{name}.weight"] *= PTS_SCALE
     return sd
@@ -1259,20 +1488,13 @@ def phase_slice(dev, rng, ops_mod, card):
     return ok, launches, pred, first_outs
 
 
-@contextlib.contextmanager
 def plain_decode():
     """Route decode_detections through the plain versions on the card."""
     from orientedreppoints_tpu_torch.models import detector
-    from orientedreppoints_tpu_torch.ops import geometry, nms, quad_iou
+    from orientedreppoints_tpu_torch.ops import geometry
 
-    saved = (detector.min_area_rect, nms.quad_over_mask, nms.greedy_scan)
-    detector.min_area_rect = geometry.min_area_rect
-    nms.quad_over_mask = quad_iou.quad_over_mask_plain
-    nms.greedy_scan = nms.greedy_scan_plain
-    try:
-        yield
-    finally:
-        detector.min_area_rect, nms.quad_over_mask, nms.greedy_scan = saved
+    return swapped([(detector, "min_area_rect", geometry.min_area_rect)]
+                   + merge_swaps())
 
 
 def phase_decode(pred, outs):
@@ -1403,7 +1625,6 @@ def phase_train(dev, ops_mod, card, sd, batch):
     return ok, launches
 
 
-@contextlib.contextmanager
 def plain_train():
     """Route the training step through the plain versions on the card."""
     from orientedreppoints_tpu_torch.core import apaa
@@ -1418,14 +1639,7 @@ def plain_train():
               hull_iou.hull_quad_iou_matrix_plain),
              (minarearect, "convex_hull_entry", minarearect.convex_hull_plain),
              (apaa, "min_area_rect", geometry.min_area_rect)]
-    saved = [getattr(mod, name) for mod, name, _ in swaps]
-    for mod, name, fn in swaps:
-        setattr(mod, name, fn)
-    try:
-        yield
-    finally:
-        for (mod, name, _), fn in zip(swaps, saved):
-            setattr(mod, name, fn)
+    return swapped(swaps)
 
 
 def phase_train_check(dev, ops_mod, sd, batch):
@@ -1506,6 +1720,8 @@ def main() -> int:
     ok_iou, launches_iou = phase_iou_path(merges, ops_mod, pred.test_cfg)
     del pred, merges
     torch.cuda.empty_cache()
+    ok_eval, launches_eval = phase_eval(dev, ops_mod, card)
+    torch.cuda.empty_cache()
 
     from orientedreppoints_tpu_torch.host import load_config
     from orientedreppoints_tpu_torch.parallel.train import to_device
@@ -1518,12 +1734,13 @@ def main() -> int:
     ok_check = phase_train_check(dev, ops_mod, sd, batch)
 
     # launches: each kernel's count over the counted runs of the paths
-    # that run it (serving, training, TTA, the IoU path); the single-image
-    # over-mask is the TTA run's over-mask count
-    runs = (launches, launches_train, launches_tta, launches_iou)
+    # that run it (serving, training, TTA, the IoU path, eval); the
+    # single-image over-mask is the TTA run's over-mask count
+    runs = (launches, launches_train, launches_tta, launches_iou,
+            launches_eval)
     counts = {name: sum(r[name] for r in runs) for name in ops_mod.KERNELS}
     counts["quad_over_mask"] = launches["quad_over_mask"] + \
-        launches_train["quad_over_mask"]
+        launches_train["quad_over_mask"] + launches_eval["quad_over_mask"]
     counts["quad_over_mask_single"] = launches_tta["quad_over_mask"]
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -1535,7 +1752,7 @@ def main() -> int:
     print(card)
     if not (all(r["ok"] for r in kernels.values()) and ok_entries
             and ok_host and ok_slice and ok_decode and ok_tta and ok_tta_check
-            and ok_iou and ok_train and ok_check):
+            and ok_iou and ok_eval and ok_train and ok_check):
         print("chip_smoke: a phase failed", file=sys.stderr)
         return 1
     print(json.dumps({"ok": True, "device": {

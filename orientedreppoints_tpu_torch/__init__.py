@@ -5,14 +5,20 @@ names mirror it so each function has an obvious counterpart:
 
   host.py      config loader, resize / normalize on tensors, rbbox2result
   models/      ResNet, FPN, OrientedRepPointsHead, detector + decode
-  core/        point grids, offset decoding, and the training loss:
-               assigners, targets, APAA, losses, compute_losses
+  core/        point grids, offset decoding, polygon -> rbox, and the
+               training loss: assigners, targets, APAA, losses,
+               compute_losses
+  data/        synthetic DOTA scenes (cv2's fills in numpy), DotaDataset
+               and its test pipeline (.npy images)
+  devkit/      DOTA devkit in numpy: labelTxt, polygon IoU and NMS,
+               ImgSplit, COCO-poly json, Task1 / mAOE evaluators, merge
   ops/         geometry, min-area-rect and hulls, hull-gt IoU, quad IoU
                over-mask, rotated NMS, deformable conv (forward and
                backward); each kernel beside its plain PyTorch version
   parallel/    the one-device SGD training step
   utils/       flax -> torch weight conversion
-  apis.py      init_detector, build_loss_config, build_img_norm
+  apis.py      init_detector, build_dataset, run_inference(_tta),
+               evaluate_results, build_loss_config, build_img_norm
   serving.py   Predictor (one device)
 
 Every kernel wrapper runs its plain PyTorch version for CPU tensors and its

@@ -1,8 +1,10 @@
 """High-level APIs (counterpart of apis.py and utils/builder.py):
 
   * init_detector: config -> model -> optional weights;
+  * build_dataset: a data config -> DotaDataset with its pipeline;
   * run_inference and run_inference_tta (multi-scale x flip test-time
     augmentation) over a dataset, on the model's device;
+  * evaluate_results: in-memory tile-level oriented mAP;
   * parse_tta_spec: the CLI's TTA flags -> aug list;
   * the training config readers build_loss_config / build_img_norm.
 """
@@ -16,6 +18,10 @@ import numpy as np
 import torch
 
 from .core.loss_head import LossConfig
+from .data.dota import DotaDataset
+from .data.pipelines import build_pipeline
+from .devkit.evaluation import _hbb_iou_prefilter, voc_ap
+from .devkit.polygon import poly_iou
 from .host import ceil32, load_config, rbbox2result, resize_linear
 from .models.detector import (OrientedRepPointsDetector, decode_detections,
                               decode_no_nms, merge_aug_and_nms)
@@ -69,6 +75,17 @@ def init_detector(config, state_dict: dict | None = None,
     else:
         model.load_state_dict(state_dict, strict=True)
     return model.to(device).eval(), cfg
+
+
+def build_dataset(dcfg) -> DotaDataset:
+    """A data config (type, ann_file, img_prefix, pipeline, test_mode) ->
+    the dataset with its pipeline built."""
+    if dcfg["type"] != "DotaDataset":
+        raise NotImplementedError(f"dataset {dcfg['type']} is not ported")
+    return DotaDataset(ann_file=dcfg["ann_file"],
+                       img_prefix=dcfg.get("img_prefix", ""),
+                       pipeline=build_pipeline(dcfg["pipeline"]),
+                       test_mode=dcfg.get("test_mode", False))
 
 
 def _batches(dataset, n: int, batch_size: int, canvas, device):
@@ -232,3 +249,87 @@ def build_img_norm(cfg):
                         std=tuple(float(s) for s in step["std"]),
                         to_rgb=bool(step.get("to_rgb", True)))
     return None
+
+
+def evaluate_results(results: dict, dataset, iou_thr: float = 0.5,
+                     use_07_metric: bool = True):
+    """In-memory tile-level oriented mAP of run_inference's results against
+    the dataset's annotations -> (mAP, {class: ap}).
+
+    The JAX package's evaluate_results, kept as it is: VOC AP per class
+    with the exact polygon IoU behind devkit/evaluation.py's axis-aligned
+    prefilter; difficult gts are out of npos and a detection matching one
+    is neither TP nor FP.  Only the images present in results are scored
+    (a subset run is not charged the misses of tiles it did not infer); a
+    class without gts in them is nan and left out of the mean.  Raises
+    ValueError when no class has a gt.
+    """
+    name_to_idx = {
+        osp.splitext(info["file_name"])[0]: i
+        for i, info in enumerate(dataset.img_infos)
+    }
+    name_to_idx = {n: i for n, i in name_to_idx.items() if n in results}
+    aps = {}
+    for ci, cname in enumerate(dataset.CLASSES):
+        gt = {}
+        npos = 0
+        for name, di in name_to_idx.items():
+            ann = dataset.anns[di]
+            mask = ann["labels"] == (ci + 1)
+            boxes = ann["bboxes"][mask]
+            difficult = np.asarray(
+                ann.get("difficult", np.zeros(len(ann["labels"])))
+            )[mask].astype(bool)
+            gt[name] = dict(bbox=boxes, difficult=difficult,
+                            det=[False] * len(boxes))
+            npos += int((~difficult).sum())
+        recs = []
+        for name, per_class in results.items():
+            if name not in name_to_idx:
+                continue
+            for row in np.asarray(per_class[ci]).reshape(-1, 9):
+                recs.append((name, row[8], row[:8]))
+        if not recs or npos == 0:
+            aps[cname] = 0.0 if npos > 0 else float("nan")
+            continue
+        recs.sort(key=lambda r: -r[1])
+        tp = np.zeros(len(recs))
+        fp = np.zeros(len(recs))
+        for d, (name, score, poly) in enumerate(recs):
+            R = gt[name]
+            ovmax, jmax = -np.inf, -1
+            gts = R["bbox"]
+            if gts.size > 0:
+                cand = np.where(
+                    _hbb_iou_prefilter(gts.astype(np.float64),
+                                       poly.astype(np.float64)) > 0
+                )[0]
+                overlaps = np.array(
+                    [poly_iou(gts[j], poly) for j in cand], np.float64
+                )
+                if overlaps.size > 0:
+                    k = int(np.argmax(overlaps))
+                    ovmax, jmax = overlaps[k], int(cand[k])
+            if ovmax > iou_thr:
+                if not R["difficult"][jmax]:
+                    if not R["det"][jmax]:
+                        tp[d] = 1
+                        R["det"][jmax] = True
+                    else:
+                        fp[d] = 1
+            else:
+                fp[d] = 1
+        fp = np.cumsum(fp)
+        tp = np.cumsum(tp)
+        rec = tp / max(npos, 1)
+        prec = tp / np.maximum(tp + fp, 1e-9)
+        aps[cname] = voc_ap(rec, prec, use_07_metric)
+    valid_aps = [v for v in aps.values() if not np.isnan(v)]
+    if not valid_aps:
+        raise ValueError(
+            "evaluate_results: no ground-truth annotations in the scored "
+            "images (every class has npos == 0); tile-level eval needs an "
+            "annotated json (dota2coco_train's), and a DOTA test-split json "
+            "has none: score those with the devkit's Task1 evaluator "
+            "against labelTxt")
+    return float(np.mean(valid_aps)), aps

@@ -1,0 +1,37 @@
+"""Polygon -> rotated box conversion on the host (numpy; counterpart of
+core/rbox.py's poly2rbox_v3, after DOTA_devkit/dota_poly2rbox.py)."""
+
+from __future__ import annotations
+
+import numpy as np
+
+PI = np.pi
+
+
+def poly2rbox_v3(polys: np.ndarray) -> np.ndarray:
+    """(n, 8) -> (n, 5) float32 in the devkit's square-aware convention
+    (poly2rbox_single_v3): where max_edge / min_edge < 1.15 both candidate
+    angles are normalized to [-pi/4, 3pi/4) and the one of smaller |angle|
+    wins, with width the longer edge; otherwise width is the longer of
+    edges (p0, p1) and (p1, p2) and the angle runs along it.  The mAOE
+    evaluator scores angles in this convention."""
+    polys = np.asarray(polys, dtype=np.float64).reshape(-1, 8)
+    p = polys.reshape(-1, 4, 2)
+    e1 = np.linalg.norm(p[:, 0] - p[:, 1], axis=1)
+    e2 = np.linalg.norm(p[:, 1] - p[:, 2], axis=1)
+    ang1 = np.arctan2(p[:, 1, 1] - p[:, 0, 1], p[:, 1, 0] - p[:, 0, 0])
+    ang2 = np.arctan2(p[:, 3, 1] - p[:, 0, 1], p[:, 3, 0] - p[:, 0, 0])
+    n1 = (ang1 + PI / 4) % PI - PI / 4
+    n2 = (ang2 + PI / 4) % PI - PI / 4
+    max_e = np.maximum(e1, e2)
+    min_e = np.minimum(e1, e2)
+    near_square = max_e / np.maximum(min_e, 1e-12) < 1.15
+    square_angle = np.where(np.abs(n1) > np.abs(n2), n2, n1)
+    long_angle = np.where(e1 > e2, n1, n2)
+    angle = np.where(near_square, square_angle, long_angle)
+    width = np.where(near_square, max_e, np.where(e1 > e2, e1, e2))
+    height = np.where(near_square, min_e, np.where(e1 > e2, e2, e1))
+    cx = (p[:, 0, 0] + p[:, 2, 0]) / 2
+    cy = (p[:, 0, 1] + p[:, 2, 1]) / 2
+    return np.stack([cx, cy, width, height, angle], axis=1).astype(
+        np.float32)

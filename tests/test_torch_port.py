@@ -1,4 +1,5 @@
-"""The PyTorch port's boundaries: it runs without JAX, flax or cv2; the
+"""The PyTorch port's boundaries: it runs without JAX, flax or cv2 (serving,
+a train step, TTA, soft-NMS and the evaluation path); the
 R-50 demo model's flax tree converts completely; CUDA-only entries raise
 without a GPU; CPU tensors never reach a kernel."""
 
@@ -75,6 +76,52 @@ NO_JAX_SCRIPT = textwrap.dedent("""
                           [1., 1, 11, 1, 11, 11, 1, 11]])
     scores, keep = soft_rnms(quads, torch.tensor([0.9, 0.8]))
     assert keep.all() and float(scores[1]) < 0.8
+    # the evaluation path: a scene, its tiles and json, the dataset with
+    # its test pipeline, and an oracle's scores
+    import os, tempfile
+    from orientedreppoints_tpu_torch.apis import (build_dataset,
+                                                  evaluate_results)
+    from orientedreppoints_tpu_torch.data.synth import generate_synth_dota
+    from orientedreppoints_tpu_torch.devkit.dota2coco import dota2coco_train
+    from orientedreppoints_tpu_torch.devkit.dota_utils import (
+        DOTA10_CLASSES, parse_dota_poly)
+    from orientedreppoints_tpu_torch.devkit.evaluation import (
+        eval_dota_task1, eval_maoe)
+    from orientedreppoints_tpu_torch.devkit.img_split import ImgSplit
+    from orientedreppoints_tpu_torch.devkit.result_merge import (
+        merge_by_poly, write_task1_results)
+    with tempfile.TemporaryDirectory() as wd:
+        j = lambda *p: os.path.join(wd, *p)
+        names = generate_synth_dota(j("raw"), 1, size=192, n_objects=6,
+                                    seed=3)
+        ImgSplit(j("raw"), j("split"), gap=32, subsize=128).splitdata()
+        ds = build_dataset(dict(
+            type="DotaDataset",
+            ann_file=dota2coco_train(j("split"), j("split.json")),
+            img_prefix=j("split", "images"), test_mode=True, pipeline=[
+                dict(type="LoadImageFromFile"),
+                dict(type="RotateResize", img_scale=(64, 64)),
+                dict(type="Normalize", mean=[0, 0, 0], std=[1, 1, 1]),
+                dict(type="Pad", size_divisor=32)]))
+        assert len(ds) == 4 and ds[0]["img"].shape == (64, 64, 3)
+        res = {i["file_name"][:-4]: [np.concatenate(
+            [a["bboxes"][a["labels"] == c + 1],
+             np.ones(((a["labels"] == c + 1).sum(), 1), np.float32)], 1)
+            for c in range(15)] for i, a in zip(ds.img_infos, ds.anns)}
+        # 1 up to the float64 sums of VOC AP (11 points: 1 + 2.2e-16)
+        assert abs(evaluate_results(res, ds)[0] - 1.0) <= 1e-12
+        objs = parse_dota_poly(j("raw", "labelTxt", names[0] + ".txt"))
+        # float64 rows print as the labels do: the angles match exactly
+        oracle = {names[0] + "__1.0__0___0": [np.float64(
+            [list(o["poly"]) + [1.0] for o in objs if o["name"] == c]
+            ).reshape(-1, 9) for c in DOTA10_CLASSES]}
+        write_task1_results(oracle, DOTA10_CLASSES, j("raw_dets"))
+        merge_by_poly(j("raw_dets"), j("merged"))
+        args = (j("merged", "Task1_{:s}.txt"),
+                j("raw", "labelTxt", "{:s}.txt"), names,
+                sorted({o["name"] for o in objs}))
+        assert abs(eval_dota_task1(*args)[0] - 1.0) <= 1e-12
+        assert eval_maoe(*args, ovthresh=0.7)[0] == 0.0
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "flax", "cv2",
                                            "orientedreppoints_tpu"))
