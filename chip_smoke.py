@@ -1,5 +1,5 @@
-"""Drive the PyTorch port's serving path, training step, TTA test path and
-evaluation path on one NVIDIA GPU.
+"""Drive the PyTorch port's serving path, training step, TTA test path,
+evaluation path and the synthetic benchmark's training on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -66,10 +66,28 @@ Phases, each printing one line or more (a failed phase exits non-zero):
      assignment statistics, then step ms, images/s, peak memory, launches;
   10. train_check: one f32 step from the same weights and batch through
      the kernels and through the plain versions: the same refine
-     assignment, the same losses, the grads within the atomics' tolerance.
-Each counted run (slice, tta, iou_path, eval, train) sets the launch
-counts to 0 just before and reads them just after; it fails if a kernel of
-its path was not launched.  Then one JSON line with every kernel's
+     assignment, the same losses, the grads within the atomics' tolerance;
+  11. synth_train: tools/synth_benchmark_torch.py --train's path at the
+     full width of configs/dota/synth_r18_512.py (R-18, bf16, canvas
+     512^2, batch 8, max_gt 64, max_pos 512): 8 train scenes rendered and
+     cut into 32 tiles, the config's train pipeline (CorrectBox without
+     cv2) and loader, the seeded initial weights; epoch 1 (a warm-up step,
+     then counted and timed) and a checkpoint, epoch 2 (A), then epoch 2
+     twice more from the checkpoint in fresh objects (B, C), all through
+     apis.train_epochs: per step the losses, num_pos and refine
+     positives; step ms, images/s, the wait for the loader's batch, peak
+     memory, launches a step (the min-area rect's hull and rect entries
+     apart); the restored state equal to the saved one bit for bit, A
+     against B within NOISE_FACTOR times B against C (the atomics' noise
+     alone) as the norm of their difference over that of the epoch's
+     update; the same two epochs and resume without the DCN backward's
+     atomics (its plain version, deterministic algorithms: X, Y) equal
+     bit for bit; one more step with each training kernel's entry held
+     against its plain version on the same inputs, and each kernel timed
+     at those inputs.
+Each counted run (slice, tta, iou_path, eval, train, synth_train) sets the
+launch counts to 0 just before and reads them just after; it fails if a
+kernel of its path was not launched.  Then one JSON line with every kernel's
 numbers, the card's line from nvidia-smi, and {"ok": true, "device":
 {...}} last.
 
@@ -119,9 +137,9 @@ TRAIN_STEPS = 5
 STRIDES = (8, 16, 32, 64, 128)
 TRAIN_LEVELS = [(TRAIN_BATCH, -(-TRAIN_CANVAS // s), -(-TRAIN_CANVAS // s))
                 for s in STRIDES]
-# DCN backward: f32 sums of up to ~500 terms reordered by the atomics and
-# the warp reduction; bf16: one rounding step (2^-8) either side, both
-# relative to the largest grad of the tensor
+# DCN backward, by the dtype of each grad: f32 sums of up to ~500 terms
+# reordered by the atomics and the warp reduction; bf16: one rounding step
+# (2^-8) either side; both relative to the largest element of that grad
 DCN_BWD_RTOL = {"float32": 1e-5, "bfloat16": 2 ** -7}
 # train_check: grads through the kernels vs the plain versions, relative to
 # each tensor's largest element.  The f32 atomics of the DCN backward and
@@ -200,6 +218,25 @@ EVAL_BATCH = 4
 # max_per_img (512) dets, ~2,000 a scene and class reach the numpy merge,
 # and the phase stays within its ~90 s
 EVAL_BIAS = (-5.0, -2.0)
+
+
+# phase synth_train: tools/synth_benchmark_torch.py --train's path on 8 of
+# its train scenes (768^2, seed 0, prefix T; 32 tiles of 512^2, 4 steps an
+# epoch at batch 8)
+SYNTH_TRAIN_SCENES = 8
+# The resumed epoch (B) against the uninterrupted one (A), beside the same
+# resumed epoch run twice (B, C).  The f32 atomics of the DCN backward
+# reorder its sums from run to run (~1e-7 of a grad); through bf16 and the
+# assigners that grows within 4 steps to ~0.03 of the epoch's update, as
+# the norm over all tensors that it moved, and ~1e-3 of a loss (H100;
+# without the atomics two runs are equal bit for bit).  A resume that
+# restores every tensor exactly differs from A by that noise alone: A
+# against B may be at most NOISE_FACTOR times B against C on that norm
+# (a resume that zeroed the momentum reads ~16 times, one with another
+# seed's data ~7), and LOSS_NOISE_FACTOR times on the largest loss
+# difference of a step, which one step's assignment can swing.
+NOISE_FACTOR = 3.0
+LOSS_NOISE_FACTOR = 10.0
 
 
 def say(phase: str, **fields) -> None:
@@ -764,7 +801,8 @@ def phase_train_kernels(dev, rng):
         want = deform_conv.deform_sample_pair_backward_plain(*args)
         name = str(dt).split(".")[-1]
         errs[name] = [(float((x.float() - y.float()).abs().max()),
-                       max(1.0, float(y.float().abs().max())))
+                       max(float(y.float().abs().max()), 1e-30),
+                       str(x.dtype).split(".")[-1])
                       for x, y in zip(got, want)]
         del got, want
         times[name] = (
@@ -773,21 +811,21 @@ def phase_train_kernels(dev, rng):
                 *args), 1))
         del args, ta, tb, offs, ga, gb
         torch.cuda.empty_cache()
-    ok = all(e <= DCN_BWD_RTOL[name] * scale
-             for name in errs for e, scale in errs[name])
+    ok = all(e <= DCN_BWD_RTOL[dt] * scale
+             for name in errs for e, scale, dt in errs[name])
     lib_err, lib_ms = grid_sample_check(dev, rows, TRAIN_LEVELS,
                                         backward=True)
     torch.cuda.empty_cache()
     res["deform_sample_pair_backward"] = dict(
-        max_abs_err=max(e for e, _ in errs["bfloat16"]),
+        max_abs_err=max(e for e, _, _ in errs["bfloat16"]),
         ok=ok and lib_err <= LIBRARY_TOL,
         ms=times["bfloat16"][0], plain_ms=times["bfloat16"][1],
         library_ms=lib_ms, **bound(*dcn_bytes_ops(rows, c, k, 2, True)))
     say("kernel", name="deform_sample_pair_backward", rows=rows, channels=c,
-        max_abs_err_f32=[e for e, _ in errs["float32"]],
-        max_abs_err_bf16=[e for e, _ in errs["bfloat16"]],
-        grad_scale_f32=[s for _, s in errs["float32"]],
-        grad_scale_bf16=[s for _, s in errs["bfloat16"]],
+        max_abs_err_f32=[e for e, _, _ in errs["float32"]],
+        max_abs_err_bf16=[e for e, _, _ in errs["bfloat16"]],
+        grad_scale_f32=[s for _, s, _ in errs["float32"]],
+        grad_scale_bf16=[s for _, s, _ in errs["bfloat16"]],
         rtol=DCN_BWD_RTOL, ms_f32=times["float32"][0],
         plain_ms_f32=times["float32"][1], ms_bf16=times["bfloat16"][0],
         plain_ms_bf16=times["bfloat16"][1],
@@ -1545,34 +1583,14 @@ def phase_decode(pred, outs):
 
 
 def build_trainer(sd, compute_dtype, dev):
-    """The config's training setup: model with frozen_stages frozen, SGD
-    with its LR schedule, and the step (device_normalize on)."""
-    from orientedreppoints_tpu_torch.apis import (build_detector,
-                                                  build_img_norm,
-                                                  build_loss_config)
-    from orientedreppoints_tpu_torch.host import load_config
-    from orientedreppoints_tpu_torch.parallel import train
+    """The config's training setup (apis.build_trainer: frozen_stages
+    frozen, SGD with its LR schedule, the step with device_normalize) on
+    a model with the weights sd."""
+    from orientedreppoints_tpu_torch import apis
 
-    cfg = load_config(CONFIG)
-    model = build_detector(cfg, compute_dtype)
-    model.load_state_dict(sd, strict=True)
-    model.to(dev)
-    train.freeze(model, train.default_frozen_prefixes(
-        cfg["model"]["backbone"]["frozen_stages"]))
-    opt, lr = cfg["optimizer"], cfg["lr_config"]
-    if opt["type"] != "SGD":
-        raise NotImplementedError(f"optimizer {opt['type']} is not ported")
-    sched = train.lr_schedule(
-        base_lr=opt["lr"], warmup_iters=lr["warmup_iters"],
-        warmup_ratio=lr["warmup_ratio"], step_epochs=lr["step"])
-    optimizer, scheduler = train.build_optimizer(
-        model, sched, momentum=opt["momentum"],
-        weight_decay=opt["weight_decay"])
-    step = train.make_train_step(
-        model, build_loss_config(cfg), optimizer, scheduler,
-        grad_clip=cfg["optimizer_config"]["grad_clip"]["max_norm"],
-        img_norm=build_img_norm(cfg))
-    return model, step
+    model, cfg = apis.init_detector(CONFIG, state_dict=sd,
+                                    compute_dtype=compute_dtype, device=dev)
+    return model, apis.build_trainer(model, cfg)[2]
 
 
 def phase_train(dev, ops_mod, card, sd, batch):
@@ -1675,6 +1693,376 @@ def phase_train_check(dev, ops_mod, sd, batch):
     return ok
 
 
+def count_calls(module, name, counter: list):
+    """Append 1 to counter at every call of module.name."""
+    return wrapping(module, name, lambda *call: counter.append(1))
+
+
+def train_state(model, optimizer, scheduler):
+    """Copies of what a checkpoint restores: the model's tensors, the SGD
+    momentum buffers, the LR and the scheduler's step."""
+    momentum = [optimizer.state[p]["momentum_buffer"].detach().clone()
+                for g in optimizer.param_groups for p in g["params"]]
+    return ({k: v.detach().clone() for k, v in model.state_dict().items()},
+            momentum, scheduler.get_last_lr(), scheduler.last_epoch)
+
+
+def same_train_state(a, b) -> bool:
+    return (a[0].keys() == b[0].keys()
+            and all(torch.equal(a[0][k], b[0][k]) for k in a[0])
+            and len(a[1]) == len(b[1]) > 0
+            and all(torch.equal(x, y) for x, y in zip(a[1], b[1]))
+            and a[2:] == b[2:])
+
+
+def param_diffs(a: dict, b: dict, start: dict) -> dict:
+    """Two runs' states after one epoch that began at `start`, in f32 over
+    the tensors that the epoch moved: the norm of a - b over all of them
+    relative to the norm of b's update (b - start); the median over
+    tensors of that ratio per tensor; and the largest |a - b| of any
+    tensor relative to that tensor's largest element, with its name."""
+    moved = [k for k in b if b[k].is_floating_point()
+             and not torch.equal(b[k], start[k])]
+    diff = {k: float((a[k].float() - b[k].float()).norm()) for k in moved}
+    upd = {k: float((b[k].float() - start[k].float()).norm()) for k in moved}
+    worst, name = max((float((a[k].float() - b[k].float()).abs().max())
+                       / max(float(b[k].float().abs().max()), 1e-30), k)
+                      for k in moved)
+    return dict(update_rel=(sum(d * d for d in diff.values())
+                            / sum(u * u for u in upd.values())) ** 0.5,
+                median_tensor_update_rel=statistics.median(
+                    diff[k] / upd[k] for k in moved),
+                max_element_rel=worst, max_element_tensor=name,
+                tensors=len(moved))
+
+
+def loss_diff(a: list, b: list) -> tuple[float, float]:
+    """The largest absolute and relative difference of any loss of any
+    step between two runs' per-step loss dicts."""
+    pairs = [(ra[k], rb[k]) for ra, rb in zip(a, b) for k in rb]
+    return (max(abs(x - y) for x, y in pairs),
+            max(abs(x - y) / max(abs(y), 1e-12) for x, y in pairs))
+
+
+def dcn_bwd_compare(args, got, want):
+    """One DCN backward call against its plain version: each output's
+    largest error relative to its own largest grad, within DCN_BWD_RTOL of
+    that output's dtype."""
+    errs = [float((x.float() - y.float()).abs().max()) for x, y in
+            zip(got, want)]
+    scales = [float(y.float().abs().max()) for y in want]
+    rel = [e / max(s, 1e-30) for e, s in zip(errs, scales)]
+    return dict(rows=int(args[0].shape[0]),
+                dtype=[str(x.dtype).split(".")[-1] for x in got],
+                max_abs_err=errs, grad_scale=scales, max_rel_err=rel,
+                ok=all(r <= DCN_BWD_RTOL[str(x.dtype).split(".")[-1]]
+                       for r, x in zip(rel, got)))
+
+
+def hull_compare(args, got, want):
+    same = all(torch.equal(x, y) for x, y in zip(got, want))
+    return dict(sets=int(args[0].shape[0]), ok=same)
+
+
+def hull_iou_compare(args, got, want):
+    bits = differing_bits(got.contiguous(), want.contiguous())
+    return dict(shape=list(got.shape), differing_bits=bits, ok=bits == 0)
+
+
+def synth_kernel_routes():
+    """(entry module, entry name, plain version, compare) of the four
+    training kernels' entries on the synthetic step's path."""
+    from orientedreppoints_tpu_torch.core import apaa
+    from orientedreppoints_tpu_torch.ops import (deform_conv, geometry,
+                                                 hull_iou, minarearect)
+    return {
+        "min_area_rect_hull": (minarearect, "convex_hull_entry",
+                               minarearect.convex_hull_plain, hull_compare),
+        "min_area_rect_rect": (apaa, "min_area_rect", geometry.min_area_rect,
+                               rect_compare),
+        "hull_quad_iou": (hull_iou, "hull_quad_iou_matrix",
+                          hull_iou.hull_quad_iou_matrix_plain,
+                          hull_iou_compare),
+        "deform_sample_pair": (deform_conv, "deform_sample_pair",
+                               deform_conv.deform_sample_pair_plain,
+                               dcn_compare),
+        "deform_sample_pair_backward": (
+            deform_conv, "deform_sample_pair_backward",
+            deform_conv.deform_sample_pair_backward_plain, dcn_bwd_compare),
+    }
+
+
+def synth_train_data(wd, scenes):
+    """Render `scenes` train scenes (768^2, seed 0, prefix T) in wd, cut
+    them into tiles with train.json, and build the train dataset of
+    synth_r18_512.py -> (cfg, dataset)."""
+    from orientedreppoints_tpu_torch import apis
+    from orientedreppoints_tpu_torch.data.synth import generate_synth_dota
+    from orientedreppoints_tpu_torch.devkit.dota2coco import dota2coco_train
+    from orientedreppoints_tpu_torch.devkit.img_split import ImgSplit
+    from orientedreppoints_tpu_torch.host import load_config
+
+    raw, split = os.path.join(wd, "train_raw"), os.path.join(wd,
+                                                             "train_split")
+    generate_synth_dota(raw, scenes, size=EVAL_SCENE_SIZE,
+                        n_objects=EVAL_OBJECTS, seed=SEED, prefix="T")
+    ImgSplit(raw, split, gap=EVAL_GAP, subsize=EVAL_SUBSIZE).splitdata()
+    cfg = load_config(EVAL_CONFIG)
+    cfg["data"]["train"].update(
+        ann_file=dota2coco_train(split, os.path.join(wd, "train.json")),
+        img_prefix=os.path.join(split, "images"))
+    return cfg, apis.build_dataset(
+        cfg["data"]["train"],
+        device_normalize=apis.build_img_norm(cfg) is not None)
+
+
+def synth_trainer(cfg, ds, dev):
+    """The config's model from its seeded initial weights, the loader and
+    the SGD recipe -> (model, loader, optimizer, scheduler, step)."""
+    from orientedreppoints_tpu_torch import apis
+
+    model, _ = apis.init_detector(cfg, compute_dtype=cfg["tpu"]["compute_dtype"],
+                                  device=dev, seed=SEED)
+    loader = apis.build_dataloader(ds, cfg, seed=SEED)
+    return (model, loader) + apis.build_trainer(model, cfg, len(loader))
+
+
+def model_state(model) -> dict:
+    return {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+
+def resumed_epoch(cfg, ds, dev, ckpt, ckpt_dir, on_step=None,
+                  after_load=None):
+    """Epoch 2 from the epoch-1 checkpoint in a fresh model, optimizer and
+    scheduler through apis.train_epochs (after_load(model, loader,
+    optimizer, scheduler) may change them first) -> (objects, step count
+    and restored state as loaded, the state after the epoch)."""
+    from orientedreppoints_tpu_torch import apis
+    from orientedreppoints_tpu_torch.utils import checkpoint
+
+    model, loader, opt, sched, step = synth_trainer(cfg, ds, dev)
+    it, meta = checkpoint.load_checkpoint(ckpt, model, opt, sched)
+    loaded = it, train_state(model, opt, sched)
+    if after_load:
+        after_load(model, loader, opt, sched)
+    apis.train_epochs(model, loader, step, opt, sched, ckpt_dir, 2,
+                      start_epoch=meta["epoch"], it=it, on_step=on_step)
+    return (model, opt, sched, step), loaded, model_state(model)
+
+
+@contextlib.contextmanager
+def deterministic(warned: list):
+    """PyTorch's deterministic algorithms and cuDNN's for the duration
+    (warn_only: an op without one warns, its message appended to warned)."""
+    import warnings
+
+    old = (torch.are_deterministic_algorithms_enabled(),
+           torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            yield
+        warned.extend(sorted({str(w.message)[:160] for w in caught}))
+    finally:
+        torch.use_deterministic_algorithms(old[0])
+        torch.backends.cudnn.deterministic = old[1]
+        torch.backends.cudnn.benchmark = old[2]
+
+
+def same_states(a: dict, b: dict) -> bool:
+    return a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+
+
+def phase_synth_train(dev, ops_mod, card):
+    """tools/synth_benchmark_torch.py --train's path at the full width of
+    configs/dota/synth_r18_512.py: 8 train scenes rendered and tiled, the
+    config's train pipeline and loader, R-18 (bf16, batch 8, canvas 512^2)
+    from its seeded initial weights, through apis.train_epochs.  Epoch 1
+    (its first step a warm-up) and epoch 2 are counted and timed (A), with
+    a checkpoint after epoch 1; epoch 2 again from that checkpoint in a
+    fresh model, optimizer and scheduler (B), and once more (C: B against
+    C is the run-to-run noise of the DCN backward's atomics).  X and Y are
+    A and B without those atomics (the DCN backward's plain version under
+    PyTorch's and cuDNN's deterministic algorithms): equal bit for bit.
+    Then one step with each training kernel's entry checked against its
+    plain version on the same inputs, and the kernels timed at those
+    inputs."""
+    from orientedreppoints_tpu_torch import apis
+    from orientedreppoints_tpu_torch.ops import deform_conv
+
+    routes = synth_kernel_routes()
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as wd:
+        def path(*p):
+            return os.path.join(wd, *p)
+
+        t0 = time.perf_counter()
+        cfg, ds = synth_train_data(wd, SYNTH_TRAIN_SCENES)
+        data_s = time.perf_counter() - t0
+        hull_calls, rect_calls = [], []
+
+        def recorder(run, records, warmup=0):
+            """on_step: per step the losses, num_pos and refine positives,
+            printed and kept.  The first `warmup` steps are not kept, and
+            the launch and call counts restart after them."""
+            left = [warmup]
+
+            def on_step(epoch, losses, stats, batch):
+                if left[0]:
+                    left[0] -= 1
+                    ops_mod.reset_launch_counts()
+                    hull_calls.clear()
+                    rect_calls.clear()
+                    return
+                records.append({k: float(v) for k, v in losses.items()})
+                say("synth_train_step", run=run, step=len(records),
+                    **records[-1],
+                    refine_pos_per_image=(stats["gt_inds"] > 0).sum(
+                        1).tolist(),
+                    gts=int(batch["gt_valid"].sum()))
+            return on_step
+
+        def uninterrupted(run, records, ckpt_dir, warmup=0):
+            """Epochs 1 and 2 from the seeded weights, a checkpoint after
+            each -> (train_epochs' result, the kept steps, step count and
+            state after epoch 1, the model's state after epoch 2)."""
+            model, loader, opt, sched, step = synth_trainer(cfg, ds, dev)
+            at_1 = {}
+
+            def epoch_done(reached, it):
+                if reached == 1:
+                    at_1.update(steps=len(records), it=it,
+                                state=train_state(model, opt, sched))
+            res = apis.train_epochs(
+                model, loader, step, opt, sched, ckpt_dir, 2,
+                meta=dict(classes=list(ds.CLASSES)),
+                on_step=recorder(run, records, warmup), on_epoch=epoch_done)
+            return res, at_1, model_state(model)
+
+        def resumed(run, ckpt_dir, at_1):
+            """resumed_epoch from ckpt_dir's epoch-1 checkpoint -> (its
+            steps, its state, whether the restored state equals the
+            saved one bit for bit, the objects)."""
+            records = []
+            objs, (it, loaded), state = resumed_epoch(
+                cfg, ds, dev, os.path.join(ckpt_dir, "epoch_1.pt"),
+                ckpt_dir + "_" + run, on_step=recorder(run, records))
+            return (records, state,
+                    it == at_1["it"] and same_train_state(loaded,
+                                                          at_1["state"]),
+                    objs)
+
+        # A: epochs 1 and 2, counted and timed after the warm-up step
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        rec_a = []
+        with count_calls(*routes["min_area_rect_hull"][:2], hull_calls), \
+                count_calls(*routes["min_area_rect_rect"][:2], rect_calls):
+            run_a, at_a, state_a = uninterrupted("A", rec_a, path("ckpts"),
+                                                 warmup=1)
+        launches = ops_mod.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        n_steps, steps_1 = len(rec_a), at_a["steps"]
+        waits, times = run_a["wait_s"][1:], run_a["step_s"][1:]
+        # B, C: epoch 2 resumed twice; B against C is the noise
+        rec_b, state_b, exact_b, _ = resumed("B", path("ckpts"), at_a)
+        rec_c, state_c, exact_c, _ = resumed("C", path("ckpts"), at_a)
+        diffs = {"AB": param_diffs(state_a, state_b, at_a["state"][0]),
+                 "BC": param_diffs(state_b, state_c, at_a["state"][0])}
+        ab_loss = loss_diff(rec_a[steps_1:], rec_b)
+        bc_loss = loss_diff(rec_b, rec_c)
+        # X, Y: A and B again without the atomics (the DCN backward's
+        # plain version, PyTorch's and cuDNN's deterministic algorithms)
+        warned, rec_x = [], []
+        with deterministic(warned), swapped([(
+                deform_conv, "deform_sample_pair_backward",
+                deform_conv.deform_sample_pair_backward_plain)]):
+            _, at_x, state_x = uninterrupted("X", rec_x, path("ckpts_x"))
+            rec_y, state_y, exact_y, objs = resumed("Y", path("ckpts_x"),
+                                                    at_x)
+        xy_equal = (same_states(state_x, state_y)
+                    and rec_x[at_x["steps"]:] == rec_y)
+        model, opt, sched, step = objs
+
+        # one more step with every kernel entry checked, then each kernel
+        # timed at the inputs of its first call
+        checks = {name: [] for name in routes}
+        calls = {}
+
+        def keep(name):
+            return lambda args, kwargs, out: calls.setdefault(
+                name, (args, kwargs))
+
+        with contextlib.ExitStack() as stack:
+            for name, (module, fn, plain, compare) in routes.items():
+                stack.enter_context(checking(module, fn, plain, compare,
+                                             checks[name]))
+                stack.enter_context(wrapping(module, fn, keep(name)))
+            loader = apis.build_dataloader(ds, cfg, seed=SEED)
+            loader.epoch = 2
+            step(next(iter(loader)))
+            torch.cuda.synchronize()
+        shapes = {}
+        for name, (module, fn, plain, _) in routes.items():
+            args, kwargs = calls[name]
+            entry = getattr(module, fn)
+            shapes[name] = dict(
+                calls=len(checks[name]),
+                ok=bool(checks[name]) and all(c["ok"] for c in checks[name]),
+                checks=checks[name][:2],
+                ms=cuda_ms(lambda: entry(*args, **kwargs), 10),
+                plain_ms=cuda_ms(lambda: plain(*args, **kwargs), 1))
+            say("synth_train_kernel", name=name, **shapes[name])
+        del calls, checks
+
+    finite = all(np.isfinite(v) for r in rec_a + rec_b + rec_c + rec_x
+                 + rec_y for v in r.values())
+    per_step = {k: launches[k] / n_steps for k in TRAIN_KERNELS}
+    # the same inputs in the same order, the restored state exact, A's and
+    # B's states apart by no more than the noise that parts B and C, and
+    # without the atomics the resumed epoch equal to the uninterrupted one
+    ok_resume = (exact_b and exact_c and exact_y and xy_equal
+                 and len(rec_b) == len(rec_c) == n_steps - steps_1
+                 and all(a["num_pos"] == b["num_pos"] == c["num_pos"]
+                         for a, b, c in zip(rec_a[steps_1:], rec_b, rec_c))
+                 and diffs["AB"]["update_rel"]
+                 <= NOISE_FACTOR * diffs["BC"]["update_rel"]
+                 and ab_loss[0] <= max(LOSS_NOISE_FACTOR * bc_loss[0],
+                                       1e-6))
+    ok = (finite and ok_resume and all(launches[k] > 0 for k in TRAIN_KERNELS)
+          and all(v["ok"] for v in shapes.values()))
+    batch_size = cfg["tpu"]["global_batch_size"]
+    med = statistics.median(times)
+    say("synth_train", config=EVAL_CONFIG, scenes=SYNTH_TRAIN_SCENES,
+        tiles=len(ds), batch=batch_size, dtype=cfg["tpu"]["compute_dtype"],
+        canvas=cfg["tpu"]["canvas_buckets"][-1],
+        max_gt=cfg["tpu"]["max_gt"], max_pos=cfg["tpu"]["max_pos"],
+        steps_per_epoch=len(loader), counted_steps=n_steps, data_s=data_s,
+        checkpoint_save_s=run_a["save_s"],
+        step_ms=[t * 1e3 for t in times],
+        step_ms_median=med * 1e3, train_images_per_s=batch_size / med,
+        loader_wait_ms=[w * 1e3 for w in waits],
+        loader_wait_ms_median=statistics.median(waits) * 1e3,
+        loader_wait_share=sum(waits) / (sum(waits) + sum(times)),
+        max_memory_allocated_bytes=peak, launches=launches,
+        launches_per_step=per_step,
+        min_area_rect_entry_calls_per_step=dict(
+            hull=len(hull_calls) / n_steps, rect=len(rect_calls) / n_steps),
+        restored_state_exact=[exact_b, exact_c, exact_y],
+        noise_factor=NOISE_FACTOR, loss_noise_factor=LOSS_NOISE_FACTOR,
+        param_diffs=diffs,
+        a_vs_b_max_loss_abs=ab_loss[0], a_vs_b_max_loss_rel=ab_loss[1],
+        b_vs_c_max_loss_abs=bc_loss[0], b_vs_c_max_loss_rel=bc_loss[1],
+        deterministic_warnings=warned, x_vs_y_bitwise=xy_equal,
+        first_step_losses_equal=rec_a[steps_1] == rec_b[0],
+        finite=finite, phase_s=time.perf_counter() - t_phase, card=card,
+        ok=ok)
+    return ok, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1732,15 +2120,19 @@ def main() -> int:
     ok_train, launches_train = phase_train(dev, ops_mod, card, sd, batch)
     torch.cuda.empty_cache()
     ok_check = phase_train_check(dev, ops_mod, sd, batch)
+    del batch
+    torch.cuda.empty_cache()
+    ok_synth, launches_synth = phase_synth_train(dev, ops_mod, card)
 
     # launches: each kernel's count over the counted runs of the paths
     # that run it (serving, training, TTA, the IoU path, eval); the
     # single-image over-mask is the TTA run's over-mask count
     runs = (launches, launches_train, launches_tta, launches_iou,
-            launches_eval)
+            launches_eval, launches_synth)
     counts = {name: sum(r[name] for r in runs) for name in ops_mod.KERNELS}
     counts["quad_over_mask"] = launches["quad_over_mask"] + \
-        launches_train["quad_over_mask"] + launches_eval["quad_over_mask"]
+        launches_train["quad_over_mask"] + launches_eval["quad_over_mask"] \
+        + launches_synth["quad_over_mask"]
     counts["quad_over_mask_single"] = launches_tta["quad_over_mask"]
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -1752,7 +2144,7 @@ def main() -> int:
     print(card)
     if not (all(r["ok"] for r in kernels.values()) and ok_entries
             and ok_host and ok_slice and ok_decode and ok_tta and ok_tta_check
-            and ok_iou and ok_eval and ok_train and ok_check):
+            and ok_iou and ok_eval and ok_train and ok_check and ok_synth):
         print("chip_smoke: a phase failed", file=sys.stderr)
         return 1
     print(json.dumps({"ok": True, "device": {

@@ -1,30 +1,38 @@
 """High-level APIs (counterpart of apis.py and utils/builder.py):
 
   * init_detector: config -> model -> optional weights;
-  * build_dataset: a data config -> DotaDataset with its pipeline;
+  * build_dataset: a data config -> DotaDataset with its pipeline, and
+    build_dataloader: the training loader from the config;
   * run_inference and run_inference_tta (multi-scale x flip test-time
     augmentation) over a dataset, on the model's device;
   * evaluate_results: in-memory tile-level oriented mAP;
   * parse_tta_spec: the CLI's TTA flags -> aug list;
-  * the training config readers build_loss_config / build_img_norm.
+  * the training config readers build_loss_config / build_img_norm,
+    build_trainer: the config's SGD recipe and step on a model, and
+    train_epochs: the training loop with its checkpoints.
 """
 
 from __future__ import annotations
 
+import json
 import os.path as osp
-from typing import Sequence
+import time
+from typing import Callable, Sequence
 
 import numpy as np
 import torch
 
 from .core.loss_head import LossConfig
 from .data.dota import DotaDataset
+from .data.loader import DataLoader
 from .data.pipelines import build_pipeline
 from .devkit.evaluation import _hbb_iou_prefilter, voc_ap
 from .devkit.polygon import poly_iou
 from .host import ceil32, load_config, rbbox2result, resize_linear
 from .models.detector import (OrientedRepPointsDetector, decode_detections,
                               decode_no_nms, merge_aug_and_nms)
+from .parallel import train
+from .utils import checkpoint
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -77,15 +85,33 @@ def init_detector(config, state_dict: dict | None = None,
     return model.to(device).eval(), cfg
 
 
-def build_dataset(dcfg) -> DotaDataset:
+def build_dataset(dcfg, device_normalize: bool = False) -> DotaDataset:
     """A data config (type, ann_file, img_prefix, pipeline, test_mode) ->
-    the dataset with its pipeline built."""
+    the dataset with its pipeline built.  device_normalize (pass
+    build_img_norm(cfg) is not None) sets Normalize(device=True), so the
+    uint8 image reaches the train step, which normalizes on the card."""
     if dcfg["type"] != "DotaDataset":
         raise NotImplementedError(f"dataset {dcfg['type']} is not ported")
+    steps = dcfg["pipeline"]
+    if device_normalize:
+        steps = [dict(s, device=True) if s.get("type") == "Normalize" else s
+                 for s in steps]
     return DotaDataset(ann_file=dcfg["ann_file"],
                        img_prefix=dcfg.get("img_prefix", ""),
-                       pipeline=build_pipeline(dcfg["pipeline"]),
+                       pipeline=build_pipeline(steps),
                        test_mode=dcfg.get("test_mode", False))
+
+
+def build_dataloader(dataset, cfg, batch_size: int | None = None,
+                     seed: int = 0) -> DataLoader:
+    """The training loader from the config's `tpu` section:
+    global_batch_size (default 8), canvas_buckets and max_gt; seed fixes
+    the sampler's shuffles and the pipeline's draws of every epoch."""
+    tpu = cfg.get("tpu", {})
+    return DataLoader(dataset,
+                      batch_size=batch_size or tpu.get("global_batch_size", 8),
+                      canvas_buckets=tpu.get("canvas_buckets", [(1344, 1344)]),
+                      max_gt=tpu.get("max_gt", 512), seed=seed)
 
 
 def _batches(dataset, n: int, batch_size: int, canvas, device):
@@ -249,6 +275,93 @@ def build_img_norm(cfg):
                         std=tuple(float(s) for s in step["std"]),
                         to_rgb=bool(step.get("to_rgb", True)))
     return None
+
+
+def build_trainer(model, cfg, iters_per_epoch: int = 1000):
+    """The config's training recipe on `model` (on its device): the
+    backbone's frozen_stages frozen, SGD with momentum and weight decay
+    under lr_config's warmup + step schedule counted in iterations
+    (iters_per_epoch of them an epoch), the global-norm clip, and the
+    step, normalizing on the device when cfg.tpu.device_normalize.
+    Returns (optimizer, scheduler, step)."""
+    opt, lr = cfg["optimizer"], cfg["lr_config"]
+    if opt["type"] != "SGD":
+        raise NotImplementedError(f"optimizer {opt['type']} is not ported")
+    train.freeze(model, train.default_frozen_prefixes(
+        cfg["model"]["backbone"].get("frozen_stages", 1)))
+    schedule = train.lr_schedule(
+        base_lr=opt["lr"], warmup_iters=lr["warmup_iters"],
+        warmup_ratio=lr["warmup_ratio"], step_epochs=lr["step"],
+        iters_per_epoch=iters_per_epoch)
+    optimizer, scheduler = train.build_optimizer(
+        model, schedule, momentum=opt.get("momentum", 0.9),
+        weight_decay=opt.get("weight_decay", 1e-4))
+    step = train.make_train_step(
+        model, build_loss_config(cfg), optimizer, scheduler,
+        grad_clip=cfg["optimizer_config"]["grad_clip"]["max_norm"],
+        img_norm=build_img_norm(cfg))
+    return optimizer, scheduler, step
+
+
+def train_epochs(model, loader, step, optimizer, scheduler, ckpt_dir: str,
+                 stop_epoch: int, start_epoch: int = 0, it: int = 0,
+                 max_iters: int | None = None, ckpt_interval: int = 1,
+                 meta: dict | None = None,
+                 log: Callable[[str], None] | None = None,
+                 log_interval: int = 50, on_step=None, on_epoch=None) -> dict:
+    """The training loop: the loader's epochs start_epoch .. stop_epoch - 1
+    through step, each step ended by a synchronize of the model's device
+    (so its time is the step's), until `it` reaches max_iters.  A
+    checkpoint ckpt_dir/epoch_N.pt (step count `it`, meta) after every
+    ckpt_interval-th epoch and after the last epoch run.  log(line) every
+    log_interval steps; on_step(epoch, losses, stats, batch) after each
+    step, with stats as compute_losses fills them; on_epoch(epoch_reached,
+    it) after each epoch's checkpoint.  Returns dict(epoch: the epoch
+    reached, it, wait_s: the wait for each batch, step_s: each step's
+    time, save_s: each checkpoint's, wall_s)."""
+    device = _device(model)
+    waits, steps, saves = [], [], []
+    t0 = time.perf_counter()
+    reached = start_epoch
+    loader.epoch = start_epoch
+    for epoch in range(start_epoch, stop_epoch):
+        batches = iter(loader)
+        try:
+            while not (max_iters and it >= max_iters):
+                t1 = time.perf_counter()
+                batch = next(batches, None)
+                t2 = time.perf_counter()
+                if batch is None:
+                    break
+                stats = {}
+                losses = step(batch, stats)
+                if device.type == "cuda":
+                    torch.cuda.synchronize(device)
+                waits.append(t2 - t1)
+                steps.append(time.perf_counter() - t2)
+                if log and it % log_interval == 0:
+                    vals = {k: round(float(v), 4) for k, v in losses.items()}
+                    vals.update(lr=scheduler.get_last_lr()[0],
+                                elapsed_s=round(time.perf_counter() - t0, 1))
+                    log(f"epoch {epoch} iter {it} {json.dumps(vals)}")
+                it += 1
+                if on_step:
+                    on_step(epoch, losses, stats, batch)
+        finally:
+            batches.close()
+        reached = epoch + 1
+        last = reached == stop_epoch or bool(max_iters and it >= max_iters)
+        if reached % ckpt_interval == 0 or last:
+            t1 = time.perf_counter()
+            checkpoint.save_checkpoint(ckpt_dir, reached, model, optimizer,
+                                       scheduler, it, meta)
+            saves.append(time.perf_counter() - t1)
+        if on_epoch:
+            on_epoch(reached, it)
+        if last:
+            break
+    return dict(epoch=reached, it=it, wait_s=waits, step_s=steps,
+                save_s=saves, wall_s=time.perf_counter() - t0)
 
 
 def evaluate_results(results: dict, dataset, iou_thr: float = 0.5,

@@ -2,7 +2,8 @@
 the 15 DOTA classes in the reference order (mmdet/datasets/dota.py:8-12),
 8-coordinate polygon annotations with 1-based labels and their difficult
 flags, iscrowd skipped, images without annotations dropped outside
-test_mode."""
+test_mode.  prepare(idx, rng) runs a train pipeline's random draws from
+the caller's RandomState."""
 
 from __future__ import annotations
 
@@ -65,8 +66,13 @@ class DotaDataset:
         return dict(img_info=self.img_infos[idx], ann_info=self.anns[idx],
                     img_prefix=self.img_prefix)
 
-    def __getitem__(self, idx):
+    def prepare(self, idx, rng: np.random.RandomState | None = None):
+        """Item idx through the pipeline, its random draws from rng (the
+        loader's); None when a step such as FilterEmpty drops it."""
         results = self.get_raw(idx)
         if self.pipeline is None:
             return results
-        return self.pipeline(results)
+        return self.pipeline(results, rng)
+
+    def __getitem__(self, idx):
+        return self.prepare(idx)

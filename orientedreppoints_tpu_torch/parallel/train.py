@@ -14,7 +14,9 @@ Optimizer parity with the JAX package's optax chain
   * the LR is mmcv's step schedule with linear warmup from lr / 3 by step
     count, computed in f32 as the JAX schedule is (LambdaLR over lr 1.0).
 
-Not ported yet: AdamW, data-parallel (DDP) and checkpoints (ROADMAP Queue 1).
+apis.build_trainer assembles this recipe from a config; data/loader.py
+feeds it and utils/checkpoint.py saves and restores it.  Not ported yet:
+AdamW and data-parallel (DDP) training (ROADMAP Queue 1).
 """
 
 from __future__ import annotations

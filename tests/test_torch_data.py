@@ -266,8 +266,9 @@ def test_train_filter_and_refusals(split, tmp_path):
     load = build_pipeline([dict(type="LoadImageFromFile")])
     with pytest.raises(ValueError, match=".npy"):
         load(dict(img_info=dict(file_name="a.png"), img_prefix=""))
-    with pytest.raises(NotImplementedError, match="CorrectBox"):
-        build_pipeline([dict(type="CorrectBox")])
-    with pytest.raises(NotImplementedError, match="one keep-ratio scale"):
+    with pytest.raises(NotImplementedError, match="HSVAugment"):
+        build_pipeline([dict(type="HSVAugment")])
+    with pytest.raises(ValueError, match="multiscale_mode"):
         build_pipeline([dict(type="RotateResize",
-                             img_scale=[(512, 512), (768, 768)])])
+                             img_scale=[(512, 512), (768, 768)],
+                             multiscale_mode="ranges")])

@@ -1,5 +1,6 @@
 """The PyTorch port's boundaries: it runs without JAX, flax or cv2 (serving,
-a train step, TTA, soft-NMS and the evaluation path); the
+a train step, TTA, soft-NMS, the evaluation path, and the training data
+path: train pipeline, loader and checkpoint); the
 R-50 demo model's flax tree converts completely; CUDA-only entries raise
 without a GPU; CPU tensors never reach a kernel."""
 
@@ -104,6 +105,28 @@ NO_JAX_SCRIPT = textwrap.dedent("""
                 dict(type="Normalize", mean=[0, 0, 0], std=[1, 1, 1]),
                 dict(type="Pad", size_divisor=32)]))
         assert len(ds) == 4 and ds[0]["img"].shape == (64, 64, 3)
+        # the training data path: the train pipeline (CorrectBox without
+        # cv2, random flips), the loader and a checkpoint
+        from orientedreppoints_tpu_torch.apis import build_dataloader
+        from orientedreppoints_tpu_torch.utils import checkpoint
+        train_ds = build_dataset(dict(
+            type="DotaDataset", ann_file=j("split.json"),
+            img_prefix=j("split", "images"), pipeline=[
+                dict(type="LoadImageFromFile"),
+                dict(type="LoadAnnotations", with_bbox=True),
+                dict(type="CorrectBox", correct_rbbox=True,
+                     refine_rbbox=True),
+                dict(type="RotateResize", img_scale=(64, 64)),
+                dict(type="RotateRandomFlip", flip_ratio=0.5),
+                dict(type="Normalize", mean=[0, 0, 0], std=[1, 1, 1],
+                     device=True),
+                dict(type="Pad", size_divisor=32)]), device_normalize=True)
+        loader = build_dataloader(train_ds, cfg, batch_size=2)
+        batch = next(iter(loader))
+        assert batch["images"].shape == (2, 64, 64, 3)
+        assert batch["images"].dtype == np.uint8 and batch["gt_valid"].any()
+        checkpoint.save_checkpoint(j("ckpts"), 1, model, opt, sched, 1)
+        assert checkpoint.load_eval_variables(j("ckpts"), model)["epoch"] == 1
         res = {i["file_name"][:-4]: [np.concatenate(
             [a["bboxes"][a["labels"] == c + 1],
              np.ones(((a["labels"] == c + 1).sum(), 1), np.float32)], 1)

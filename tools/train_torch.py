@@ -1,0 +1,132 @@
+#!/usr/bin/env python
+"""Train an oriented detector with the PyTorch port on one device
+(counterpart of tools/train.py).
+
+    python3 tools/train_torch.py CONFIG [--work_dir DIR] [--seed 0] \\
+        [--resume_from DIR_OR_FILE | --load_from FILE] [--total_epochs N] \\
+        [--max_iters N] [--validate [--val_max_images N]] [--device cuda]
+
+The config's train data (DotaDataset over .npy tiles, the train pipeline,
+the loader of its `tpu` section), its SGD recipe and LR schedule (epochs
+counted in the loader's batches), and a checkpoint
+work_dir/ckpts/epoch_N.pt after every epoch.  --resume_from restores the
+model, optimizer, scheduler and step and goes on from the saved epoch;
+--load_from takes only the weights.  --validate scores the val split
+after every epoch (apis.run_inference + apis.evaluate_results).  Logs go
+to stdout and work_dir/train.log.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import logging
+import os
+import os.path as osp
+import sys
+
+sys.path.insert(0, osp.dirname(osp.dirname(osp.abspath(__file__))))
+
+import numpy as np  # noqa: E402
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(
+        description=__doc__.split("\n\n")[0],
+        epilog="Not ported yet: --pretrained_backbone (a torchvision "
+               "ResNet .pth, ROADMAP Queue 1 item 6) and the host-RSS "
+               "re-exec --rss_limit_gb (ROADMAP Queue 1 item 9).")
+    p.add_argument("config")
+    p.add_argument("--work_dir")
+    p.add_argument("--resume_from",
+                   help="a checkpoint file, or a directory: its latest")
+    p.add_argument("--load_from", help="a checkpoint file: weights only")
+    p.add_argument("--seed", type=int, default=0,
+                   help="initial weights and the loader's draws")
+    p.add_argument("--total_epochs", type=int)
+    p.add_argument("--max_iters", type=int,
+                   help="stop after this many iterations in all")
+    p.add_argument("--log_interval", type=int, default=50)
+    p.add_argument("--validate", action="store_true",
+                   help="score the val split after every epoch")
+    p.add_argument("--val_max_images", type=int, default=500)
+    p.add_argument("--device", default="cuda")
+    return p.parse_args(argv)
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    from orientedreppoints_tpu_torch.apis import (build_dataloader,
+                                                  build_dataset,
+                                                  build_img_norm,
+                                                  build_trainer,
+                                                  evaluate_results,
+                                                  init_detector,
+                                                  resolve_device,
+                                                  run_inference,
+                                                  train_epochs)
+    from orientedreppoints_tpu_torch.host import load_config
+    from orientedreppoints_tpu_torch.utils import checkpoint
+
+    device = resolve_device(args.device)
+    cfg = load_config(args.config)
+    work_dir = args.work_dir or cfg.get("work_dir", "work_dirs/default")
+    os.makedirs(work_dir, exist_ok=True)
+    logging.basicConfig(
+        level=logging.INFO, format="%(asctime)s %(levelname)s %(message)s",
+        handlers=[logging.StreamHandler(sys.stdout),
+                  logging.FileHandler(osp.join(work_dir, "train.log"))],
+        force=True)
+    log = logging.getLogger("train")
+
+    tpu = cfg.get("tpu", {})
+    model, _ = init_detector(cfg, device=device, seed=args.seed,
+                             compute_dtype=tpu.get("compute_dtype",
+                                                   "bfloat16"))
+    dataset = build_dataset(cfg["data"]["train"],
+                            device_normalize=build_img_norm(cfg) is not None)
+    loader = build_dataloader(dataset, cfg, seed=args.seed)
+    iters_per_epoch = max(len(loader), 1)
+    total_epochs = args.total_epochs or cfg["total_epochs"]
+    log.info("dataset: %d imgs, %d iters/epoch, device %s", len(dataset),
+             iters_per_epoch, device)
+    optimizer, scheduler, step = build_trainer(model, cfg, iters_per_epoch)
+    if args.load_from:
+        checkpoint.load_eval_variables(args.load_from, model)
+        log.info("loaded weights from %s", args.load_from)
+    start_epoch, it = 0, 0
+    if args.resume_from:
+        it, meta = checkpoint.load_checkpoint(args.resume_from, model,
+                                              optimizer, scheduler)
+        start_epoch = meta["epoch"]
+        log.info("resumed from %s at epoch %d, iter %d", args.resume_from,
+                 start_epoch, it)
+    with open(args.config) as f:
+        meta = dict(config=f.read(), classes=list(dataset.CLASSES))
+    canvas = tuple(tpu.get("canvas_buckets", [(1344, 1344)])[-1])
+
+    def epoch_done(reached, it):
+        log.info("epoch %d done at iter %d", reached - 1, it)
+        if not args.validate:
+            return
+        val_ds = build_dataset({**cfg["data"]["val"], "test_mode": True})
+        results = run_inference(model, val_ds, cfg["test_cfg"], canvas=canvas,
+                                max_images=args.val_max_images,
+                                num_fg=len(val_ds.CLASSES))
+        mAP, aps = evaluate_results(results, val_ds)
+        log.info("epoch %d val mAP %.4f %s", reached - 1, mAP,
+                 json.dumps({k: round(v, 3) for k, v in aps.items()
+                             if not np.isnan(v)}))
+
+    it = train_epochs(model, loader, step, optimizer, scheduler,
+                      osp.join(work_dir, "ckpts"), total_epochs,
+                      start_epoch=start_epoch, it=it,
+                      max_iters=args.max_iters, meta=meta, log=log.info,
+                      log_interval=args.log_interval,
+                      on_epoch=epoch_done)["it"]
+    log.info("training finished at iter %d", it)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
