@@ -1,5 +1,6 @@
 """Drive the PyTorch port's serving path, training step, TTA test path,
-evaluation path and the synthetic benchmark's training on one NVIDIA GPU.
+evaluation path, Swin-T serving and training, and the synthetic
+benchmark's training on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -46,6 +47,11 @@ Phases, each printing one line or more (a failed phase exits non-zero):
      TTA candidates of one image, the path of the f32 IoU kernels; then
      soft_rnms end to end (its picks, one host sync each) beside its IoU
      matrix alone, and box_iou_rotated's time;
+  7b. swin: the slice phase on SWIN_CONFIG, the Swin-T demo config
+     (Swin-T + FPN with max-pool extra levels, canvas 1344^2,
+     bf16, batch 4; its own seeded weights, perturbed the same way), with
+     the backbone's device time on one batch;
+  7c. swin_decode: the decode phase on the Swin head's outputs;
   8. eval: tools/synth_benchmark.py's evaluation path without training:
      12 val scenes of 768^2 rendered and cut into 48 tiles of 512^2, the
      COCO-poly json, the dataset with configs/dota/synth_r18_512.py's test
@@ -67,6 +73,12 @@ Phases, each printing one line or more (a failed phase exits non-zero):
   10. train_check: one f32 step from the same weights and batch through
      the kernels and through the plain versions: the same refine
      assignment, the same losses, the grads within the atomics' tolerance;
+  10b. swin_train: the train phase on the Swin-T config: AdamW with its
+     no-decay set, nothing frozen, DropPath 0.2 drawing its masks from
+     (SEED, step) (22 masks a step, each one's dropped samples recorded
+     and the share reported), on the same batch;
+  10c. swin_train_check: the train_check phase on the Swin-T config: the
+     same DropPath masks in both runs, then the same checks;
   11. synth_train: tools/synth_benchmark_torch.py --train's path at the
      full width of configs/dota/synth_r18_512.py (R-18, bf16, canvas
      512^2, batch 8, max_gt 64, max_pos 512): 8 train scenes rendered and
@@ -85,11 +97,11 @@ Phases, each printing one line or more (a failed phase exits non-zero):
      bit for bit; one more step with each training kernel's entry held
      against its plain version on the same inputs, and each kernel timed
      at those inputs.
-Each counted run (slice, tta, iou_path, eval, train, synth_train) sets the
-launch counts to 0 just before and reads them just after; it fails if a
-kernel of its path was not launched.  Then one JSON line with every kernel's
-numbers, the card's line from nvidia-smi, and {"ok": true, "device":
-{...}} last.
+Each counted run (slice, tta, iou_path, swin, eval, train, swin_train,
+synth_train) sets the launch counts to 0 just before and reads them just
+after; it fails if a kernel of its path was not launched.  Then one JSON
+line with every kernel's numbers, the card's line from nvidia-smi, and
+{"ok": true, "device": {...}} last.
 
 bound_ms is the least time the card could take for a kernel's work on this
 run's inputs: the larger of its bytes (each input read once, each output
@@ -121,10 +133,12 @@ import numpy as np
 import torch
 
 CONFIG = "configs/dota/orientedreppoints_r50_demo.py"
+SWIN_CONFIG = "configs/dota/orientedreppoints_swin_tiny_demo.py"
 SEED = 0
 BATCH = 4
 N_IMAGES = 8
 PTS_SCALE = 30.0  # point-conv gain: R-50 width, spread ~1 stride
+SWIN_NORM_STD = 0.02  # Swin's biases and norm affines (perturbed_weights)
 NMS_THR = 0.4
 LEVELS = [(BATCH, 168, 168), (BATCH, 84, 84), (BATCH, 42, 42),
           (BATCH, 21, 21), (BATCH, 11, 11)]  # 1344^2 canvas, strides 8..128
@@ -1430,7 +1444,16 @@ def perturbed_weights(rng, config=CONFIG, bias_range=(-2.0, 1.0)):
     """Seeded random weights of config with cls_out's bias drawn from
     bias_range (above score_thr) and the point convs scaled up, so that
     the decode sees thousands of candidates and spread point sets (random
-    init scores ~0.0099 everywhere and puts all 9 points together)."""
+    init scores ~0.0099 everywhere and puts all 9 points together).
+
+    A Swin backbone's biases and LayerNorm affines also get a normal
+    draw of std SWIN_NORM_STD, as trained weights have them: with the
+    init's zero biases, a token of the canvas's zero padding stays
+    exactly 0 through the backbone, every LayerNorm there has variance 0
+    and scales its grad by 1 / sqrt(1e-6), and the grads overflow f32
+    within the backbone's depth (the JAX package's LayerNorm gives the
+    same grads: 2.856e26 at the patch embedding's bias on a 448^2 canvas
+    padded from 320 x 384, in both)."""
     from orientedreppoints_tpu_torch.apis import init_detector
 
     model, _ = init_detector(config, compute_dtype="float32", device="cpu",
@@ -1441,6 +1464,11 @@ def perturbed_weights(rng, config=CONFIG, bias_range=(-2.0, 1.0)):
         rng.uniform(*bias_range, bias.shape).astype(np.float32))
     for name in ("pts_init_out", "pts_refine_out"):
         sd[f"bbox_head.{name}.weight"] *= PTS_SCALE
+    if model.backbone_type == "swin":
+        for k, v in sd.items():
+            if k.startswith("backbone.") and v.dim() == 1:
+                sd[k] = v + torch.from_numpy(rng.normal(
+                    0.0, SWIN_NORM_STD, v.shape).astype(np.float32))
     return sd
 
 
@@ -1481,10 +1509,10 @@ def phase_host(dev, rng):
     return ok
 
 
-def phase_slice(dev, rng, ops_mod, card):
+def phase_slice(dev, rng, ops_mod, card, config=CONFIG, phase="slice"):
     from orientedreppoints_tpu_torch.serving import Predictor
 
-    pred = Predictor(CONFIG, state_dict=perturbed_weights(rng),
+    pred = Predictor(config, state_dict=perturbed_weights(rng, config),
                      batch_size=BATCH, compute_dtype="bfloat16", device=dev)
     images = [(rng.random((1024, 1024, 3)) * 255).astype(np.uint8)
               for _ in range(N_IMAGES)]
@@ -1510,6 +1538,13 @@ def phase_slice(dev, rng, ops_mod, card):
             outs = pred.model(pred.prepare(images[lo:lo + BATCH])[0])
             cand += candidates(outs, pred.test_cfg)
             first_outs = first_outs or outs
+        # the backbone alone on the first batch's canvases, device time
+        x = pred.prepare(images[:BATCH])[0].to(pred.model.dtype)
+        if pred.model.backbone_type == "resnet":
+            x = x.permute(0, 3, 1, 2).contiguous(
+                memory_format=torch.channels_last)
+        backbone_ms = cuda_ms(lambda: pred.model.backbone(x), 5)
+        del x
     kept = [sum(len(a) for a in per_class) for per_class in out]
     finite = all(np.isfinite(a).all() for per_class in out
                  for a in per_class) and all(
@@ -1518,11 +1553,12 @@ def phase_slice(dev, rng, ops_mod, card):
     ok = (min(cand) >= 1000 and all(launches[k] > 0 for k in SERVING_KERNELS)
           and finite and min(kept) > 0 and len(out) == N_IMAGES)
     ips = [N_IMAGES / t for t in times]
-    say("slice", config=CONFIG, batch=BATCH, images=N_IMAGES,
+    say(phase, config=config, batch=BATCH, images=N_IMAGES,
         dtype="bfloat16", candidates_per_image=cand, dets_kept=kept,
         launches=launches, finite=finite,
         images_per_s_median=statistics.median(ips), images_per_s=ips,
-        max_memory_allocated_bytes=peak, card=card, ok=ok)
+        backbone_ms=backbone_ms, max_memory_allocated_bytes=peak,
+        card=card, ok=ok)
     return ok, launches, pred, first_outs
 
 
@@ -1535,7 +1571,7 @@ def plain_decode():
                    + merge_swaps())
 
 
-def phase_decode(pred, outs):
+def phase_decode(pred, outs, phase="decode"):
     from orientedreppoints_tpu_torch.models.detector import decode_detections
     from orientedreppoints_tpu_torch.ops import nms, quad_iou
 
@@ -1573,46 +1609,79 @@ def phase_decode(pred, outs):
         scan = scan_case(want, top_valid, nv)
     ok = ok and over["ok"] and scan["ok"] and torch.equal(words, want)
     for name, line in (("quad_over_mask", over), ("nms_scan", scan)):
-        say("kernel_shape", name=name, shape="decode_candidates",
+        say("kernel_shape", name=name, shape=f"{phase}_candidates",
             batch=int(q.shape[0]), n=int(q.shape[1]),
             num_valid=nv.tolist(), **line)
-    say("decode", dets=int(valid.sum()), same_valid=same_valid,
+    say(phase, dets=int(valid.sum()), same_valid=same_valid,
         same_labels=same_labels, max_err_reppoints=err_pts,
         max_err_poly_px=err_poly, max_err_score=err_score, ok=ok)
     return ok
 
 
-def build_trainer(sd, compute_dtype, dev):
+def build_trainer(sd, compute_dtype, dev, config=CONFIG):
     """The config's training setup (apis.build_trainer: frozen_stages
-    frozen, SGD with its LR schedule, the step with device_normalize) on
-    a model with the weights sd."""
+    frozen, SGD or AdamW with its LR schedule, the step with
+    device_normalize and DropPath seeded from (SEED, step)) on a model
+    with the weights sd."""
     from orientedreppoints_tpu_torch import apis
 
-    model, cfg = apis.init_detector(CONFIG, state_dict=sd,
+    model, cfg = apis.init_detector(config, state_dict=sd,
                                     compute_dtype=compute_dtype, device=dev)
-    return model, apis.build_trainer(model, cfg)[2]
+    return model, apis.build_trainer(model, cfg, seed=SEED)[2]
 
 
-def phase_train(dev, ops_mod, card, sd, batch):
-    model, step = build_trainer(sd, "bfloat16", dev)
+def counting_drop_path(draws: list):
+    """Record every DropPath mask Swin draws: which samples it drops (a
+    dropped sample's branch is all zeros)."""
+    from orientedreppoints_tpu_torch.models import swin
+
+    def on_call(args, kwargs, out):
+        y, rate, gen = args
+        if gen is not None and rate > 0:
+            draws.append((out.reshape(out.shape[0], -1) == 0).all(1))
+    return wrapping(swin, "drop_path", on_call)
+
+
+def dropped_share(draws: list) -> float:
+    return float(torch.cat(draws).float().mean()) if draws else 0.0
+
+
+def masks_per_step(model) -> int:
+    """DropPath masks a training forward draws: two a block of nonzero
+    rate (22 in Swin-T: its first block's rate is 0)."""
+    from orientedreppoints_tpu_torch.models.swin import SwinBlock
+
+    return 2 * sum(m.drop_path > 0 for m in model.modules()
+                   if isinstance(m, SwinBlock))
+
+
+def phase_train(dev, ops_mod, card, sd, batch, config=CONFIG,
+                phase="train"):
+    """The config's step: R-50 with SGD (stem and layer1 frozen), or
+    Swin-T with AdamW (nothing frozen) and DropPath, whose draws and
+    dropped share are counted."""
+    model, step = build_trainer(sd, "bfloat16", dev, config)
+    swin = model.backbone_type == "swin"
     before = {k: v.detach().clone() for k, v in model.named_parameters()}
     n = sum(h * w for _, h, w in TRAIN_LEVELS)
     step(batch)  # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops_mod.reset_launch_counts()
-    times, records = [], []
-    for i in range(TRAIN_STEPS):
-        stats = {}
-        t0 = time.perf_counter()
-        losses = step(batch, stats)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-        rec = {k: float(v) for k, v in losses.items()}
-        rec["refine_pos_per_image"] = (stats["gt_inds"] > 0).sum(1).tolist()
-        rec["iou_gt_0p1_share"] = stats["iou_gt_0p1"].tolist()
-        records.append(rec)
-        say("train_step", step=i, **rec)
+    times, records, draws = [], [], []
+    with counting_drop_path(draws):
+        for i in range(TRAIN_STEPS):
+            stats = {}
+            t0 = time.perf_counter()
+            losses = step(batch, stats)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            rec = {k: float(v) for k, v in losses.items()}
+            rec["refine_pos_per_image"] = (stats["gt_inds"] > 0).sum(
+                1).tolist()
+            rec["iou_gt_0p1_share"] = stats["iou_gt_0p1"].tolist()
+            records.append(rec)
+            say(f"{phase}_step", step=i, **rec)
     launches = ops_mod.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     frozen_same, unchanged, trainable = 0, [], 0
@@ -1626,17 +1695,26 @@ def phase_train(dev, ops_mod, card, sd, batch):
     n_frozen = sum(not p.requires_grad for p in model.parameters())
     finite = all(np.isfinite(v) for r in records for k, v in r.items()
                  if not isinstance(v, list))
+    # Swin: DropPath fires (Swin-T drops ~10% of samples on average: the
+    # mean of its rates); nothing is frozen
+    fired = (len(draws) == TRAIN_STEPS * masks_per_step(model) > 0
+             and dropped_share(draws) > 0) if swin else not draws
     ok = (finite and min(r["num_pos"] for r in records) > 0
           and max(max(r["refine_pos_per_image"]) for r in records) < n
           and min(min(r["iou_gt_0p1_share"]) for r in records) > 0
           and all(launches[k] > 0 for k in TRAIN_KERNELS)
-          and n_frozen > 0 and frozen_same == n_frozen and not unchanged)
+          and (n_frozen == 0 if swin else n_frozen > 0)
+          and frozen_same == n_frozen and not unchanged and fired)
     med = statistics.median(times)
-    say("train", config=CONFIG, batch=TRAIN_BATCH, canvas=TRAIN_CANVAS,
+    say(phase, config=config, batch=TRAIN_BATCH, canvas=TRAIN_CANVAS,
         dtype="bfloat16", steps=TRAIN_STEPS, point_sets_per_image=n,
         step_ms=[t * 1e3 for t in times], step_ms_median=med * 1e3,
         train_images_per_s=TRAIN_BATCH / med,
         max_memory_allocated_bytes=peak, launches=launches,
+        launches_per_step={k: launches[k] / TRAIN_STEPS
+                           for k in TRAIN_KERNELS},
+        drop_path_masks=len(draws),
+        drop_path_dropped_share=dropped_share(draws),
         frozen_tensors=n_frozen, frozen_unchanged=frozen_same,
         trainable_tensors=trainable, trainable_unchanged=unchanged,
         finite=finite, card=card, ok=ok)
@@ -1660,32 +1738,47 @@ def plain_train():
     return swapped(swaps)
 
 
-def phase_train_check(dev, ops_mod, sd, batch):
+def phase_train_check(dev, ops_mod, sd, batch, config=CONFIG,
+                      phase="train_check"):
     runs = {}
     for route in ("kernels", "plain"):
-        model, step = build_trainer(sd, "float32", dev)
+        model, step = build_trainer(sd, "float32", dev, config)
         ops_mod.reset_launch_counts()
-        stats = {}
-        with plain_train() if route == "plain" else contextlib.nullcontext():
+        stats, draws = {}, []
+        route_ctx = (plain_train() if route == "plain"
+                     else contextlib.nullcontext())
+        with route_ctx, counting_drop_path(draws):
             losses = step(batch, stats)
         torch.cuda.synchronize()
         grads = {k: p.grad.detach().clone()
                  for k, p in model.named_parameters() if p.requires_grad}
         runs[route] = (losses, stats["gt_inds"], grads,
-                       ops_mod.launch_counts())
+                       ops_mod.launch_counts(), draws)
+        n_masks = masks_per_step(model)
         del model, step
         torch.cuda.empty_cache()
-    (lk, gk, grk, nk), (lp, gp, grp, np_) = runs["kernels"], runs["plain"]
+    (lk, gk, grk, nk, dk), (lp, gp, grp, np_, dp) = (runs["kernels"],
+                                                     runs["plain"])
+    # the same DropPath masks in both runs (none without Swin)
+    same_masks = len(dk) == len(dp) == n_masks and all(
+        torch.equal(a, b) for a, b in zip(dk, dp))
     same_assign = torch.equal(gk, gp)
     loss_rel = max(abs(float(lk[k]) - float(lp[k]))
                    / max(abs(float(lp[k])), 1e-6) for k in lp)
     grad_rel = max(float((grk[k] - grp[k]).abs().max())
                    / max(float(grp[k].abs().max()), 1e-30) for k in grp)
-    ok = (same_assign and loss_rel <= 1e-5 and grad_rel <= GRAD_RTOL
+    # a non-finite value compares false and Python's max may skip it
+    finite = all(bool(torch.isfinite(g).all()) for run in (grk, grp)
+                 for g in run.values()) and all(
+        np.isfinite(float(v)) for run in (lk, lp) for v in run.values())
+    ok = (finite and same_assign and loss_rel <= 1e-5
+          and grad_rel <= GRAD_RTOL
           and all(nk[k] > 0 for k in TRAIN_KERNELS)
-          and not any(np_.values()))
-    say("train_check", dtype="float32", tf32=False,
-        refine_assignment_identical=same_assign,
+          and not any(np_.values()) and same_masks)
+    say(phase, config=config, dtype="float32", tf32=False,
+        drop_path_masks=len(dk), same_drop_path_masks=same_masks,
+        drop_path_dropped_share=dropped_share(dk),
+        refine_assignment_identical=same_assign, finite=finite,
         refine_pos=int((gk > 0).sum()), max_loss_rel_err=loss_rel,
         max_grad_rel_err=grad_rel, grad_rtol=GRAD_RTOL,
         losses={k: float(v) for k, v in lk.items()},
@@ -2089,6 +2182,7 @@ def main() -> int:
     rng_train = np.random.default_rng(SEED + 1)
     rng_quad = np.random.default_rng(SEED + 2)
     rng_host = np.random.default_rng(SEED + 3)
+    rng_swin = np.random.default_rng(SEED + 4)
     kernels = phase_kernels(dev, rng)
     train_res = phase_train_kernels(dev, rng_train)
     kernels["min_area_rect"]["ok"] &= train_res.pop(
@@ -2108,6 +2202,11 @@ def main() -> int:
     ok_iou, launches_iou = phase_iou_path(merges, ops_mod, pred.test_cfg)
     del pred, merges
     torch.cuda.empty_cache()
+    ok_swin, launches_swin, pred, outs = phase_slice(
+        dev, rng_swin, ops_mod, card, SWIN_CONFIG, "swin")
+    ok_swin_decode = phase_decode(pred, outs, "swin_decode")
+    del pred, outs
+    torch.cuda.empty_cache()
     ok_eval, launches_eval = phase_eval(dev, ops_mod, card)
     torch.cuda.empty_cache()
 
@@ -2120,19 +2219,28 @@ def main() -> int:
     ok_train, launches_train = phase_train(dev, ops_mod, card, sd, batch)
     torch.cuda.empty_cache()
     ok_check = phase_train_check(dev, ops_mod, sd, batch)
-    del batch
+    torch.cuda.empty_cache()
+    sd = perturbed_weights(rng_swin, SWIN_CONFIG)
+    ok_swin_train, launches_swin_train = phase_train(
+        dev, ops_mod, card, sd, batch, SWIN_CONFIG, "swin_train")
+    torch.cuda.empty_cache()
+    ok_swin_check = phase_train_check(dev, ops_mod, sd, batch, SWIN_CONFIG,
+                                      "swin_train_check")
+    del batch, sd
     torch.cuda.empty_cache()
     ok_synth, launches_synth = phase_synth_train(dev, ops_mod, card)
 
     # launches: each kernel's count over the counted runs of the paths
-    # that run it (serving, training, TTA, the IoU path, eval); the
-    # single-image over-mask is the TTA run's over-mask count
+    # that run it (serving, training, TTA, the IoU path, eval, Swin
+    # serving and training); the single-image over-mask is the TTA run's
+    # over-mask count
     runs = (launches, launches_train, launches_tta, launches_iou,
-            launches_eval, launches_synth)
+            launches_eval, launches_synth, launches_swin,
+            launches_swin_train)
     counts = {name: sum(r[name] for r in runs) for name in ops_mod.KERNELS}
-    counts["quad_over_mask"] = launches["quad_over_mask"] + \
-        launches_train["quad_over_mask"] + launches_eval["quad_over_mask"] \
-        + launches_synth["quad_over_mask"]
+    counts["quad_over_mask"] = sum(
+        r["quad_over_mask"] for r in runs
+        if r is not launches_tta and r is not launches_iou)
     counts["quad_over_mask_single"] = launches_tta["quad_over_mask"]
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -2144,7 +2252,9 @@ def main() -> int:
     print(card)
     if not (all(r["ok"] for r in kernels.values()) and ok_entries
             and ok_host and ok_slice and ok_decode and ok_tta and ok_tta_check
-            and ok_iou and ok_eval and ok_train and ok_check and ok_synth):
+            and ok_iou and ok_eval and ok_train and ok_check and ok_synth
+            and ok_swin and ok_swin_decode and ok_swin_train
+            and ok_swin_check):
         print("chip_smoke: a phase failed", file=sys.stderr)
         return 1
     print(json.dumps({"ok": True, "device": {

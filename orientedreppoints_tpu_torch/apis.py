@@ -8,7 +8,8 @@
   * evaluate_results: in-memory tile-level oriented mAP;
   * parse_tta_spec: the CLI's TTA flags -> aug list;
   * the training config readers build_loss_config / build_img_norm,
-    build_trainer: the config's SGD recipe and step on a model, and
+    build_trainer: the config's SGD or AdamW recipe and step on a model,
+    and
     train_epochs: the training loop with its checkpoints.
 """
 
@@ -46,21 +47,34 @@ def resolve_device(device: str | torch.device) -> torch.device:
     return device
 
 
+SWIN_KWARGS = ("embed_dim", "depths", "num_heads", "window_size",
+               "out_indices", "drop_path_rate")
+
+
 def build_detector(cfg, compute_dtype: str = "bfloat16"):
+    """The config's detector: ResNet (groups 1) or SwinTransformer with the
+    kwargs the JAX builder passes, the neck's start_level /
+    add_extra_convs when given (else the backbone's default wiring)."""
     m = cfg["model"]
     bb = m["backbone"]
-    if bb["type"] != "ResNet" or bb.get("groups", 1) != 1:
+    if bb["type"] == "ResNet" and bb.get("groups", 1) == 1:
+        bb_type, kwargs = "resnet", None
+    elif bb["type"] == "SwinTransformer":
+        bb_type = "swin"
+        kwargs = {k: tuple(v) if isinstance(v, list) else v
+                  for k, v in bb.items() if k in SWIN_KWARGS}
+    else:
         raise NotImplementedError(f"backbone {bb['type']} with groups "
                                   f"{bb.get('groups', 1)} is not ported")
     neck = m["neck"]
-    if neck.get("start_level", 1) != 1 or not neck.get("add_extra_convs",
-                                                       True):
-        raise NotImplementedError("only the ResNet FPN wiring is ported")
     head = m["bbox_head"]
     return OrientedRepPointsDetector(
-        depth=bb.get("depth", 50), num_classes=head["num_classes"],
+        backbone_type=bb_type, depth=bb.get("depth", 50),
+        num_classes=head["num_classes"],
         fpn_out_channels=neck["out_channels"], num_levels=neck["num_outs"],
-        dtype=DTYPES[compute_dtype],
+        fpn_start_level=neck.get("start_level"),
+        fpn_add_extra_convs=neck.get("add_extra_convs"),
+        dtype=DTYPES[compute_dtype], backbone_kwargs=kwargs,
         head_kwargs={k: head[k] for k in (
             "feat_channels", "point_feat_channels", "stacked_convs",
             "num_points", "gradient_mul") if k in head})
@@ -277,15 +291,17 @@ def build_img_norm(cfg):
     return None
 
 
-def build_trainer(model, cfg, iters_per_epoch: int = 1000):
+def build_trainer(model, cfg, iters_per_epoch: int = 1000, seed: int = 0):
     """The config's training recipe on `model` (on its device): the
-    backbone's frozen_stages frozen, SGD with momentum and weight decay
-    under lr_config's warmup + step schedule counted in iterations
-    (iters_per_epoch of them an epoch), the global-norm clip, and the
-    step, normalizing on the device when cfg.tpu.device_normalize.
+    backbone's frozen_stages frozen (ResNet's stem and layers; Swin has
+    neither, so nothing, as in JAX), SGD with momentum and weight decay or
+    AdamW with the no-decay substrings, under lr_config's warmup + step
+    schedule counted in iterations (iters_per_epoch of them an epoch), the
+    global-norm clip, and the step, normalizing on the device when
+    cfg.tpu.device_normalize and drawing DropPath masks from (seed, step).
     Returns (optimizer, scheduler, step)."""
     opt, lr = cfg["optimizer"], cfg["lr_config"]
-    if opt["type"] != "SGD":
+    if opt["type"] not in ("SGD", "AdamW"):
         raise NotImplementedError(f"optimizer {opt['type']} is not ported")
     train.freeze(model, train.default_frozen_prefixes(
         cfg["model"]["backbone"].get("frozen_stages", 1)))
@@ -294,12 +310,13 @@ def build_trainer(model, cfg, iters_per_epoch: int = 1000):
         warmup_ratio=lr["warmup_ratio"], step_epochs=lr["step"],
         iters_per_epoch=iters_per_epoch)
     optimizer, scheduler = train.build_optimizer(
-        model, schedule, momentum=opt.get("momentum", 0.9),
+        model, schedule, optimizer=opt["type"].lower(),
+        momentum=opt.get("momentum", 0.9),
         weight_decay=opt.get("weight_decay", 1e-4))
     step = train.make_train_step(
         model, build_loss_config(cfg), optimizer, scheduler,
         grad_clip=cfg["optimizer_config"]["grad_clip"]["max_norm"],
-        img_norm=build_img_norm(cfg))
+        img_norm=build_img_norm(cfg), seed=seed)
     return optimizer, scheduler, step
 
 

@@ -1,5 +1,5 @@
-"""Detector (ResNet + FPN + head) and the inference decode (counterpart of
-models/detector.py).
+"""Detector (ResNet or Swin + FPN + head) and the inference decode
+(counterpart of models/detector.py).
 
 decode_detections: per-level sigmoid in f32 -> top nms_pre by max class
 score -> offset_to_pts -> min-area rect -> / scale_factor -> background pad
@@ -22,26 +22,47 @@ from ..ops.nms import multiclass_rnms, multiclass_rnms_batch, topk_stable
 from .fpn import FPN
 from .head import OrientedRepPointsHead
 from .resnet import ResNet
+from .swin import SwinTransformer
 
 POINT_STRIDES = (8, 16, 32, 64, 128)
 
 
 class OrientedRepPointsDetector(nn.Module):
-    """ResNet backbone (the only one ported so far) + FPN + head.
+    """Backbone (ResNet or Swin) + FPN + head.
 
     forward takes (B, H, W, 3) normalized images and returns the head's
-    dict of per-level NHWC outputs, computed in ``dtype``.
+    dict of per-level NHWC outputs, computed in ``dtype``.  The FPN wiring
+    defaults to the JAX package's per backbone: ResNet start_level 1 with
+    extra convs, Swin start_level 0 with max-pool extra levels;
+    fpn_start_level / fpn_add_extra_convs override it when given.  gen is
+    the DropPath generator a train-mode Swin draws from (ResNet has no
+    stochastic layer and ignores it).
     """
 
-    def __init__(self, depth: int = 50, num_classes: int = 16,
-                 fpn_out_channels: int = 256, num_levels: int = 5,
+    def __init__(self, backbone_type: str = "resnet", depth: int = 50,
+                 num_classes: int = 16, fpn_out_channels: int = 256,
+                 num_levels: int = 5, fpn_start_level: int | None = None,
+                 fpn_add_extra_convs: bool | None = None,
                  dtype: torch.dtype = torch.float32,
+                 backbone_kwargs: dict | None = None,
                  head_kwargs: dict | None = None):
         super().__init__()
         self.dtype = dtype
-        self.backbone = ResNet(depth=depth)
+        self.backbone_type = backbone_type
+        if backbone_type == "resnet":
+            self.backbone = ResNet(depth=depth)
+            start, extra = 1, True
+        elif backbone_type == "swin":
+            self.backbone = SwinTransformer(**(backbone_kwargs or {}))
+            start, extra = 0, False
+        else:
+            raise ValueError(f"backbone {backbone_type} is not ported")
+        if fpn_start_level is not None:
+            start = fpn_start_level
+        if fpn_add_extra_convs is not None:
+            extra = fpn_add_extra_convs
         self.neck = FPN(self.backbone.out_channels, fpn_out_channels,
-                        num_levels, start_level=1)
+                        num_levels, start_level=start, add_extra_convs=extra)
         self.bbox_head = OrientedRepPointsHead(
             num_classes=num_classes, in_channels=fpn_out_channels,
             **(head_kwargs or {}))
@@ -51,10 +72,15 @@ class OrientedRepPointsDetector(nn.Module):
         self.neck.init_weights(gen)
         self.bbox_head.init_weights(gen)
 
-    def forward(self, images: torch.Tensor) -> dict:
-        x = images.permute(0, 3, 1, 2).to(self.dtype)
-        x = x.contiguous(memory_format=torch.channels_last)
-        return self.bbox_head(self.neck(self.backbone(x)))
+    def forward(self, images: torch.Tensor,
+                gen: torch.Generator | None = None) -> dict:
+        if self.backbone_type == "swin":
+            feats = self.backbone(images.to(self.dtype), gen)
+        else:
+            x = images.permute(0, 3, 1, 2).to(self.dtype)
+            feats = self.backbone(
+                x.contiguous(memory_format=torch.channels_last))
+        return self.bbox_head(self.neck(feats))
 
 
 def _decode_candidates(outs: dict, strides: Sequence[int], nms_pre: int):

@@ -1,8 +1,12 @@
 """Feature Pyramid Network with GN (counterpart of models/fpn.py).
 
-start_level 1 over C3..C5, top-down nearest upsampling, extra stride-2
-convs on the raw C5 map, GN(32) on every conv and no activations; output
-strides 8..128.
+Laterals over the backbone maps from start_level on (1 over ResNet's
+C2..C5, 0 over Swin's C3..C5), top-down nearest upsampling, GN(32) on
+every conv and no activations; the extra levels up to num_outs are
+stride-2 convs starting from the raw last backbone map
+(add_extra_convs), or else each the previous level subsampled by a
+stride-2 max pool of window 1 (ceil(H / 2), flax's nn.max_pool(x, (1, 1),
+strides=(2, 2))).  Output strides 8..128.
 """
 
 from __future__ import annotations
@@ -16,7 +20,7 @@ from .layers import Conv2d, ConvModule
 
 class FPN(nn.Module):
     def __init__(self, in_channels, out_channels: int = 256, num_outs: int = 5,
-                 start_level: int = 1):
+                 start_level: int = 1, add_extra_convs: bool = True):
         super().__init__()
         used = list(in_channels[start_level:])
         self.start_level = start_level
@@ -28,8 +32,9 @@ class FPN(nn.Module):
                             ConvModule(out_channels, out_channels, 3,
                                        act=False))
         self.n_extra = num_outs - self.n_lat
+        self.add_extra_convs = add_extra_convs
         cin = in_channels[-1]
-        for i in range(self.n_extra):
+        for i in range(self.n_extra if add_extra_convs else 0):
             self.add_module(f"fpn_extra_{i}",
                             ConvModule(cin, out_channels, 3, stride=2,
                                        act=False))
@@ -56,6 +61,10 @@ class FPN(nn.Module):
                                mode="nearest-exact")
             laterals[i - 1] = laterals[i - 1] + up
         outs = [getattr(self, f"fpn_{i}")(x) for i, x in enumerate(laterals)]
+        if not self.add_extra_convs:
+            for _ in range(self.n_extra):
+                outs.append(F.max_pool2d(outs[-1], 1, 2))
+            return tuple(outs)
         src = inputs[-1]  # extra levels start from the raw C5 map
         for i in range(self.n_extra):
             src = getattr(self, f"fpn_extra_{i}")(src)

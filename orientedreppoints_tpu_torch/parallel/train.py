@@ -1,22 +1,35 @@
-"""One-device training step (counterpart of parallel/train.py, SGD recipe).
+"""One-device training step (counterpart of parallel/train.py), with
+the SGD and the AdamW recipes of the JAX package's optax chains.
 
-Optimizer parity with the JAX package's optax chain
-(configs/dota/orientedreppoints_r50_demo.py):
+Optimizer parity (configs/dota/orientedreppoints_r50_demo.py,
+configs/dota/orientedreppoints_swin_tiny_demo.py):
   * frozen_stages=1: the stem and layer1_* take no update and no decay
     (their parameters get requires_grad=False, so autograd and the
-    optimizer never see them);
+    optimizer never see them); Swin has neither, so nothing freezes, as
+    in JAX;
   * the global-norm clip at 35 runs first, over the trainable grads only,
     as optax.clip_by_global_norm does it (g / norm * max_norm when the norm
     is at least max_norm);
-  * then torch.optim.SGD adds weight decay to the grad and keeps the
+  * SGD: torch.optim.SGD adds weight decay to the grad and keeps the
     momentum trace (its first buffer is the grad), as add_decayed_weights
     + trace do;
+  * AdamW: scale_by_adam(0.9, 0.999, 1e-8), then the decay added under a
+    mask, then the LR: -lr (m^ / (sqrt(v^) + eps) + wd p), which is
+    torch.optim.AdamW's arithmetic (rounded in another order) over two
+    parameter groups, the no-decay group at weight_decay 0.  The config's
+    betas are ignored, as the optax chain fixes them;
   * the LR is mmcv's step schedule with linear warmup from lr / 3 by step
     count, computed in f32 as the JAX schedule is (LambdaLR over lr 1.0).
 
-apis.build_trainer assembles this recipe from a config; data/loader.py
+The step runs the model in train mode (and restores its mode after), so
+a Swin backbone's DropPath fires.  Its masks come from a torch.Generator
+on the model's device seeded from (seed, step count), as the JAX step
+folds its step count into one base key: a resumed run draws the masks of
+an uninterrupted one without saving any generator state.
+
+apis.build_trainer assembles a recipe from a config; data/loader.py
 feeds it and utils/checkpoint.py saves and restores it.  Not ported yet:
-AdamW and data-parallel (DDP) training (ROADMAP Queue 1).
+data-parallel (DDP) training (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
@@ -65,14 +78,39 @@ def freeze(model: torch.nn.Module, prefixes: Sequence[str]) -> None:
             p.requires_grad_(False)
 
 
+# JAX's AdamW no-decay substrings (parallel/train.py build_optimizer)
+ADAMW_NO_DECAY = ("bias", "norm", "gn", "bn")
+
+
+def decayed(name: str) -> bool:
+    """Whether AdamW decays the parameter of this state_dict name: JAX's
+    rule on the flax path, none of the substrings in the lower-cased
+    name.  The port's names are the flax paths joined by dots with the
+    leaf renamed (kernel or a norm's scale -> weight), and neither leaf
+    name holds a substring, so the rule gives the same set."""
+    return not any(t in name.lower() for t in ADAMW_NO_DECAY)
+
+
 def build_optimizer(model: torch.nn.Module, schedule: Callable[[int], float],
-                    momentum: float = 0.9, weight_decay: float = 1e-4):
-    """SGD with momentum and weight decay over the trainable parameters, and
-    a LambdaLR that sets the LR to schedule(step) (base LR 1.0).
+                    optimizer: str = "sgd", momentum: float = 0.9,
+                    weight_decay: float = 1e-4):
+    """SGD with momentum and weight decay, or AdamW with weight decay on
+    the `decayed` parameters only, over the trainable parameters, and a
+    LambdaLR that sets the LR to schedule(step) (base LR 1.0).
     Returns (optimizer, scheduler)."""
-    params = [p for p in model.parameters() if p.requires_grad]
-    opt = torch.optim.SGD(params, lr=1.0, momentum=momentum,
-                          weight_decay=weight_decay)
+    named = [(k, p) for k, p in model.named_parameters() if p.requires_grad]
+    if optimizer == "sgd":
+        opt = torch.optim.SGD([p for _, p in named], lr=1.0,
+                              momentum=momentum, weight_decay=weight_decay)
+    elif optimizer == "adamw":
+        groups = [dict(params=[p for k, p in named if decayed(k)],
+                       weight_decay=weight_decay),
+                  dict(params=[p for k, p in named if not decayed(k)],
+                       weight_decay=0.0)]
+        opt = torch.optim.AdamW(groups, lr=1.0, betas=(0.9, 0.999),
+                                eps=1e-8)
+    else:
+        raise ValueError(f"optimizer {optimizer}")
     return opt, torch.optim.lr_scheduler.LambdaLR(opt, schedule)
 
 
@@ -108,11 +146,26 @@ def to_device(batch: dict, device) -> dict:
     return {k: torch.as_tensor(batch[k], device=device) for k in BATCH_KEYS}
 
 
+def step_generator(seed: int, step: int, device) -> torch.Generator:
+    """The DropPath generator of one step, seeded from (seed, step) alone
+    (jax.random.fold_in(key(seed), step) in the JAX step).  The pair is
+    mixed by splitmix64's finalizer, so that every bit of the seed depends
+    on both: the CPU generator keeps only the low 32 bits."""
+    z = ((seed & 0xFFFFFFFF) << 32 | (step & 0xFFFFFFFF)) + 0x9E3779B97F4A7C15
+    z &= (1 << 64) - 1
+    z = (z ^ (z >> 30)) * 0xBF58476D1CE4E5B9 & (1 << 64) - 1
+    z = (z ^ (z >> 27)) * 0x94D049BB133111EB & (1 << 64) - 1
+    gen = torch.Generator(device=device)
+    gen.manual_seed(z ^ (z >> 31))
+    return gen
+
+
 def make_train_step(model: torch.nn.Module, loss_cfg: LossConfig, optimizer,
                     scheduler, grad_clip: float = 35.0,
-                    img_norm: dict | None = None):
+                    img_norm: dict | None = None, seed: int = 0):
     """A step(batch) -> loss dict (with loss_total) that updates the model
-    in place.
+    in place.  The forward runs in train mode with step_generator(seed,
+    the scheduler's step count) for DropPath.
 
     batch: the collated dict (data/loader.py layout): images (B, H, W, 3),
     uint8 when img_norm is given (normalized on the device), else
@@ -128,7 +181,13 @@ def make_train_step(model: torch.nn.Module, loss_cfg: LossConfig, optimizer,
         imgs = batch["images"]
         if img_norm is not None:
             imgs = device_normalize(imgs, batch["img_hw"], **img_norm)
-        outs = model(imgs)
+        was_training = model.training
+        model.train()
+        try:
+            outs = model(imgs, step_generator(seed, scheduler.last_epoch,
+                                              device))
+        finally:
+            model.train(was_training)
         losses = compute_losses(outs, batch["gt_polys"], batch["gt_labels"],
                                 batch["gt_valid"], batch["img_hw"], loss_cfg,
                                 stats=stats)

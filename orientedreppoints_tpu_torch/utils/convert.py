@@ -6,8 +6,12 @@ The torch modules use the flax tree's names, so a leaf path maps to a
 state_dict key by joining with dots and renaming the leaf:
 
   conv kernel (HWIO)            -> weight (OIHW)
-  conv bias                     -> bias
+  Dense kernel (in, out)        -> weight (out, in)
+  conv / Dense bias             -> bias
   GroupNorm scale / bias        -> weight / bias          (parent "gn")
+  LayerNorm scale / bias        -> weight / bias          (parents norm1,
+                                   norm2, norm, patch_norm, out_norm{s})
+  Swin relative_position_bias_table -> same name, same layout
   FrozenBN scale, bias          -> scale, bias            (parent "bn")
   FrozenBN mean, var            -> mean, var              (batch_stats)
   DCN (K, Cin, Cout) weights    -> same name, same layout
@@ -18,8 +22,13 @@ fails on any flax leaf left unused or any torch tensor left unfilled.
 
 from __future__ import annotations
 
+import re
+
 import numpy as np
 import torch
+
+# the parents of flax LayerNorm leaves in the Swin backbone
+_LAYER_NORM = re.compile(r"^(norm[12]?|patch_norm|out_norm\d+)$")
 
 
 def _flatten(tree: dict, prefix: tuple = ()):
@@ -33,13 +42,17 @@ def _flatten(tree: dict, prefix: tuple = ()):
 def _leaf(path: tuple, value: np.ndarray):
     parent, leaf = (path[-2] if len(path) > 1 else ""), path[-1]
     if leaf == "kernel":
+        if value.ndim == 2:  # Dense
+            return "weight", value.T
         if value.ndim != 4:
-            raise ValueError(f"{'/'.join(path)}: conv kernel must be HWIO")
+            raise ValueError(f"{'/'.join(path)}: kernel must be a Dense "
+                             "(in, out) or a conv HWIO")
         return "weight", value.transpose(3, 2, 0, 1)
-    if parent == "gn" and leaf in ("scale", "bias"):
+    if (parent == "gn" or _LAYER_NORM.match(parent)) and leaf in ("scale",
+                                                                   "bias"):
         return {"scale": "weight", "bias": "bias"}[leaf], value
     if leaf in ("bias", "scale", "mean", "var", "cls_dcn_weight",
-                "refine_dcn_weight"):
+                "refine_dcn_weight", "relative_position_bias_table"):
         return leaf, value
     raise ValueError(f"{'/'.join(path)}: no torch counterpart")
 

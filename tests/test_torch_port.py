@@ -1,6 +1,7 @@
 """The PyTorch port's boundaries: it runs without JAX, flax or cv2 (serving,
-a train step, TTA, soft-NMS, the evaluation path, and the training data
-path: train pipeline, loader and checkpoint); the
+a train step, TTA, soft-NMS, the evaluation path, the training data
+path: train pipeline, loader and checkpoint, and Swin serving and an
+AdamW step); the
 R-50 demo model's flax tree converts completely; CUDA-only entries raise
 without a GPU; CPU tensors never reach a kernel."""
 
@@ -145,6 +146,33 @@ NO_JAX_SCRIPT = textwrap.dedent("""
                 sorted({o["name"] for o in objs}))
         assert abs(eval_dota_task1(*args)[0] - 1.0) <= 1e-12
         assert eval_maoe(*args, ovthresh=0.7)[0] == 0.0
+    # Swin: serving through the max-pool FPN, and one AdamW step with
+    # DropPath firing
+    from orientedreppoints_tpu_torch.apis import build_trainer
+    from orientedreppoints_tpu_torch.host import load_config
+    swin_cfg = load_config("configs/dota/synth_swin_512.py")
+    swin_cfg["model"]["backbone"].update(embed_dim=16, depths=[2, 2, 2, 2],
+                                         num_heads=[1, 2, 2, 4])
+    swin_cfg["model"]["neck"]["out_channels"] = 32
+    swin_cfg["model"]["bbox_head"].update(feat_channels=32,
+                                          point_feat_channels=32)
+    swin_cfg["test_cfg"].update(score_thr=0.0, max_per_img=20,
+                                pre_nms_cap=64)
+    swin_cfg["tpu"].update(canvas_buckets=[(64, 64)], max_pos=16)
+    swin_cfg["data"]["test"]["pipeline"][1]["img_scale"] = (64, 64)
+    swin_pred = Predictor(swin_cfg, batch_size=2, compute_dtype="float32",
+                          device="cpu")
+    out = swin_pred([np.zeros((50, 64, 3), np.uint8)])
+    assert sum(len(a) for a in out[0]) > 0
+    opt, _, step = build_trainer(swin_pred.model, swin_cfg)
+    assert isinstance(opt, torch.optim.AdamW)
+    losses = step(dict(images=np.zeros((2, 64, 64, 3), np.uint8),
+                       gt_polys=np.stack([quad, quad]),
+                       gt_labels=np.int32([[3], [4]]),
+                       gt_valid=np.ones((2, 1), bool),
+                       img_hw=np.int32([[64, 64], [64, 48]])))
+    assert np.isfinite(float(losses["loss_total"]))
+    assert not swin_pred.model.training
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "flax", "cv2",
                                            "orientedreppoints_tpu"))

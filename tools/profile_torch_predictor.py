@@ -1,10 +1,13 @@
 #!/usr/bin/env python
 """Where the PyTorch port's serving time goes, on one NVIDIA GPU.
 
-    python tools/profile_torch_predictor.py [--batches 3] [--trace PATH]
+    python tools/profile_torch_predictor.py [--config CONFIG] \
+        [--batches 3] [--trace PATH]
 
-Runs the Predictor of chip_smoke.py (R-50 demo config, canvas 1344^2,
-bf16, batch 4, perturbed seeded weights, seeded 1024^2 images) and prints:
+Runs the Predictor of chip_smoke.py (the R-50 demo config unless --config
+names another, e.g. configs/dota/orientedreppoints_swin_tiny_demo.py;
+canvas 1344^2, bf16, batch 4, perturbed seeded weights, seeded 1024^2
+images) and prints:
   * stage times of one batch, each stage ended by a synchronize: prepare
     (host -> device, normalize, canvas), backbone, neck, head, decode;
   * a torch.profiler table of device time by kernel over --batches
@@ -45,8 +48,10 @@ def stage_times(pred, images):
         imgs, sfs = pred.prepare(images)
         t0 = mark("prepare_ms", t0)
         m = pred.model
-        x = imgs.permute(0, 3, 1, 2).to(m.dtype).contiguous(
-            memory_format=torch.channels_last)
+        x = imgs.to(m.dtype)
+        if m.backbone_type == "resnet":
+            x = x.permute(0, 3, 1, 2).contiguous(
+                memory_format=torch.channels_last)
         feats = m.backbone(x)
         t0 = mark("backbone_ms", t0)
         feats = m.neck(feats)
@@ -66,6 +71,8 @@ def stage_times(pred, images):
 
 def main():
     ap = argparse.ArgumentParser()
+    ap.add_argument("--config",
+                    default="configs/dota/orientedreppoints_r50_demo.py")
     ap.add_argument("--batches", type=int, default=3)
     ap.add_argument("--trace", help="write a chrome trace to this path")
     args = ap.parse_args()
@@ -79,12 +86,13 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
-    print("card:", card)
+    print("card:", card, "config:", args.config)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     rng = np.random.default_rng(chip_smoke.SEED)
-    pred = Predictor(chip_smoke.CONFIG,
-                     state_dict=chip_smoke.perturbed_weights(rng),
+    pred = Predictor(args.config,
+                     state_dict=chip_smoke.perturbed_weights(rng,
+                                                             args.config),
                      batch_size=chip_smoke.BATCH, compute_dtype="bfloat16",
                      device="cuda")
     images = [(rng.random((1024, 1024, 3)) * 255).astype(np.uint8)

@@ -1,13 +1,17 @@
 #!/usr/bin/env python
 """Where the PyTorch port's training step spends its time, on one NVIDIA GPU.
 
-    python tools/profile_torch_train.py [--steps 3] [--trace PATH]
+    python tools/profile_torch_train.py [--config CONFIG] [--steps 3] \
+        [--trace PATH]
 
-Builds chip_smoke.py's training setup (R-50 demo config, canvas 1344^2,
-bf16, batch 2, the config's SGD recipe, perturbed seeded weights, the
-seeded batch of 150 rotated gts per image) and prints:
+Builds chip_smoke.py's training setup (the R-50 demo config unless
+--config names another, e.g. configs/dota/orientedreppoints_swin_tiny_
+demo.py; canvas 1344^2, bf16, batch 2, the config's SGD or AdamW recipe,
+perturbed seeded weights, the seeded batch of 150 rotated gts per image)
+and prints:
   * stage times of one step, each stage ended by a synchronize: normalize,
-    forward, compute_losses, backward, and the optimizer (clip + SGD);
+    forward (in train mode, DropPath drawing), compute_losses, backward,
+    and the optimizer (clip + the config's SGD or AdamW);
   * a torch.profiler table of device time by kernel over --steps steps, the
     device-busy sum against the wall time of that window, and with --trace
     a chrome trace of that window.
@@ -29,12 +33,15 @@ ROOT = osp.dirname(osp.dirname(osp.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 
-def stage_times(model, loss_cfg, img_norm, batch):
+def stage_times(model, cfg, batch, seed):
+    from orientedreppoints_tpu_torch.apis import (build_img_norm,
+                                                  build_loss_config,
+                                                  build_trainer)
     from orientedreppoints_tpu_torch.core.loss_head import compute_losses
     from orientedreppoints_tpu_torch.parallel import train
 
     params = [p for p in model.parameters() if p.requires_grad]
-    opt, sched = train.build_optimizer(model, train.lr_schedule())
+    opt, sched, _ = build_trainer(model, cfg)
     t = {}
 
     def mark(name, t0):
@@ -45,12 +52,15 @@ def stage_times(model, loss_cfg, img_norm, batch):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     imgs = train.device_normalize(batch["images"], batch["img_hw"],
-                                  **img_norm)
+                                  **build_img_norm(cfg))
     t0 = mark("normalize_ms", t0)
-    outs = model(imgs)
+    model.train()
+    outs = model(imgs, train.step_generator(seed, 0, imgs.device))
+    model.eval()
     t0 = mark("forward_ms", t0)
     losses = compute_losses(outs, batch["gt_polys"], batch["gt_labels"],
-                            batch["gt_valid"], batch["img_hw"], loss_cfg)
+                            batch["gt_valid"], batch["img_hw"],
+                            build_loss_config(cfg))
     t0 = mark("losses_ms", t0)
     total = sum(v for k, v in losses.items() if k.startswith("loss"))
     opt.zero_grad(set_to_none=False)
@@ -65,6 +75,8 @@ def stage_times(model, loss_cfg, img_norm, batch):
 
 def main():
     ap = argparse.ArgumentParser()
+    ap.add_argument("--config",
+                    default="configs/dota/orientedreppoints_r50_demo.py")
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--trace", help="write a chrome trace to this path")
     args = ap.parse_args()
@@ -72,8 +84,6 @@ def main():
         sys.exit("needs a CUDA device")
     os.chdir(ROOT)
     import chip_smoke
-    from orientedreppoints_tpu_torch.apis import (build_img_norm,
-                                                  build_loss_config)
     from orientedreppoints_tpu_torch.host import load_config
     from orientedreppoints_tpu_torch.parallel.train import to_device
 
@@ -81,19 +91,18 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
-    print("card:", card)
+    print("card:", card, "config:", args.config)
     dev = torch.device("cuda")
     rng = np.random.default_rng(chip_smoke.SEED + 1)
-    sd = chip_smoke.perturbed_weights(rng)
-    cfg = load_config(chip_smoke.CONFIG)
+    sd = chip_smoke.perturbed_weights(rng, args.config)
+    cfg = load_config(args.config)
     batch = to_device(chip_smoke.train_batch(rng, cfg["tpu"]["max_gt"]), dev)
-    model, step = chip_smoke.build_trainer(sd, "bfloat16", dev)
+    model, step = chip_smoke.build_trainer(sd, "bfloat16", dev, args.config)
     for _ in range(2):
         step(batch)
     for _ in range(3):
         print("stages:", {k: round(v, 3) for k, v in stage_times(
-            model, build_loss_config(cfg), build_img_norm(cfg),
-            batch).items()})
+            model, cfg, batch, chip_smoke.SEED).items()})
 
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()

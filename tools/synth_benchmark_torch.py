@@ -4,7 +4,7 @@ and scored by the DOTA devkit's own workflow (counterpart of
 tools/synth_benchmark.py without TTA):
 
   render scenes -> ImgSplit tiles -> COCO-poly json -> [--train: the
-  config's train pipeline, loader and SGD step, a checkpoint every
+  config's train pipeline, loader and SGD or AdamW step, a checkpoint every
   --ckpt_interval epochs] -> DotaDataset + the test pipeline ->
   run_inference -> Task1 txt -> merge_by_poly (cross-tile polygon NMS) ->
   eval_dota_task1 + eval_maoe.
@@ -57,7 +57,8 @@ def parse_args(argv=None):
     p.add_argument("--subsize", type=int, default=512)
     p.add_argument("--gap", type=int, default=256)
     p.add_argument("--seed", type=int, default=0,
-                   help="scenes, initial weights and the loader's draws")
+                   help="scenes, initial weights, the loader's draws and the "
+                   "DropPath masks")
     p.add_argument("--epochs", type=int, help="override total_epochs")
     p.add_argument("--max_steps", type=int,
                    help="stop training after this many steps in all")
@@ -127,7 +128,8 @@ def train(args, cfg, device):
     loader = build_dataloader(dataset, cfg, seed=args.seed)
     iters_per_epoch = max(len(loader), 1)
     total_epochs = args.epochs or cfg["total_epochs"]
-    optimizer, scheduler, step = build_trainer(model, cfg, iters_per_epoch)
+    optimizer, scheduler, step = build_trainer(model, cfg, iters_per_epoch,
+                                               seed=args.seed)
     ckpt_dir = osp.join(args.work_dir, "ckpts")
     with open(args.config) as f:
         meta = dict(config=f.read(), classes=list(dataset.CLASSES))

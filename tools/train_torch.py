@@ -7,8 +7,8 @@
         [--max_iters N] [--validate [--val_max_images N]] [--device cuda]
 
 The config's train data (DotaDataset over .npy tiles, the train pipeline,
-the loader of its `tpu` section), its SGD recipe and LR schedule (epochs
-counted in the loader's batches), and a checkpoint
+the loader of its `tpu` section), its SGD or AdamW recipe and LR
+schedule (epochs counted in the loader's batches), and a checkpoint
 work_dir/ckpts/epoch_N.pt after every epoch.  --resume_from restores the
 model, optimizer, scheduler and step and goes on from the saved epoch;
 --load_from takes only the weights.  --validate scores the val split
@@ -42,7 +42,8 @@ def parse_args(argv=None):
                    help="a checkpoint file, or a directory: its latest")
     p.add_argument("--load_from", help="a checkpoint file: weights only")
     p.add_argument("--seed", type=int, default=0,
-                   help="initial weights and the loader's draws")
+                   help="initial weights, the loader's draws and the "
+                   "DropPath masks")
     p.add_argument("--total_epochs", type=int)
     p.add_argument("--max_iters", type=int,
                    help="stop after this many iterations in all")
@@ -90,7 +91,8 @@ def main(argv=None):
     total_epochs = args.total_epochs or cfg["total_epochs"]
     log.info("dataset: %d imgs, %d iters/epoch, device %s", len(dataset),
              iters_per_epoch, device)
-    optimizer, scheduler, step = build_trainer(model, cfg, iters_per_epoch)
+    optimizer, scheduler, step = build_trainer(model, cfg, iters_per_epoch,
+                                               seed=args.seed)
     if args.load_from:
         checkpoint.load_eval_variables(args.load_from, model)
         log.info("loaded weights from %s", args.load_from)
