@@ -1,6 +1,6 @@
 """Drive the PyTorch port's serving path, training step, TTA test path,
-evaluation path, Swin-T serving and training, and the synthetic
-benchmark's training on one NVIDIA GPU.
+evaluation path (easy and hard scenes, HRSC scoring), Swin-T serving and
+training, and the synthetic benchmark's training on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -64,6 +64,15 @@ Phases, each printing one line or more (a failed phase exits non-zero):
      Task1 mAP (area) and mAOE (IoU 0.7) with each stage's seconds (random
      weights score near 0; not gated); the scene labels as detections
      score mAP 1 and mAOE 0; apis.evaluate_results gives a finite mAP;
+  8b. hard_eval: the hard benchmark (tools/synth_benchmark.py --hard) on
+     4 val scenes (16 tiles) with configs/dota/synth_r18_512_hard.py's test
+     pipeline and seeded weights: run_inference counted, and through the
+     plain versions Task1 file for file; merge, Task1 mAP and mAOE; then
+     run_inference_tta with TTA_AUGS counted (each aug's candidates, and
+     its dets when it runs alone) and one pass timed stage by stage
+     (resize, forward + decode of each aug, merge, NMS, the rest); then 2
+     ship-only scenes (--hrsc) scored by eval_hrsc2016, their labels as
+     detections scoring 1;
   9. train: the config's SGD step (R-50, canvas 1344^2, bf16, batch 2,
      frozen_stages 1, max_gt 512, max_pos 1024) on a seeded batch of 150
      rotated gts per image, seeded random weights with the point convs
@@ -97,9 +106,10 @@ Phases, each printing one line or more (a failed phase exits non-zero):
      bit for bit; one more step with each training kernel's entry held
      against its plain version on the same inputs, and each kernel timed
      at those inputs.
-Each counted run (slice, tta, iou_path, swin, eval, train, swin_train,
-synth_train) sets the launch counts to 0 just before and reads them just
-after; it fails if a kernel of its path was not launched.  Then one JSON
+Each counted run (slice, tta, iou_path, swin, eval, hard_eval's two,
+train, swin_train, synth_train) sets the launch counts to 0 just before
+and reads them just after; it fails if a kernel of its path was not
+launched.  Then one JSON
 line with every kernel's numbers, the card's line from nvidia-smi, and
 {"ok": true, "device": {...}} last.
 
@@ -232,6 +242,12 @@ EVAL_BATCH = 4
 # max_per_img (512) dets, ~2,000 a scene and class reach the numpy merge,
 # and the phase stays within its ~90 s
 EVAL_BIAS = (-5.0, -2.0)
+# phase hard_eval: tools/synth_benchmark.py --hard's val scenes (the first
+# 4 of 12; 16 tiles) with configs/dota/synth_r18_512_hard.py, and the
+# first 2 of --hrsc's ship-only val scenes
+HARD_CONFIG = "configs/dota/synth_r18_512_hard.py"
+HARD_SCENES = 4
+HRSC_SCENES = 2
 
 
 # phase synth_train: tools/synth_benchmark_torch.py --train's path on 8 of
@@ -1440,6 +1456,232 @@ def phase_eval(dev, ops_mod, card):
     return ok, launches
 
 
+
+def hard_val_set(wd, n, hard, specs=None):
+    """n val scenes of EVAL_SCENE_SIZE^2 (hard, or with specs' classes)
+    rendered under wd, cut into EVAL_SUBSIZE^2 tiles, and the dataset of
+    HARD_CONFIG's test pipeline over them -> (scene names, dataset,
+    config)."""
+    from orientedreppoints_tpu_torch import apis
+    from orientedreppoints_tpu_torch.data.synth import generate_synth_dota
+    from orientedreppoints_tpu_torch.devkit.dota2coco import dota2coco_train
+    from orientedreppoints_tpu_torch.devkit.img_split import ImgSplit
+    from orientedreppoints_tpu_torch.host import load_config
+
+    names = generate_synth_dota(os.path.join(wd, "val_raw"), n,
+                                size=EVAL_SCENE_SIZE, n_objects=EVAL_OBJECTS,
+                                seed=EVAL_SEED, prefix="V", hard=hard,
+                                specs=specs)
+    ImgSplit(os.path.join(wd, "val_raw"), os.path.join(wd, "val_split"),
+             gap=EVAL_GAP, subsize=EVAL_SUBSIZE).splitdata()
+    cfg = load_config(HARD_CONFIG)
+    cfg["data"]["test"].update(
+        ann_file=dota2coco_train(os.path.join(wd, "val_split"),
+                                 os.path.join(wd, "test.json")),
+        img_prefix=os.path.join(wd, "val_split", "images"), test_mode=True)
+    return names, apis.build_dataset(cfg["data"]["test"]), cfg
+
+
+@contextlib.contextmanager
+def tta_stage_clock(model, stages):
+    """Add to stages each TTA stage's seconds, the card synchronized at
+    every boundary: resize (the scale canvases), forward_decode (the model
+    and decode_no_nms of each aug, in call order), merge (unflip, unscale,
+    concatenate) and nms (multiclass_rnms)."""
+    from orientedreppoints_tpu_torch import apis
+    from orientedreppoints_tpu_torch.models import detector
+
+    def now():
+        torch.cuda.synchronize()
+        return time.perf_counter()
+
+    mark = {}
+
+    def timed(fn, key):
+        def run(*args, **kwargs):
+            t0 = now()
+            out = fn(*args, **kwargs)
+            stages[key] = stages.get(key, 0.0) + now() - t0
+            return out
+        return run
+
+    def decode(*args, **kwargs):
+        out = decode_fn(*args, **kwargs)
+        stages["forward_decode"].append(now() - mark["forward"])
+        return out
+
+    def merge(*args, **kwargs):
+        mark["merge"] = now()
+        return merge_fn(*args, **kwargs)
+
+    def rnms(*args, **kwargs):
+        t0 = now()
+        stages["merge"] = stages.get("merge", 0.0) + t0 - mark["merge"]
+        out = rnms_fn(*args, **kwargs)
+        stages["nms"] = stages.get("nms", 0.0) + now() - t0
+        return out
+
+    decode_fn, merge_fn = apis.decode_no_nms, apis.merge_aug_and_nms
+    rnms_fn = detector.multiclass_rnms
+    stages.setdefault("forward_decode", [])
+    hook = model.register_forward_pre_hook(
+        lambda *_: mark.__setitem__("forward", now()))
+    swaps = [(apis, "resize_linear", timed(apis.resize_linear, "resize")),
+             (apis, "decode_no_nms", decode),
+             (apis, "merge_aug_and_nms", merge),
+             (detector, "multiclass_rnms", rnms)]
+    try:
+        with swapped(swaps):
+            yield
+    finally:
+        hook.remove()
+
+
+def phase_hard_eval(dev, ops_mod, card):
+    """The hard benchmark's evaluation and TTA paths and the HRSC scorer:
+    HARD_SCENES hard val scenes tiled and loaded through HARD_CONFIG's
+    test pipeline; run_inference with seeded R-18 weights (counted), the
+    same tiles through the plain versions (Task1 files byte for byte),
+    merge and Task1 mAP / mAOE; run_inference_tta with TTA_AUGS (counted),
+    each aug's candidates and its dets alone, and one timed pass split
+    into its stages; then HRSC_SCENES ship-only scenes scored by
+    eval_hrsc2016, with the scene labels as detections (AP 1)."""
+    from orientedreppoints_tpu_torch import apis
+    from orientedreppoints_tpu_torch.data.synth import (
+        SYNTH_CLASS_SPECS, SYNTH_HARD_CLASS_SPECS)
+    from orientedreppoints_tpu_torch.devkit import evaluation, result_merge
+    from orientedreppoints_tpu_torch.devkit.dota_utils import (
+        DOTA10_CLASSES, parse_dota_poly)
+    from orientedreppoints_tpu_torch.devkit.hrsc import eval_hrsc2016
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as wd:
+        def path(*p):
+            return os.path.join(wd, *p)
+
+        names, ds, cfg = hard_val_set(path("hard"), HARD_SCENES, True)
+        model, _ = apis.init_detector(
+            cfg, state_dict=perturbed_weights(np.random.default_rng(SEED + 6),
+                                              HARD_CONFIG, EVAL_BIAS),
+            compute_dtype=cfg["tpu"]["compute_dtype"], device=dev)
+        tc = cfg["test_cfg"]
+        canvas = tuple(cfg["tpu"]["canvas_buckets"][-1])
+        kw = dict(canvas=canvas, batch_size=EVAL_BATCH,
+                  num_fg=len(ds.CLASSES))
+        apis.run_inference(model, ds, tc, max_images=EVAL_BATCH, **kw)
+        ops_mod.reset_launch_counts()
+        results = apis.run_inference(model, ds, tc, **kw)
+        torch.cuda.synchronize()
+        launches = ops_mod.launch_counts()
+        rects = []
+        with plain_inference(rects):
+            results_plain = apis.run_inference(model, ds, tc, **kw)
+        same = same_results(results, results_plain)
+        result_merge.write_task1_results(results, DOTA10_CLASSES,
+                                         path("task1_raw"))
+        result_merge.write_task1_results(results_plain, DOTA10_CLASSES,
+                                         path("task1_plain"))
+        task1_equal = all(
+            open(path("task1_raw", f), "rb").read()
+            == open(path("task1_plain", f), "rb").read()
+            for f in os.listdir(path("task1_raw")))
+        result_merge.merge_by_poly(path("task1_raw"), path("task1_merged"))
+        detpath = path("task1_merged", "Task1_{:s}.txt")
+        annopath = path("hard", "val_raw", "labelTxt", "{:s}.txt")
+        classnames = list(SYNTH_HARD_CLASS_SPECS)
+        mAP, _ = evaluation.eval_dota_task1(detpath, annopath, names,
+                                            classnames=classnames,
+                                            use_07_metric=False)
+        mAOE, _ = evaluation.eval_maoe(detpath, annopath, names,
+                                       classnames=classnames, ovthresh=0.7)
+
+        # TTA: the counted run with each aug's candidates, then each aug
+        # alone for its dets, then one pass timed stage by stage
+        tta_kw = dict(canvas=canvas, batch_size=TTA_BATCH,
+                      num_fg=len(ds.CLASSES))
+        apis.run_inference_tta(model, ds, tc, TTA_AUGS, max_images=TTA_BATCH,
+                               **tta_kw)
+        record = []
+        ops_mod.reset_launch_counts()
+        with recording(apis, "decode_no_nms", record):
+            results_tta = apis.run_inference_tta(model, ds, tc, TTA_AUGS,
+                                                 **tta_kw)
+        torch.cuda.synchronize()
+        launches_tta = ops_mod.launch_counts()
+        order = [ai for r in dict.fromkeys(r for r, _ in TTA_AUGS)
+                 for ai, (rr, _) in enumerate(TTA_AUGS) if rr == r]
+        cands = [0] * len(TTA_AUGS)
+        for i, (_, _, (_, scores)) in enumerate(record):
+            cands[order[i % len(order)]] += int(
+                (scores > tc["score_thr"]).sum())
+        for ai, aug in enumerate(TTA_AUGS):
+            alone = apis.run_inference_tta(model, ds, tc, [aug], **tta_kw)
+            say("hard_eval_tta_aug", scale=aug[0], flip=aug[1],
+                candidates=cands[ai],
+                dets=sum(len(a) for v in alone.values() for a in v))
+        stages = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with tta_stage_clock(model, stages):
+            apis.run_inference_tta(model, ds, tc, TTA_AUGS, **tta_kw)
+        total = time.perf_counter() - t0
+        per_aug = [0.0] * len(TTA_AUGS)
+        for i, sec in enumerate(stages["forward_decode"]):
+            per_aug[order[i % len(order)]] += sec
+        split = dict(
+            forward_decode_ms={f"{r}{'_flip' if f else ''}": per_aug[ai] * 1e3
+                               for ai, (r, f) in enumerate(TTA_AUGS)},
+            resize_ms=stages.get("resize", 0.0) * 1e3,
+            merge_ms=stages.get("merge", 0.0) * 1e3,
+            nms_ms=stages.get("nms", 0.0) * 1e3, total_ms=total * 1e3)
+        split["other_ms"] = split["total_ms"] - sum(
+            split["forward_decode_ms"].values()) - sum(
+            split[k] for k in ("resize_ms", "merge_ms", "nms_ms"))
+        tta_dets = sum(len(a) for v in results_tta.values() for a in v)
+        finite = all(np.isfinite(a).all() for r in (results, results_tta)
+                     for v in r.values() for a in v)
+
+        # HRSC: ship-only scenes, their dets and their labels scored by the
+        # VOC-07 HRSC evaluator
+        hnames, hds, _ = hard_val_set(path("hrsc"), HRSC_SCENES, False,
+                                      {"ship": SYNTH_CLASS_SPECS["ship"]})
+        hres = apis.run_inference(model, hds, tc, **kw)
+        result_merge.write_task1_results(hres, DOTA10_CLASSES,
+                                         path("hrsc_raw"))
+        result_merge.merge_by_poly(path("hrsc_raw"), path("hrsc_merged"))
+        hanno = path("hrsc", "val_raw", "labelTxt", "{:s}.txt")
+        hrsc_ap = float(eval_hrsc2016(path("hrsc_merged", "Task1_{:s}.txt"),
+                                      hanno, hnames))
+        oracle = {n: [np.array([list(o["poly"]) + [1.0]
+                                for o in parse_dota_poly(hanno.format(n))
+                                if o["name"] == c], np.float64).reshape(-1, 9)
+                      for c in DOTA10_CLASSES] for n in hnames}
+        result_merge.write_task1_results(oracle, DOTA10_CLASSES,
+                                         path("oracle"))
+        hrsc_oracle = float(eval_hrsc2016(path("oracle", "Task1_{:s}.txt"),
+                                          hanno, hnames))
+        hrsc_gts = sum(len(parse_dota_poly(hanno.format(n))) for n in hnames)
+
+    secs = time.perf_counter() - t_phase
+    ok = (all(launches[k] > 0 for k in SERVING_KERNELS)
+          and all(launches_tta[k] > 0 for k in TTA_KERNELS)
+          and same and task1_equal and len(rects) == launches["min_area_rect"]
+          and all(r["ok"] for r in rects) and finite and tta_dets > 0
+          and min(cands) > 0 and bool(np.isfinite([mAP, mAOE, hrsc_ap]).all())
+          and abs(hrsc_oracle - 1.0) <= 1e-12)
+    say("hard_eval_tta_split", config=HARD_CONFIG, augs=TTA_AUGS,
+        batch=TTA_BATCH, tiles=len(ds), **split, card=card)
+    say("hard_eval", config=HARD_CONFIG, scenes=len(names), tiles=len(ds),
+        launches=launches, tta_launches=launches_tta,
+        plain_equal_det_for_det=same, task1_byte_equal=task1_equal,
+        min_area_rect_calls_checked=len(rects),
+        dets_tiles=sum(len(a) for v in results.values() for a in v),
+        mAP=mAP, mAOE_deg=mAOE, tta_dets=tta_dets, finite=finite,
+        hrsc_scenes=len(hnames), hrsc_gts=hrsc_gts, hrsc_ap07=hrsc_ap,
+        hrsc_oracle_ap07=hrsc_oracle, phase_s=secs, card=card, ok=ok)
+    return ok, launches, launches_tta
+
+
 def perturbed_weights(rng, config=CONFIG, bias_range=(-2.0, 1.0)):
     """Seeded random weights of config with cls_out's bias drawn from
     bias_range (above score_thr) and the point convs scaled up, so that
@@ -2209,6 +2451,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     ok_eval, launches_eval = phase_eval(dev, ops_mod, card)
     torch.cuda.empty_cache()
+    ok_hard, launches_hard, launches_hard_tta = phase_hard_eval(dev, ops_mod,
+                                                                card)
+    torch.cuda.empty_cache()
 
     from orientedreppoints_tpu_torch.host import load_config
     from orientedreppoints_tpu_torch.parallel.train import to_device
@@ -2235,13 +2480,15 @@ def main() -> int:
     # serving and training); the single-image over-mask is the TTA run's
     # over-mask count
     runs = (launches, launches_train, launches_tta, launches_iou,
-            launches_eval, launches_synth, launches_swin,
-            launches_swin_train)
+            launches_eval, launches_hard, launches_hard_tta, launches_synth,
+            launches_swin, launches_swin_train)
+    single = (launches_tta, launches_hard_tta)  # the single-image entry
     counts = {name: sum(r[name] for r in runs) for name in ops_mod.KERNELS}
     counts["quad_over_mask"] = sum(
         r["quad_over_mask"] for r in runs
-        if r is not launches_tta and r is not launches_iou)
-    counts["quad_over_mask_single"] = launches_tta["quad_over_mask"]
+        if not any(r is x for x in single + (launches_iou,)))
+    counts["quad_over_mask_single"] = sum(r["quad_over_mask"]
+                                          for r in single)
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     print(json.dumps({"kernels": [
@@ -2252,7 +2499,8 @@ def main() -> int:
     print(card)
     if not (all(r["ok"] for r in kernels.values()) and ok_entries
             and ok_host and ok_slice and ok_decode and ok_tta and ok_tta_check
-            and ok_iou and ok_eval and ok_train and ok_check and ok_synth
+            and ok_iou and ok_eval and ok_hard and ok_train and ok_check
+            and ok_synth
             and ok_swin and ok_swin_decode and ok_swin_train
             and ok_swin_check):
         print("chip_smoke: a phase failed", file=sys.stderr)

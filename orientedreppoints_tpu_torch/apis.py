@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from .core.loss_head import LossConfig
-from .data.dota import DotaDataset
+from .data.dota import DotaDataset, HrscDataset
 from .data.loader import DataLoader
 from .data.pipelines import build_pipeline
 from .devkit.evaluation import _hbb_iou_prefilter, voc_ap
@@ -100,20 +100,22 @@ def init_detector(config, state_dict: dict | None = None,
 
 
 def build_dataset(dcfg, device_normalize: bool = False) -> DotaDataset:
-    """A data config (type, ann_file, img_prefix, pipeline, test_mode) ->
-    the dataset with its pipeline built.  device_normalize (pass
-    build_img_norm(cfg) is not None) sets Normalize(device=True), so the
-    uint8 image reaches the train step, which normalizes on the card."""
-    if dcfg["type"] != "DotaDataset":
+    """A data config (type DotaDataset or HrscDataset, ann_file,
+    img_prefix, pipeline, test_mode) -> the dataset with its pipeline
+    built.  device_normalize (pass build_img_norm(cfg) is not None) sets
+    Normalize(device=True), so the uint8 image reaches the train step,
+    which normalizes on the card."""
+    types = {"DotaDataset": DotaDataset, "HrscDataset": HrscDataset}
+    if dcfg["type"] not in types:
         raise NotImplementedError(f"dataset {dcfg['type']} is not ported")
     steps = dcfg["pipeline"]
     if device_normalize:
         steps = [dict(s, device=True) if s.get("type") == "Normalize" else s
                  for s in steps]
-    return DotaDataset(ann_file=dcfg["ann_file"],
-                       img_prefix=dcfg.get("img_prefix", ""),
-                       pipeline=build_pipeline(steps),
-                       test_mode=dcfg.get("test_mode", False))
+    return types[dcfg["type"]](ann_file=dcfg["ann_file"],
+                               img_prefix=dcfg.get("img_prefix", ""),
+                               pipeline=build_pipeline(steps),
+                               test_mode=dcfg.get("test_mode", False))
 
 
 def build_dataloader(dataset, cfg, batch_size: int | None = None,

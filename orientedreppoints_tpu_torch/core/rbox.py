@@ -1,11 +1,41 @@
-"""Polygon -> rotated box conversion on the host (numpy; counterpart of
-core/rbox.py's poly2rbox_v3, after DOTA_devkit/dota_poly2rbox.py)."""
+"""Rotated box <-> polygon conversions on the host (numpy; counterpart of
+core/rbox.py's rbox2poly with its best-begin-point order, and poly2rbox_v3
+after DOTA_devkit/dota_poly2rbox.py)."""
 
 from __future__ import annotations
 
 import numpy as np
 
 PI = np.pi
+
+
+def rbox2poly(rboxes: np.ndarray) -> np.ndarray:
+    """(n, 5) [cx, cy, w, h, angle] -> (n, 8) float32 corner polygons:
+    tl, tr, br, bl of the box rotated by angle (radians), in float64, then
+    cast and put in best-begin-point order."""
+    rboxes = np.asarray(rboxes, dtype=np.float64).reshape(-1, 5)
+    cx, cy, w, h, ang = rboxes.T
+    dx, dy = w / 2, h / 2
+    local_x = np.stack([-dx, dx, dx, -dx], axis=1)
+    local_y = np.stack([-dy, -dy, dy, dy], axis=1)
+    cos, sin = np.cos(ang)[:, None], np.sin(ang)[:, None]
+    gx = cos * local_x - sin * local_y + cx[:, None]
+    gy = sin * local_x + cos * local_y + cy[:, None]
+    polys = np.stack([gx, gy], axis=2).reshape(-1, 8).astype(np.float32)
+    return get_best_begin_point(polys)
+
+
+def get_best_begin_point(polys: np.ndarray) -> np.ndarray:
+    """Each polygon cyclically shifted so that its corners lie nearest, as
+    a sum of distances, to its axis-aligned box's corners (xmin, ymin),
+    (xmax, ymin), (xmax, ymax), (xmin, ymax); the first best shift wins."""
+    p = np.asarray(polys, dtype=np.float32).reshape(-1, 4, 2)
+    lo, hi = p.min(axis=1), p.max(axis=1)
+    ref = np.stack([lo, np.stack([hi[:, 0], lo[:, 1]], 1), hi,
+                    np.stack([lo[:, 0], hi[:, 1]], 1)], axis=1)
+    shifts = np.stack([np.roll(p, -k, axis=1) for k in range(4)], axis=1)
+    dists = np.linalg.norm(shifts - ref[:, None], axis=3).sum(axis=2)
+    return shifts[np.arange(len(p)), dists.argmin(axis=1)].reshape(-1, 8)
 
 
 def poly2rbox_v3(polys: np.ndarray) -> np.ndarray:

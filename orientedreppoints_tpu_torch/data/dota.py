@@ -1,5 +1,6 @@
 """DOTA dataset over a COCO-poly json (counterpart of data/dota.py):
-the 15 DOTA classes in the reference order (mmdet/datasets/dota.py:8-12),
+the 15 DOTA classes in the reference order (mmdet/datasets/dota.py:8-12)
+(HrscDataset: the one class "ship"),
 8-coordinate polygon annotations with 1-based labels and their difficult
 flags, iscrowd skipped, images without annotations dropped outside
 test_mode.  prepare(idx, rng) runs a train pipeline's random draws from
@@ -12,6 +13,8 @@ import json
 import numpy as np
 
 from ..devkit.dota_utils import DOTA10_CLASSES as DOTA_CLASSES
+
+HRSC_CLASSES = ("ship",)
 
 
 class DotaDataset:
@@ -76,3 +79,7 @@ class DotaDataset:
 
     def __getitem__(self, idx):
         return self.prepare(idx)
+
+
+class HrscDataset(DotaDataset):
+    CLASSES = HRSC_CLASSES

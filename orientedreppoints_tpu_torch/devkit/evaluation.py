@@ -8,7 +8,9 @@
   * mAOE (mAOE_evaluation.py:48-171): for every detection whose best gt
     IoU exceeds the threshold, |theta_det - theta_gt| * 57.32 degrees in
     the square-aware v3 angle convention, averaged per class, then over
-    classes.
+    classes;
+  * HRSC2016 (hrsc2016_evaluation.py:87-269): the Task1 VOC AP of the one
+    class "ship", with the VOC-07 11-point metric by default.
 """
 
 from __future__ import annotations
@@ -216,6 +218,15 @@ def eval_maoe(detpath: str, annopath: str, imagesetfile_or_names,
         return maoe, per_class
     maoe_mod90 = float(np.mean(list(per_class_mod90.values())))
     return maoe, per_class, maoe_mod90, per_class_mod90
+
+
+def eval_hrsc2016_map(detpath: str, annopath: str, imagesetfile_or_names,
+                      ovthresh: float = 0.5, use_07_metric: bool = True):
+    """HRSC2016 ship AP (hrsc2016_evaluation.py:87-269)."""
+    names = _imagenames(imagesetfile_or_names)
+    _, _, ap = voc_eval_poly(detpath, annopath, names, "ship", ovthresh,
+                             use_07_metric)
+    return ap
 
 
 def _imagenames(src):

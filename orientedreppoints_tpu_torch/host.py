@@ -9,6 +9,8 @@ Counterparts of:
   * the TTA scale canvases of ``apis.py::run_inference_tta`` — ``ceil32``
     and ``cv2.resize(canvas, (w, h), interpolation=cv2.INTER_LINEAR)`` on a
     float canvas, as ``resize_linear`` on the device;
+  * cv2.resize's INTER_CUBIC on a float32 image (the synthetic scenes'
+    background and the Swin bias-table resize) — ``resize_cubic``, numpy;
   * ``core/rbox.py::rbbox2result`` — split dets into per-class arrays.
 """
 
@@ -122,6 +124,51 @@ def resize_uint8(img: torch.Tensor, size: tuple[int, int]) -> torch.Tensor:
     y = (((x[r0] >> 4) * b0[:, None, None]) >> 16) + \
         (((x[r1] >> 4) * b1[:, None, None]) >> 16)
     return ((y + 2) >> 2).clamp(0, 255).to(torch.uint8)
+
+
+
+def _cubic_taps(src: int, dst: int):
+    """cv2.resize INTER_CUBIC's taps along one axis, src -> dst samples:
+    half-pixel source coordinates in float32, A = -0.75, the last weight
+    as 1 minus the other three, and taps off the edge clamped to the
+    border sample.  Returns (indices (dst, 4), weights (dst, 4) f32)."""
+    scale = src / dst
+    f = ((np.arange(dst) + 0.5) * scale - 0.5).astype(np.float32)
+    s = np.floor(f).astype(np.int64)
+    x = f - s.astype(np.float32)
+    a = np.float32(-0.75)
+    x1, y = x + np.float32(1), np.float32(1) - x
+    c0 = ((a * x1 - 5 * a) * x1 + 8 * a) * x1 - 4 * a
+    c1 = ((a + 2) * x - (a + 3)) * x * x + 1
+    c2 = ((a + 2) * y - (a + 3)) * y * y + 1
+    c3 = np.float32(1) - c0 - c1 - c2
+    idx = np.clip(s[:, None] + np.arange(-1, 3), 0, src - 1)
+    return idx, np.stack([c0, c1, c2, c3], -1).astype(np.float32)
+
+
+def resize_cubic(img: np.ndarray, size: tuple[int, int]) -> np.ndarray:
+    """(H, W, C) float32 -> (h, w, C) float32, as cv2.resize(img, (w, h),
+    interpolation=INTER_CUBIC) computes it in OpenCV's own loops, bit for
+    bit: the horizontal pass sums the four taps in order; the vertical
+    pass runs 4-lane vectors over the first 4 * floor(w * C / 4) values of
+    each row, summing the taps from the last to the first, and a scalar
+    loop over the rest, summing them in order.  (cv2 hands 1-, 3- and
+    4-channel float resizes to IPP where it has it, which rounds its
+    weights otherwise: ~1e-6 of a value.)"""
+    h, w = size
+    img = np.asarray(img, np.float32)
+    ix, wx = _cubic_taps(img.shape[1], w)
+    iy, wy = _cubic_taps(img.shape[0], h)
+    rows = img[:, ix[:, 0]] * wx[None, :, 0, None]
+    for j in range(1, 4):
+        rows = rows + img[:, ix[:, j]] * wx[None, :, j, None]
+    taps = [rows[iy[:, j]] * wy[:, j, None, None] for j in range(4)]
+    fwd = ((taps[0] + taps[1]) + taps[2]) + taps[3]
+    rev = ((taps[3] + taps[2]) + taps[1]) + taps[0]
+    flat = fwd.reshape(h, -1)
+    n_vec = flat.shape[1] // 4 * 4
+    flat[:, :n_vec] = rev.reshape(h, -1)[:, :n_vec]
+    return flat.reshape(fwd.shape)
 
 
 class Normalize:

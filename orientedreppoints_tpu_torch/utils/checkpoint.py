@@ -11,8 +11,8 @@ tensor, or an optimizer of other parameter groups, raises.  Reading the
 JAX package's orbax checkpoints is not ported.
 
 Also the official-Swin converter (counterpart of convert_swin_tiny and
-load_pretrained_swin), with the bias-table resize's cv2 bicubic rebuilt
-in numpy.
+load_pretrained_swin), with the bias-table resize through host.resize_cubic
+(cv2's bicubic in numpy).
 """
 
 from __future__ import annotations
@@ -23,6 +23,8 @@ import re
 
 import numpy as np
 import torch
+
+from ..host import resize_cubic
 
 _NAME = re.compile(r"^epoch_(\d+)\.pt$")
 KEYS = ("model", "optimizer", "scheduler", "step", "meta")
@@ -88,48 +90,6 @@ def load_eval_variables(path: str, model) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def _cubic_taps(src: int, dst: int):
-    """cv2.resize INTER_CUBIC's taps along one axis, src -> dst samples:
-    half-pixel source coordinates in float32, A = -0.75, the last weight
-    as 1 minus the other three, and taps off the edge clamped to the
-    border sample.  Returns (indices (dst, 4), weights (dst, 4) f32)."""
-    scale = src / dst
-    f = ((np.arange(dst) + 0.5) * scale - 0.5).astype(np.float32)
-    s = np.floor(f).astype(np.int64)
-    x = f - s.astype(np.float32)
-    a = np.float32(-0.75)
-    x1, y = x + np.float32(1), np.float32(1) - x
-    c0 = ((a * x1 - 5 * a) * x1 + 8 * a) * x1 - 4 * a
-    c1 = ((a + 2) * x - (a + 3)) * x * x + 1
-    c2 = ((a + 2) * y - (a + 3)) * y * y + 1
-    c3 = np.float32(1) - c0 - c1 - c2
-    idx = np.clip(s[:, None] + np.arange(-1, 3), 0, src - 1)
-    return idx, np.stack([c0, c1, c2, c3], -1).astype(np.float32)
-
-
-def _resize_cubic(img: np.ndarray, out: int) -> np.ndarray:
-    """cv2.resize(img, (out, out), interpolation=INTER_CUBIC) of a float32
-    (S, S, C) grid, in OpenCV's own order of float32 operations: the
-    horizontal pass sums the four taps in order; the vertical pass runs
-    4-lane vectors over the first 4 * floor(out * C / 4) values of each
-    row, summing the taps from the last to the first, and a scalar loop
-    over the rest, summing them in order.  (cv2 hands 1-, 3- and
-    4-channel float resizes to IPP where it has it, which rounds its
-    weights otherwise: ~1e-6 of a value.)"""
-    ix, wx = _cubic_taps(img.shape[1], out)
-    iy, wy = _cubic_taps(img.shape[0], out)
-    rows = img[:, ix[:, 0]] * wx[None, :, 0, None]
-    for j in range(1, 4):
-        rows = rows + img[:, ix[:, j]] * wx[None, :, j, None]
-    taps = [rows[iy[:, j]] * wy[:, j, None, None] for j in range(4)]
-    fwd = ((taps[0] + taps[1]) + taps[2]) + taps[3]
-    rev = ((taps[3] + taps[2]) + taps[1]) + taps[0]
-    flat = fwd.reshape(out, -1)
-    n_vec = flat.shape[1] // 4 * 4
-    flat[:, :n_vec] = rev.reshape(out, -1)[:, :n_vec]
-    return flat.reshape(fwd.shape)
-
-
 def interp_bias_table(table: np.ndarray, dst_len: int) -> np.ndarray:
     """A relative-position bias table (L1, nH) resized to (L2, nH) by a
     bicubic resize of its sqrt(L) x sqrt(L) grid, as the Swin-aware
@@ -139,7 +99,7 @@ def interp_bias_table(table: np.ndarray, dst_len: int) -> np.ndarray:
         return table
     s1, s2 = int(np.sqrt(l1)), int(np.sqrt(dst_len))
     grid = table.reshape(s1, s1, nh).astype(np.float32)
-    return _resize_cubic(grid, s2).reshape(s2 * s2, nh)
+    return resize_cubic(grid, (s2, s2)).reshape(s2 * s2, nh)
 
 
 def convert_swin_tiny(state_dict: dict, window_size: int = 7,

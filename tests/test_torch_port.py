@@ -1,7 +1,8 @@
 """The PyTorch port's boundaries: it runs without JAX, flax or cv2 (serving,
 a train step, TTA, soft-NMS, the evaluation path, the training data
-path: train pipeline, loader and checkpoint, and Swin serving and an
-AdamW step); the
+path: train pipeline, loader and checkpoint, Swin serving and an AdamW
+step, the hard and ship-only scenes, the HRSC labels, dataset and
+evaluators, and the benchmark tool's modes); the
 R-50 demo model's flax tree converts completely; CUDA-only entries raise
 without a GPU; CPU tensors never reach a kernel."""
 
@@ -173,6 +174,53 @@ NO_JAX_SCRIPT = textwrap.dedent("""
                        img_hw=np.int32([[64, 64], [64, 48]])))
     assert np.isfinite(float(losses["loss_total"]))
     assert not swin_pred.model.training
+    # the hard and ship-only scenes (cv2's drawing rebuilt), the HRSC
+    # labels, dataset and evaluators, and the benchmark tool's modes
+    import importlib.util
+    from orientedreppoints_tpu_torch.core.rbox import rbox2poly
+    from orientedreppoints_tpu_torch.data.dota import HrscDataset
+    from orientedreppoints_tpu_torch.data.synth import (HARD_RENDER_KWARGS,
+                                                        SYNTH_CLASS_SPECS)
+    from orientedreppoints_tpu_torch.devkit.evaluation import (
+        eval_hrsc2016_map)
+    from orientedreppoints_tpu_torch.devkit.hrsc import (eval_hrsc2016,
+                                                         generate_txt_labels)
+    with tempfile.TemporaryDirectory() as wd:
+        j = lambda *p: os.path.join(wd, *p)
+        names = generate_synth_dota(j("hard"), 1, size=128, n_objects=6,
+                                    seed=4, hard=True)
+        assert np.load(j("hard", "images", names[0] + ".npy")).shape == (
+            128, 128, 3)
+        names = generate_synth_dota(j("ship"), 1, size=128, n_objects=4,
+                                    seed=4, specs={"ship": SYNTH_CLASS_SPECS[
+                                        "ship"]})
+        os.makedirs(j("hrsc", "AllImages"))
+        os.makedirs(j("hrsc", "Annotations"))
+        open(j("hrsc", "AllImages", "a.bmp"), "w").close()
+        with open(j("hrsc", "Annotations", "a.xml"), "w") as f:
+            f.write("<HRSC_Image><HRSC_Objects><HRSC_Object><mbox_cx>50"
+                    "</mbox_cx><mbox_cy>40</mbox_cy><mbox_w>60</mbox_w>"
+                    "<mbox_h>20</mbox_h><mbox_ang>0.3</mbox_ang>"
+                    "</HRSC_Object></HRSC_Objects></HRSC_Image>")
+        generate_txt_labels(j("hrsc"))
+        poly = rbox2poly(np.array([[50, 40, 60, 20, 0.3]]))[0]
+        with open(j("Task1_ship.txt"), "w") as f:
+            f.write("a 0.9 " + " ".join(str(v) for v in poly) + "\\n")
+        args = (j("Task1_{:s}.txt"), j("hrsc", "labelTxt", "{:s}.txt"),
+                ["a"])
+        assert abs(eval_hrsc2016(*args) - 1.0) <= 1e-12
+        assert eval_hrsc2016_map(*args) == eval_hrsc2016(*args)
+        ds = build_dataset(dict(
+            type="HrscDataset", pipeline=[], test_mode=True,
+            ann_file=dota2coco_train(j("ship"), j("ship.json"),
+                                     cls_names=("ship",))))
+        assert isinstance(ds, HrscDataset) and len(ds) == 1
+    spec = importlib.util.spec_from_file_location(
+        "tool", "tools/synth_benchmark_torch.py")
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    assert tool.class_names(tool.parse_args(["--hrsc"])) == ["ship"]
+    assert len(tool.class_names(tool.parse_args(["--hard"]))) == 15
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "flax", "cv2",
                                            "orientedreppoints_tpu"))

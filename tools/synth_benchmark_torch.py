@@ -1,23 +1,30 @@
 #!/usr/bin/env python
 """Detection quality of the PyTorch port on synthetic DOTA scenes, trained
 and scored by the DOTA devkit's own workflow (counterpart of
-tools/synth_benchmark.py without TTA):
+tools/synth_benchmark.py):
 
   render scenes -> ImgSplit tiles -> COCO-poly json -> [--train: the
   config's train pipeline, loader and SGD or AdamW step, a checkpoint every
   --ckpt_interval epochs] -> DotaDataset + the test pipeline ->
   run_inference -> Task1 txt -> merge_by_poly (cross-tile polygon NMS) ->
-  eval_dota_task1 + eval_maoe.
+  eval_dota_task1 + eval_maoe [--hrsc: + eval_hrsc2016] [--flip_tta /
+  --ms_tta: the same again through run_inference_tta, into *_tta folders].
 
 The scenes are those of tools/synth_benchmark.py: train seed --seed,
-prefix T; val seed --seed + 10000, prefix V; written as .npy images.
-Prints one JSON line and writes work_dir/synth_eval.json; exits 1 when
-mAP <= 0.6, as the JAX tool does.  The work dir defaults to
-work_dirs/synth_dota_torch under the current directory.
+prefix T; val seed --seed + 10000, prefix V; written as .npy images;
+--hard: the 15-class benchmark with clutter, --hrsc: ship-only scenes.
+Prints one JSON line with the JAX tool's keys and writes
+work_dir/synth_eval.json; exits 1 when mAP <= 0.6, as the JAX tool does.
+The work dir defaults to work_dirs/synth_dota_torch under the current
+directory.
 
     python3 tools/synth_benchmark_torch.py --train [--epochs N] \\
         [--stop_epoch N] [--resume --skip_gen] [--device cuda]
     python3 tools/synth_benchmark_torch.py [--state_dict weights.pt]
+    python3 tools/synth_benchmark_torch.py \\
+        --config configs/dota/synth_r18_512_hard.py --hard --train \\
+        --flip_tta --ms_tta 0.5,1.0,1.5
+    python3 tools/synth_benchmark_torch.py --hrsc --train
 """
 
 from __future__ import annotations
@@ -42,9 +49,8 @@ def parse_args(argv=None):
                "random from --seed (which scores mAP near 0).  With --train "
                "a run that stops before the last epoch (--stop_epoch) saves "
                "a checkpoint and exits 3; run again with --resume --skip_gen "
-               "to go on.  Not ported: TTA scoring (--flip_tta, --ms_tta), "
-               "the --hard and --hrsc scenes, and the host-RSS re-exec "
-               "(--rss_limit_gb, ROADMAP Queue 1 item 9).")
+               "to go on.  Not ported: the host-RSS re-exec "
+               "(--rss_limit_gb, ROADMAP Queue 1 item 8).")
     p.add_argument("--config", default="configs/dota/synth_r18_512.py")
     p.add_argument("--work_dir", default="work_dirs/synth_dota_torch")
     p.add_argument("--train", action="store_true",
@@ -56,6 +62,21 @@ def parse_args(argv=None):
     p.add_argument("--n_objects", type=int, default=24)
     p.add_argument("--subsize", type=int, default=512)
     p.add_argument("--gap", type=int, default=256)
+    p.add_argument("--hard", action="store_true",
+                   help="the 15-class confusable benchmark (clutter, noise, "
+                        "dense packing, a brightness ramp) instead of the "
+                        "easy 6-class one")
+    p.add_argument("--hrsc", action="store_true",
+                   help="ship-only scenes; also scores the merged "
+                        "detections with the HRSC2016 evaluator "
+                        "(devkit/hrsc.py eval_hrsc2016, VOC-07)")
+    p.add_argument("--flip_tta", action="store_true",
+                   help="also score a flip-TTA pass of the same weights "
+                        "(apis.run_inference_tta) and report the delta")
+    p.add_argument("--ms_tta",
+                   help="comma-separated relative scales of a multi-scale "
+                        "(x flip with --flip_tta) TTA pass, e.g. "
+                        "'0.5,1.0,1.5'")
     p.add_argument("--seed", type=int, default=0,
                    help="scenes, initial weights, the loader's draws and the "
                    "DropPath masks")
@@ -86,12 +107,15 @@ def compute_dtype(cfg) -> str:
 def generate(args):
     """Render the (train and) val scenes and cut them into tiles with their
     jsons; returns the val scene names."""
-    from orientedreppoints_tpu_torch.data.synth import generate_synth_dota
+    from orientedreppoints_tpu_torch.data.synth import (SYNTH_CLASS_SPECS,
+                                                        generate_synth_dota)
     from orientedreppoints_tpu_torch.devkit.dota2coco import dota2coco_train
     from orientedreppoints_tpu_torch.devkit.img_split import ImgSplit
 
     wd = args.work_dir
     t0 = time.perf_counter()
+    # ship-only scenes: the easy (or hard) scenes' draws with one class
+    specs = {"ship": SYNTH_CLASS_SPECS["ship"]} if args.hrsc else None
     splits = [("val", args.val_scenes, args.seed + 10_000, "V", "test.json")]
     if args.train:
         splits.insert(0, ("train", args.train_scenes, args.seed, "T",
@@ -99,7 +123,8 @@ def generate(args):
     for split, n, seed, prefix, json_name in splits:
         names = generate_synth_dota(
             osp.join(wd, f"{split}_raw"), n, size=args.scene_size,
-            n_objects=args.n_objects, seed=seed, prefix=prefix)
+            n_objects=args.n_objects, seed=seed, prefix=prefix,
+            hard=args.hard, specs=specs)
         ImgSplit(osp.join(wd, f"{split}_raw"), osp.join(wd, f"{split}_split"),
                  gap=args.gap, subsize=args.subsize).splitdata()
         # annotated jsons for both: the val one lets apis.evaluate_results
@@ -167,14 +192,29 @@ def train(args, cfg, device):
     return model, summary
 
 
-def evaluate(args, cfg, model, val_names):
-    """Infer the val tiles, merge them into scenes and score them ->
-    (mAP, {class: ap}, mAOE, {class: aoe}, mAOE_mod90, {class: aoe})."""
-    from orientedreppoints_tpu_torch.apis import build_dataset, run_inference
-    from orientedreppoints_tpu_torch.data.synth import SYNTH_CLASS_SPECS
+def class_names(args) -> list:
+    """The classes scored: ship (--hrsc), the 15 hard ones or the 6 easy
+    ones."""
+    from orientedreppoints_tpu_torch.data.synth import (
+        SYNTH_CLASS_SPECS, SYNTH_HARD_CLASS_SPECS)
+
+    if args.hrsc:
+        return ["ship"]
+    return list(SYNTH_HARD_CLASS_SPECS if args.hard else SYNTH_CLASS_SPECS)
+
+
+def evaluate(args, cfg, model, val_names, tta_augs=None, suffix=""):
+    """Infer the val tiles (through run_inference_tta with tta_augs), merge
+    them into scenes and score them -> (mAP, {class: ap}, mAOE,
+    {class: aoe}, extra: mAOE_mod90_deg, per_class_aoe_mod90 and, with
+    --hrsc, hrsc_ap07)."""
+    from orientedreppoints_tpu_torch.apis import (build_dataset,
+                                                  run_inference,
+                                                  run_inference_tta)
     from orientedreppoints_tpu_torch.devkit.dota_utils import DOTA10_CLASSES
     from orientedreppoints_tpu_torch.devkit.evaluation import (
         eval_dota_task1, eval_maoe)
+    from orientedreppoints_tpu_torch.devkit.hrsc import eval_hrsc2016
     from orientedreppoints_tpu_torch.devkit.result_merge import (
         merge_by_poly, write_task1_results)
 
@@ -182,33 +222,50 @@ def evaluate(args, cfg, model, val_names):
     canvas = tuple(cfg.get("tpu", {}).get("canvas_buckets",
                                           [(512, 512)])[-1])
     val_ds = build_dataset({**cfg["data"]["test"], "test_mode": True})
-    print(f"inference over {len(val_ds)} val tiles ...", flush=True)
+    print(f"inference over {len(val_ds)} val tiles (tta={tta_augs}) ...",
+          flush=True)
     t0 = time.perf_counter()
-    results = run_inference(model, val_ds, cfg["test_cfg"], canvas=canvas,
-                            num_fg=len(val_ds.CLASSES))
+    if tta_augs is not None:
+        results = run_inference_tta(model, val_ds, cfg["test_cfg"], tta_augs,
+                                    canvas=canvas,
+                                    num_fg=len(val_ds.CLASSES))
+    else:
+        results = run_inference(model, val_ds, cfg["test_cfg"],
+                                canvas=canvas, num_fg=len(val_ds.CLASSES))
     print(f"inference done in {time.perf_counter() - t0:.1f}s", flush=True)
 
-    raw = osp.join(wd, "task1_raw")
-    merged = osp.join(wd, "task1_merged")
+    raw = osp.join(wd, "task1_raw" + suffix)
+    merged = osp.join(wd, "task1_merged" + suffix)
     write_task1_results(results, DOTA10_CLASSES, raw)
     merge_by_poly(raw, merged)
     detpath = osp.join(merged, "Task1_{:s}.txt")
     annopath = osp.join(wd, "val_raw", "labelTxt", "{:s}.txt")
-    classnames = list(SYNTH_CLASS_SPECS)
+    classnames = class_names(args)
     mAP, aps = eval_dota_task1(detpath, annopath, val_names,
                                classnames=classnames, use_07_metric=False)
     # ovthresh 0.7: the reference's mAOE main(); mod90 folds the
     # convention's near-square 90-degree flips out
-    return (mAP, aps) + eval_maoe(detpath, annopath, val_names,
-                                  classnames=classnames, ovthresh=0.7,
-                                  return_mod90=True)
+    mAOE, aoes, mAOE_mod90, aoes_mod90 = eval_maoe(
+        detpath, annopath, val_names, classnames=classnames, ovthresh=0.7,
+        return_mod90=True)
+    extra = {}
+    if args.hrsc:
+        # the same merged detections through the HRSC2016 evaluator
+        extra["hrsc_ap07"] = round(float(eval_hrsc2016(
+            detpath, annopath, val_names, use_07_metric=True)), 4)
+    extra["mAOE_mod90_deg"] = round(mAOE_mod90, 2)
+    extra["per_class_aoe_mod90"] = {k: round(v, 2)
+                                    for k, v in aoes_mod90.items()}
+    return mAP, aps, mAOE, aoes, extra
 
 
 def main(argv=None):
     args = parse_args(argv)
     if args.train and args.state_dict:
         raise SystemExit("--state_dict and --train exclude each other")
-    from orientedreppoints_tpu_torch.apis import init_detector, resolve_device
+    from orientedreppoints_tpu_torch.apis import (init_detector,
+                                                  parse_tta_spec,
+                                                  resolve_device)
     from orientedreppoints_tpu_torch.host import load_config
 
     device = resolve_device(args.device)
@@ -240,22 +297,36 @@ def main(argv=None):
                                  seed=args.seed,
                                  compute_dtype=compute_dtype(cfg))
         weights = args.state_dict or f"random, seed {args.seed}"
-    mAP, aps, mAOE, aoes, mAOE_mod90, aoes_mod90 = evaluate(args, cfg, model,
-                                                            val_names)
+    mAP, aps, mAOE, aoes, extra = evaluate(args, cfg, model, val_names)
     out = {
-        "metric": "synth_dota_mAP",
+        "metric": ("synth_hrsc_mAP" if args.hrsc
+                   else "synth_dota_hard_mAP" if args.hard
+                   else "synth_dota_mAP"),
         "mAP": round(mAP, 4),
         "mAOE_deg": round(mAOE, 2),
         "per_class_ap": {k: round(v, 4) for k, v in aps.items()},
         "per_class_aoe": {k: round(v, 2) for k, v in aoes.items()},
-        "mAOE_mod90_deg": round(mAOE_mod90, 2),
-        "per_class_aoe_mod90": {k: round(v, 2) for k, v in aoes_mod90.items()},
-        "weights": weights,
-        "train": summary,
-        "wall_s": time.perf_counter() - t0,
-        "device": (torch.cuda.get_device_name(0) if device.type == "cuda"
-                   else "cpu"),
+        **extra,
     }
+    tta_augs = parse_tta_spec(args.ms_tta, args.flip_tta)
+    if tta_augs is not None:
+        # the same weights through the TTA path, scored the same way
+        mAP_t, aps_t, mAOE_t, _, extra_t = evaluate(
+            args, cfg, model, val_names, tta_augs=tta_augs, suffix="_tta")
+        out["tta"] = {
+            "augs": [list(a) for a in tta_augs],
+            "mAP": round(mAP_t, 4),
+            "mAOE_deg": round(mAOE_t, 2),
+            "per_class_ap": {k: round(v, 4) for k, v in aps_t.items()},
+            "mAOE_mod90_deg": extra_t["mAOE_mod90_deg"],
+        }
+        if args.hrsc:
+            out["tta"]["hrsc_ap07"] = extra_t["hrsc_ap07"]
+        out["tta_mAP_delta"] = round(mAP_t - mAP, 4)
+    out.update(
+        weights=weights, train=summary, wall_s=time.perf_counter() - t0,
+        device=(torch.cuda.get_device_name(0) if device.type == "cuda"
+                else "cpu"))
     print(json.dumps(out), flush=True)
     with open(osp.join(args.work_dir, "synth_eval.json"), "w") as f:
         json.dump(out, f, indent=2)

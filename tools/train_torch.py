@@ -34,8 +34,8 @@ def parse_args(argv=None):
     p = argparse.ArgumentParser(
         description=__doc__.split("\n\n")[0],
         epilog="Not ported yet: --pretrained_backbone (a torchvision "
-               "ResNet .pth, ROADMAP Queue 1 item 6) and the host-RSS "
-               "re-exec --rss_limit_gb (ROADMAP Queue 1 item 9).")
+               "ResNet .pth, ROADMAP Queue 1 item 4) and the host-RSS "
+               "re-exec --rss_limit_gb (ROADMAP Queue 1 item 8).")
     p.add_argument("config")
     p.add_argument("--work_dir")
     p.add_argument("--resume_from",
