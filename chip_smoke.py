@@ -1,6 +1,7 @@
 """Drive the PyTorch port's serving path, training step, TTA test path,
 evaluation path (easy and hard scenes, HRSC scoring), Swin-T serving and
-training, and the synthetic benchmark's training on one NVIDIA GPU.
+training, and the synthetic benchmark's training, plain and with the
+hard-aug recipe, on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -105,13 +106,24 @@ Phases, each printing one line or more (a failed phase exits non-zero):
      atomics (its plain version, deterministic algorithms: X, Y) equal
      bit for bit; one more step with each training kernel's entry held
      against its plain version on the same inputs, and each kernel timed
-     at those inputs.
+     at those inputs;
+  12. hard_aug_train: tools/synth_benchmark_torch.py --hard --train's
+     path with configs/dota/synth_r50_512_hard_aug.py at its own widths
+     and sizes (R-50, bf16, canvas 512^2, batch 8, max_gt 128, max_pos
+     512): 8 hard train scenes cut into 32 tiles; the train pipeline
+     (mosaic x mixup, HSV, rotation, resize, flip; cv2's warps and colour
+     conversions rebuilt) over the tiles on the host alone, each
+     transform's ms a sample and the samples a second; two loaders from
+     one seed bitwise equal over the first epoch; a warm-up step and 6
+     counted steps through the loader and apis.train_epochs (losses,
+     refine positives, step ms, the loader's wait share, launches); one
+     more step with each training kernel's entry held against its plain
+     version, and each kernel timed at those inputs.
 Each counted run (slice, tta, iou_path, swin, eval, hard_eval's two,
-train, swin_train, synth_train) sets the launch counts to 0 just before
-and reads them just after; it fails if a kernel of its path was not
-launched.  Then one JSON
-line with every kernel's numbers, the card's line from nvidia-smi, and
-{"ok": true, "device": {...}} last.
+train, swin_train, synth_train, hard_aug_train) sets the launch counts to
+0 just before and reads them just after; it fails if a kernel of its
+path was not launched.  Then one JSON line with every kernel's numbers,
+the card's line from nvidia-smi, and {"ok": true, "device": {...}} last.
 
 bound_ms is the least time the card could take for a kernel's work on this
 run's inputs: the larger of its bytes (each input read once, each output
@@ -132,6 +144,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -267,6 +280,12 @@ SYNTH_TRAIN_SCENES = 8
 # difference of a step, which one step's assignment can swing.
 NOISE_FACTOR = 3.0
 LOSS_NOISE_FACTOR = 10.0
+# phase hard_aug_train: tools/synth_benchmark_torch.py --hard --train's
+# path with the hard-aug recipe (mosaic x mixup, HSV, rotation) on 8 hard
+# train scenes (32 tiles, 4 steps an epoch at batch 8)
+HARD_AUG_CONFIG = "configs/dota/synth_r50_512_hard_aug.py"
+HARD_AUG_SCENES = 8
+HARD_AUG_STEPS = 6  # counted, after one warm-up step
 
 
 def say(phase: str, **fields) -> None:
@@ -471,20 +490,75 @@ def rect_area(r: torch.Tensor) -> torch.Tensor:
     return (r[:, 1] - r[:, 0]).norm(dim=-1) * (r[:, 2] - r[:, 1]).norm(dim=-1)
 
 
-def rect_check(got: torch.Tensor, want: torch.Tensor):
-    """Min-area rects of the kernel against the plain version: (max corner
-    error over the boxes that agree, boxes that differ by more than
-    RECT_TOL, ok).  A differing box is accepted only as a tie: the same
-    area within the tie rule's relative 1e-5 (twice, for the two
-    roundings)."""
+def pair_boxes(points: torch.Tensor):
+    """Each set's boxes along the directions between two of its points,
+    in float64 -> (corners (n, pairs, 4, 2), areas (n, pairs)).  The
+    min-area rect lies along a hull edge, so it is among them."""
+    p = points.view(points.shape[0], -1, 2).double()
+    mean = p.mean(1, keepdim=True)
+    p = p - mean
+    i, j = torch.triu_indices(p.shape[1], p.shape[1], 1, device=p.device)
+    d = p[:, j] - p[:, i]
+    th = torch.atan2(d[..., 1], d[..., 0])[..., None]  # (n, pairs, 1)
+    c, s = th.cos(), th.sin()
+    x, y = p[:, None, :, 0], p[:, None, :, 1]
+    u, v = c * x + s * y, c * y - s * x
+    u0, u1, v0, v1 = u.amin(-1), u.amax(-1), v.amin(-1), v.amax(-1)
+    uv = torch.stack([torch.stack([u0, v0], -1), torch.stack([u1, v0], -1),
+                      torch.stack([u1, v1], -1), torch.stack([u0, v1], -1)],
+                     -2)  # (n, pairs, 4, 2)
+    box = torch.stack([c * uv[..., 0] - s * uv[..., 1],
+                       s * uv[..., 0] + c * uv[..., 1]], -1) + mean[:, None]
+    return box, (u1 - u0) * (v1 - v0)
+
+
+def tie_check(points: torch.Tensor, rect: torch.Tensor):
+    """Each rect against its set's float64 boxes (pair_boxes) -> (the
+    least corner distance to a box over the tolerance of what float32
+    corners resolve, 4 u + 1e-6 (w + h) with u = 2^-23 of the largest
+    coordinate; the least area of the boxes within that tolerance, less
+    the set's least area, over the tie band, the tie rule's relative 1e-5
+    twice (for the two roundings) and 1e-9 px^2 for float64's own; ok: a
+    box within both)."""
     from orientedreppoints_tpu_torch.ops.geometry import TIE_RTOL
 
+    box, area = pair_boxes(points)
+    least = area.amin(1, keepdim=True)
+    r = rect.view(-1, 1, 4, 2).double()
+    size = ((r[..., 1, :] - r[..., 0, :]).norm(dim=-1)
+            + (r[..., 2, :] - r[..., 1, :]).norm(dim=-1))
+    tol = 4 * 2.0 ** -23 * r.abs().amax((2, 3)) + 1e-6 * size
+    over = torch.stack([(box - rr.roll(k, 2)).abs().amax((2, 3))
+                        for rr in (r, r.flip(2)) for k in range(4)]
+                       ).amin(0) / tol  # (n, pairs)
+    band = (area - least) / (2 * TIE_RTOL * least + 1e-9)
+    band = torch.where(over <= 1, band, math.inf).amin(1)
+    return over.amin(1), band, band <= 1
+
+
+def rect_check(got: torch.Tensor, want: torch.Tensor, points: torch.Tensor):
+    """Min-area rects of the kernel against the plain version on the same
+    point sets: (max corner error over the boxes that agree, boxes that
+    differ by more than RECT_TOL, ok).  A differing box is accepted only
+    as a tie: each of its two rects passes tie_check.  Areas of the
+    float32 corners would not do: at 500 px their rounding moves the area
+    of a sub-pixel rect by more than the tie rule.  Each box that fails is
+    printed with its points, rects and readings."""
     err = rect_err(got, want)
     off = err > RECT_TOL
-    rel = (rect_area(got) - rect_area(want)).abs() / rect_area(want).clamp(
-        min=1e-6)
+    ok = True
+    if bool(off.any()):
+        pts, g, w = points[off], got[off], want[off]
+        (og, eg, okg), (ow, ew, okw) = tie_check(pts, g), tie_check(pts, w)
+        bad = torch.nonzero(~(okg & okw))[:, 0]
+        ok = not bad.numel()
+        for k in bad[:4].tolist():
+            say("rect_tie_failed", points=pts[k].tolist(), got=g[k].tolist(),
+                want=w[k].tolist(), got_corner_err_over_tol=float(og[k]),
+                want_corner_err_over_tol=float(ow[k]),
+                got_tie_band_use=float(eg[k]), want_tie_band_use=float(ew[k]))
     return (float(err[~off].max()) if bool((~off).any()) else 0.0,
-            int(off.sum()), bool((rel[off] <= 2 * TIE_RTOL).all()))
+            int(off.sum()), ok)
 
 
 def point_sets(rng, n):
@@ -522,7 +596,7 @@ def phase_kernels(dev, rng):
     n = BATCH * sum(min(2000, h * w) for _, h, w in LEVELS)
     p = torch.tensor(point_sets(rng, n), dtype=torch.float32, device=dev)
     err, ties, ok = rect_check(minarearect.min_area_rect(p),
-                               minarearect.min_area_rect_plain(p))
+                               minarearect.min_area_rect_plain(p), p)
     # the hull output (the assigner's) must give the plain version's bits
     hull, count = minarearect.convex_hull_entry(p)
     hull_p, count_p = minarearect.convex_hull_plain(p)
@@ -803,7 +877,7 @@ def phase_train_kernels(dev, rng):
     apaa = torch.tensor(point_sets(rng, b * 1024), dtype=torch.float32,
                         device=dev)
     err, ties, ok = rect_check(minarearect.min_area_rect(apaa),
-                               minarearect.min_area_rect_plain(apaa))
+                               minarearect.min_area_rect_plain(apaa), apaa)
     hull_a, count_a = minarearect.convex_hull_entry(apaa)
     hull_ap, count_ap = minarearect.convex_hull_plain(apaa)
     exact = torch.equal(hull_a, hull_ap) and torch.equal(count_a, count_ap)
@@ -1055,9 +1129,9 @@ def dcn_compare(args, got, want):
 
 
 def rect_compare(args, got, want):
-    err, ties, ok = rect_check(got, want)
+    err, ties, ok = rect_check(got, want, args[0])
     return dict(sets=int(args[0].shape[0]), max_abs_err=err, ties=ties,
-                ok=ok)
+                median_area_px2=float(rect_area(want).median()), ok=ok)
 
 
 def centres_in_frame(results, size):
@@ -2127,11 +2201,11 @@ def synth_kernel_routes():
     }
 
 
-def synth_train_data(wd, scenes):
-    """Render `scenes` train scenes (768^2, seed 0, prefix T) in wd, cut
-    them into tiles with train.json, and build the train dataset of
-    synth_r18_512.py -> (cfg, dataset)."""
-    from orientedreppoints_tpu_torch import apis
+def synth_train_data(wd, scenes, config=None, hard=False):
+    """Render `scenes` train scenes (768^2, seed 0, prefix T; hard: the
+    15-class benchmark) in wd, cut them into tiles with train.json, and
+    build the train dataset of `config` (EVAL_CONFIG when None) -> (cfg,
+    dataset)."""
     from orientedreppoints_tpu_torch.data.synth import generate_synth_dota
     from orientedreppoints_tpu_torch.devkit.dota2coco import dota2coco_train
     from orientedreppoints_tpu_torch.devkit.img_split import ImgSplit
@@ -2140,13 +2214,21 @@ def synth_train_data(wd, scenes):
     raw, split = os.path.join(wd, "train_raw"), os.path.join(wd,
                                                              "train_split")
     generate_synth_dota(raw, scenes, size=EVAL_SCENE_SIZE,
-                        n_objects=EVAL_OBJECTS, seed=SEED, prefix="T")
+                        n_objects=EVAL_OBJECTS, seed=SEED, prefix="T",
+                        hard=hard)
     ImgSplit(raw, split, gap=EVAL_GAP, subsize=EVAL_SUBSIZE).splitdata()
-    cfg = load_config(EVAL_CONFIG)
+    cfg = load_config(config or EVAL_CONFIG)
     cfg["data"]["train"].update(
         ann_file=dota2coco_train(split, os.path.join(wd, "train.json")),
         img_prefix=os.path.join(split, "images"))
-    return cfg, apis.build_dataset(
+    return cfg, train_dataset(cfg)
+
+
+def train_dataset(cfg):
+    """The config's train dataset, normalized on the card when it says so."""
+    from orientedreppoints_tpu_torch import apis
+
+    return apis.build_dataset(
         cfg["data"]["train"],
         device_normalize=apis.build_img_norm(cfg) is not None)
 
@@ -2183,6 +2265,39 @@ def resumed_epoch(cfg, ds, dev, ckpt, ckpt_dir, on_step=None,
     apis.train_epochs(model, loader, step, opt, sched, ckpt_dir, 2,
                       start_epoch=meta["epoch"], it=it, on_step=on_step)
     return (model, opt, sched, step), loaded, model_state(model)
+
+
+def checked_step(routes, loader, step, phase: str) -> dict:
+    """One step on the loader's next batch with every training kernel's
+    entry checked against its plain version on the same inputs, then each
+    kernel timed at the inputs of its first call -> {name: dict(calls, ok,
+    checks, ms, plain_ms)}, each printed under `phase`."""
+    checks = {name: [] for name in routes}
+    calls = {}
+
+    def keep(name):
+        return lambda args, kwargs, out: calls.setdefault(name,
+                                                          (args, kwargs))
+
+    with contextlib.ExitStack() as stack:
+        for name, (module, fn, plain, compare) in routes.items():
+            stack.enter_context(checking(module, fn, plain, compare,
+                                         checks[name]))
+            stack.enter_context(wrapping(module, fn, keep(name)))
+        step(next(iter(loader)))
+        torch.cuda.synchronize()
+    shapes = {}
+    for name, (module, fn, plain, _) in routes.items():
+        args, kwargs = calls[name]
+        entry = getattr(module, fn)
+        shapes[name] = dict(
+            calls=len(checks[name]),
+            ok=bool(checks[name]) and all(c["ok"] for c in checks[name]),
+            checks=checks[name][:2],
+            ms=cuda_ms(lambda: entry(*args, **kwargs), 10),
+            plain_ms=cuda_ms(lambda: plain(*args, **kwargs), 1))
+        say(phase, name=name, **shapes[name])
+    return shapes
 
 
 @contextlib.contextmanager
@@ -2322,36 +2437,9 @@ def phase_synth_train(dev, ops_mod, card):
                     and rec_x[at_x["steps"]:] == rec_y)
         model, opt, sched, step = objs
 
-        # one more step with every kernel entry checked, then each kernel
-        # timed at the inputs of its first call
-        checks = {name: [] for name in routes}
-        calls = {}
-
-        def keep(name):
-            return lambda args, kwargs, out: calls.setdefault(
-                name, (args, kwargs))
-
-        with contextlib.ExitStack() as stack:
-            for name, (module, fn, plain, compare) in routes.items():
-                stack.enter_context(checking(module, fn, plain, compare,
-                                             checks[name]))
-                stack.enter_context(wrapping(module, fn, keep(name)))
-            loader = apis.build_dataloader(ds, cfg, seed=SEED)
-            loader.epoch = 2
-            step(next(iter(loader)))
-            torch.cuda.synchronize()
-        shapes = {}
-        for name, (module, fn, plain, _) in routes.items():
-            args, kwargs = calls[name]
-            entry = getattr(module, fn)
-            shapes[name] = dict(
-                calls=len(checks[name]),
-                ok=bool(checks[name]) and all(c["ok"] for c in checks[name]),
-                checks=checks[name][:2],
-                ms=cuda_ms(lambda: entry(*args, **kwargs), 10),
-                plain_ms=cuda_ms(lambda: plain(*args, **kwargs), 1))
-            say("synth_train_kernel", name=name, **shapes[name])
-        del calls, checks
+        loader = apis.build_dataloader(ds, cfg, seed=SEED)
+        loader.epoch = 2
+        shapes = checked_step(routes, loader, step, "synth_train_kernel")
 
     finite = all(np.isfinite(v) for r in rec_a + rec_b + rec_c + rec_x
                  + rec_y for v in r.values())
@@ -2393,6 +2481,144 @@ def phase_synth_train(dev, ops_mod, card):
         b_vs_c_max_loss_abs=bc_loss[0], b_vs_c_max_loss_rel=bc_loss[1],
         deterministic_warnings=warned, x_vs_y_bitwise=xy_equal,
         first_step_losses_equal=rec_a[steps_1] == rec_b[0],
+        finite=finite, phase_s=time.perf_counter() - t_phase, card=card,
+        ok=ok)
+    return ok, launches
+
+
+class TimedStep:
+    """A pipeline step that adds the seconds of each call to
+    clock[its class name]; it draws and fuses as the step does."""
+
+    def __init__(self, step, clock: dict):
+        self.step, self.clock = step, clock
+        self.name = type(step).__name__
+        self.draws = getattr(step, "draws", False)
+        self.NUM_SAMPLES = getattr(step, "NUM_SAMPLES", 1)
+
+    def __call__(self, results, rng=None):
+        t0 = time.perf_counter()
+        out = self.step(results, rng) if self.draws else self.step(results)
+        self.clock[self.name] = (self.clock.get(self.name, 0.0)
+                                 + time.perf_counter() - t0)
+        return out
+
+
+def time_transforms(pipeline, clock: dict):
+    """Wrap every step of a MultiSamplePipeline in a TimedStep."""
+    pipeline.pre.steps = [TimedStep(s, clock) for s in pipeline.pre.steps]
+    pipeline.fusions = [TimedStep(s, clock) for s in pipeline.fusions]
+    pipeline.post.steps = [TimedStep(s, clock) for s in pipeline.post.steps]
+
+
+def same_batches(a: list, b: list) -> bool:
+    return len(a) == len(b) and all(
+        x.keys() == y.keys() and all(
+            x[k].dtype == y[k].dtype and np.array_equal(x[k], y[k])
+            for k in x) for x, y in zip(a, b))
+
+
+def phase_hard_aug_train(dev, ops_mod, card):
+    """tools/synth_benchmark_torch.py --hard --train's path with
+    configs/dota/synth_r50_512_hard_aug.py at its own widths and sizes
+    (R-50, bf16, canvas 512^2, batch 8, max_gt 128, max_pos 512, the image
+    normalized on the card): 8 hard train scenes rendered and cut into 32
+    tiles; the config's train pipeline (mosaic x mixup, HSV, rotation,
+    resize, flip) run over the tiles twice on the host alone, each
+    transform timed (the second pass, the image cache filled, is the one
+    reported); two loaders from one seed bitwise equal over the first
+    epoch; then 1 warm-up step and HARD_AUG_STEPS counted steps from the
+    seeded initial weights through the loader and apis.train_epochs; one
+    more step with each training kernel's entry checked against its plain
+    version, and each kernel timed at those inputs."""
+    from orientedreppoints_tpu_torch import apis
+
+    routes = synth_kernel_routes()
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as wd:
+        t0 = time.perf_counter()
+        cfg, ds = synth_train_data(wd, HARD_AUG_SCENES, HARD_AUG_CONFIG,
+                                   hard=True)
+        data_s = time.perf_counter() - t0
+
+        # the pipeline on the host alone, transform by transform
+        timed, clock = train_dataset(cfg), {}
+        time_transforms(timed.pipeline, clock)
+        rng = np.random.RandomState(SEED)
+        passes = []
+        for _ in range(2):
+            clock.clear()
+            t0 = time.perf_counter()
+            kept = sum(timed.prepare(i, rng) is not None
+                       for i in range(len(timed)))
+            passes.append(dict(
+                seconds=time.perf_counter() - t0, samples=kept,
+                ms_per_sample={k: v * 1e3 / len(timed)
+                               for k, v in clock.items()}))
+        host_rate = len(timed) / passes[1]["seconds"]
+        del timed
+
+        # two loaders from one seed: the same bytes over the first epoch
+        t0 = time.perf_counter()
+        first = list(apis.build_dataloader(ds, cfg, seed=SEED))
+        second = list(apis.build_dataloader(train_dataset(cfg), cfg,
+                                            seed=SEED))
+        loaders_equal = same_batches(first, second)
+        loaders_s = time.perf_counter() - t0
+        gts_per_image = [int(b["gt_valid"].sum(1).max()) for b in first]
+        del first, second
+
+        records, warmed = [], []
+
+        def on_step(epoch, losses, stats, batch):
+            if not warmed:  # the warm-up step: count from the next one
+                warmed.append(True)
+                ops_mod.reset_launch_counts()
+                return
+            records.append({k: float(v) for k, v in losses.items()})
+            say("hard_aug_train_step", step=len(records), **records[-1],
+                refine_pos_per_image=(stats["gt_inds"] > 0).sum(1).tolist(),
+                gts=int(batch["gt_valid"].sum()))
+
+        model, loader, opt, sched, step = synth_trainer(cfg, ds, dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        run = apis.train_epochs(model, loader, step, opt, sched,
+                                os.path.join(wd, "ckpts"), 2,
+                                max_iters=1 + HARD_AUG_STEPS,
+                                ckpt_interval=10,
+                                meta=dict(classes=list(ds.CLASSES)),
+                                on_step=on_step)
+        launches = ops_mod.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        waits, times = run["wait_s"][1:], run["step_s"][1:]
+
+        loader.epoch = 2
+        shapes = checked_step(routes, loader, step, "hard_aug_train_kernel")
+        del model, opt, sched, step
+
+    n_steps = len(records)
+    finite = all(np.isfinite(v) for r in records for v in r.values())
+    ok = (finite and loaders_equal and n_steps == HARD_AUG_STEPS
+          and passes[1]["samples"] > 0
+          and all(launches[k] > 0 for k in TRAIN_KERNELS)
+          and all(v["ok"] for v in shapes.values()))
+    batch_size = cfg["tpu"]["global_batch_size"]
+    med = statistics.median(times)
+    say("hard_aug_train", config=HARD_AUG_CONFIG, scenes=HARD_AUG_SCENES,
+        tiles=len(ds), batch=batch_size, dtype=cfg["tpu"]["compute_dtype"],
+        canvas=cfg["tpu"]["canvas_buckets"][-1],
+        max_gt=cfg["tpu"]["max_gt"], max_pos=cfg["tpu"]["max_pos"],
+        data_s=data_s, host_passes=passes,
+        host_samples_per_s=host_rate, loaders_bitwise_equal=loaders_equal,
+        loaders_s=loaders_s, max_gts_per_image_by_batch=gts_per_image,
+        counted_steps=n_steps, step_ms=[t * 1e3 for t in times],
+        step_ms_median=med * 1e3, train_images_per_s=batch_size / med,
+        loader_wait_ms=[w * 1e3 for w in waits],
+        loader_wait_ms_median=statistics.median(waits) * 1e3,
+        loader_wait_share=sum(waits) / (sum(waits) + sum(times)),
+        max_memory_allocated_bytes=peak, launches=launches,
+        launches_per_step={k: launches[k] / n_steps for k in TRAIN_KERNELS},
         finite=finite, phase_s=time.perf_counter() - t_phase, card=card,
         ok=ok)
     return ok, launches
@@ -2474,6 +2700,8 @@ def main() -> int:
     del batch, sd
     torch.cuda.empty_cache()
     ok_synth, launches_synth = phase_synth_train(dev, ops_mod, card)
+    torch.cuda.empty_cache()
+    ok_hard_aug, launches_hard_aug = phase_hard_aug_train(dev, ops_mod, card)
 
     # launches: each kernel's count over the counted runs of the paths
     # that run it (serving, training, TTA, the IoU path, eval, Swin
@@ -2481,7 +2709,7 @@ def main() -> int:
     # over-mask count
     runs = (launches, launches_train, launches_tta, launches_iou,
             launches_eval, launches_hard, launches_hard_tta, launches_synth,
-            launches_swin, launches_swin_train)
+            launches_hard_aug, launches_swin, launches_swin_train)
     single = (launches_tta, launches_hard_tta)  # the single-image entry
     counts = {name: sum(r[name] for r in runs) for name in ops_mod.KERNELS}
     counts["quad_over_mask"] = sum(
@@ -2500,7 +2728,7 @@ def main() -> int:
     if not (all(r["ok"] for r in kernels.values()) and ok_entries
             and ok_host and ok_slice and ok_decode and ok_tta and ok_tta_check
             and ok_iou and ok_eval and ok_hard and ok_train and ok_check
-            and ok_synth
+            and ok_synth and ok_hard_aug
             and ok_swin and ok_swin_decode and ok_swin_train
             and ok_swin_check):
         print("chip_smoke: a phase failed", file=sys.stderr)

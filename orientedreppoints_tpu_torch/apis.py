@@ -333,7 +333,8 @@ def train_epochs(model, loader, step, optimizer, scheduler, ckpt_dir: str,
     (so its time is the step's), until `it` reaches max_iters.  A
     checkpoint ckpt_dir/epoch_N.pt (step count `it`, meta) after every
     ckpt_interval-th epoch and after the last epoch run.  log(line) every
-    log_interval steps; on_step(epoch, losses, stats, batch) after each
+    log_interval steps (the losses, LR, seconds so far and the loader's
+    share of them); on_step(epoch, losses, stats, batch) after each
     step, with stats as compute_losses fills them; on_epoch(epoch_reached,
     it) after each epoch's checkpoint.  Returns dict(epoch: the epoch
     reached, it, wait_s: the wait for each batch, step_s: each step's
@@ -360,8 +361,11 @@ def train_epochs(model, loader, step, optimizer, scheduler, ckpt_dir: str,
                 steps.append(time.perf_counter() - t2)
                 if log and it % log_interval == 0:
                     vals = {k: round(float(v), 4) for k, v in losses.items()}
+                    elapsed = time.perf_counter() - t0
                     vals.update(lr=scheduler.get_last_lr()[0],
-                                elapsed_s=round(time.perf_counter() - t0, 1))
+                                elapsed_s=round(elapsed, 1),
+                                loader_wait_share=round(sum(waits) / elapsed,
+                                                        3))
                     log(f"epoch {epoch} iter {it} {json.dumps(vals)}")
                 it += 1
                 if on_step:

@@ -1,6 +1,6 @@
 """Rotated box <-> polygon conversions on the host (numpy; counterpart of
-core/rbox.py's rbox2poly with its best-begin-point order, and poly2rbox_v3
-after DOTA_devkit/dota_poly2rbox.py)."""
+core/rbox.py's rbox2poly with its best-begin-point order, poly2rbox, and
+poly2rbox_v3 after DOTA_devkit/dota_poly2rbox.py)."""
 
 from __future__ import annotations
 
@@ -23,6 +23,28 @@ def rbox2poly(rboxes: np.ndarray) -> np.ndarray:
     gy = sin * local_x + cos * local_y + cy[:, None]
     polys = np.stack([gx, gy], axis=2).reshape(-1, 8).astype(np.float32)
     return get_best_begin_point(polys)
+
+
+def poly2rbox(polys: np.ndarray) -> np.ndarray:
+    """(n, 8) corner polygons -> (n, 5) float32 [cx, cy, w, h, angle] in
+    float64 arithmetic: width the longer of edges (p0, p1) and (p1, p2),
+    the angle along it normalized to [-pi/4, 3pi/4), the centre halfway
+    between p0 and p2 (the hard-aug transforms filter on these)."""
+    polys = np.asarray(polys, dtype=np.float64).reshape(-1, 8)
+    p = polys.reshape(-1, 4, 2)
+    e1 = np.linalg.norm(p[:, 0] - p[:, 1], axis=1)
+    e2 = np.linalg.norm(p[:, 1] - p[:, 2], axis=1)
+    wide = e1 > e2
+    width = np.where(wide, e1, e2)
+    height = np.where(wide, e2, e1)
+    ang1 = np.arctan2(p[:, 1, 1] - p[:, 0, 1], p[:, 1, 0] - p[:, 0, 0])
+    ang2 = np.arctan2(p[:, 3, 1] - p[:, 0, 1], p[:, 3, 0] - p[:, 0, 0])
+    angle = np.where(wide, ang1, ang2)
+    angle = (angle + PI / 4) % PI - PI / 4
+    cx = (p[:, 0, 0] + p[:, 2, 0]) / 2
+    cy = (p[:, 0, 1] + p[:, 2, 1]) / 2
+    return np.stack([cx, cy, width, height, angle], axis=1).astype(
+        np.float32)
 
 
 def get_best_begin_point(polys: np.ndarray) -> np.ndarray:

@@ -3,8 +3,8 @@ the 15 DOTA classes in the reference order (mmdet/datasets/dota.py:8-12)
 (HrscDataset: the one class "ship"),
 8-coordinate polygon annotations with 1-based labels and their difficult
 flags, iscrowd skipped, images without annotations dropped outside
-test_mode.  prepare(idx, rng) runs a train pipeline's random draws from
-the caller's RandomState."""
+test_mode.  prepare(idx, rng) runs a train pipeline's random draws, and
+a mosaic pipeline's extra samples, from the caller's RandomState."""
 
 from __future__ import annotations
 
@@ -13,6 +13,7 @@ import json
 import numpy as np
 
 from ..devkit.dota_utils import DOTA10_CLASSES as DOTA_CLASSES
+from .pipelines import MultiSamplePipeline
 
 HRSC_CLASSES = ("ship",)
 
@@ -71,10 +72,20 @@ class DotaDataset:
 
     def prepare(self, idx, rng: np.random.RandomState | None = None):
         """Item idx through the pipeline, its random draws from rng (the
-        loader's); None when a step such as FilterEmpty drops it."""
+        loader's); None when a step such as FilterEmpty drops it.  A
+        MultiSamplePipeline (mosaic, mixup) also takes the raw items of
+        rng.randint(len(self)), as the JAX dataset draws them from
+        np.random."""
         results = self.get_raw(idx)
         if self.pipeline is None:
             return results
+        if isinstance(self.pipeline, MultiSamplePipeline):
+            if rng is None:
+                raise ValueError("a MultiSamplePipeline draws at random: "
+                                 "call prepare with an np.random."
+                                 "RandomState")
+            return self.pipeline(
+                results, rng, lambda: self.get_raw(rng.randint(len(self))))
         return self.pipeline(results, rng)
 
     def __getitem__(self, idx):

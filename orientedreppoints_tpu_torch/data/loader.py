@@ -12,9 +12,10 @@ true (unpadded) sizes.
 Everything here is host numpy; the worker thread touches no device
 (parallel/train.to_device moves a batch).  The sampler's shuffles come
 from RandomState(seed + epoch), as in the JAX loader; the pipeline's
-random draws (RotateResize's scale, RotateRandomFlip) from
-aug_rng(seed, epoch), a RandomState the loader creates per epoch, where
-the JAX package draws from the global np.random.  An epoch's batches
+random draws (RotateResize's scale, RotateRandomFlip, the hard-aug
+transforms and a mosaic's extra tiles) from aug_rng(seed, epoch), a
+RandomState the loader creates per epoch, where the JAX package draws
+from the global np.random.  An epoch's batches
 therefore depend only on (seed, epoch), and a resumed run draws what an
 uninterrupted one would.
 """

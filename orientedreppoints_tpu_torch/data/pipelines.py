@@ -1,20 +1,26 @@
 """The train and test pipelines on a results dict (counterpart of
-data/pipelines.py's LoadImageFromFile, LoadAnnotations, CorrectBox,
-RotateResize, RotateRandomFlip, Normalize, Pad, FilterEmpty and
-build_pipeline, after mmdet/datasets/pipelines/{loading,transforms}.py),
-in numpy on the host.
+data/pipelines.py, after mmdet/datasets/pipelines/{loading,transforms}.py
+and the reference's poly_transforms.py), in numpy and CPU tensors on the
+host: LoadImageFromFile (with its decoded-image cache), LoadAnnotations,
+CorrectBox, RotateResize, RotateRandomFlip, Normalize, Pad, FilterEmpty,
+and the hard-aug transforms HSVAugment, PolyRandomRotate, RandomRotate,
+PolyMosaic, PolyMosaic9 and MixUp with MultiSamplePipeline.
 
 Images are .npy arrays (BGR uint8).  RotateResize resizes through
 host.imrescale / host.resize_uint8, cv2's uint8 INTER_LINEAR in the
 port's own arithmetic; CorrectBox snaps each gt to cv2's minAreaRect
-corners through data/rect.py.
+corners through data/rect.py; the rotations and the mosaics' affine crop
+warp through data/warp.py and HSVAugment converts through data/color.py,
+both cv2 5.0's arithmetic rebuilt.
 
 Random draws: the JAX transforms draw from the global np.random.  Here
 the pipeline is called as pipeline(results, rng) with an explicit
 np.random.RandomState (the loader's, seeded per epoch), and each step
-makes the same RandomState calls in the same order (RotateResize's scale,
-then RotateRandomFlip's rand() and choice()), so equal seeds give equal
-samples.  A step that must draw raises without an rng.
+makes the same RandomState calls in the same order as its JAX
+counterpart, the draws whose value goes unused included (PolyMosaic's
+perspective and shear at 0, a fusion group that passes through), so
+equal seeds give equal samples.  A step that must draw raises without an
+rng.
 """
 
 from __future__ import annotations
@@ -26,7 +32,8 @@ import numpy as np
 import torch
 
 from .. import host
-from . import rect
+from ..core.rbox import poly2rbox, rbox2poly
+from . import color, rect, warp
 
 PIPELINES = {}
 
@@ -36,27 +43,53 @@ def register(cls):
     return cls
 
 
-def build_pipeline(cfgs: Sequence[dict]):
-    """A callable (results, rng=None) -> results from mmdet-style
-    {'type': ...} dicts; a step that returns None ends the pipeline with
-    None.  Steps with ``draws`` set are handed the rng."""
-    steps = []
-    for cfg in cfgs:
-        cfg = dict(cfg)
-        t = cfg.pop("type")
-        if t not in PIPELINES:
-            raise NotImplementedError(f"pipeline step {t} is not ported")
-        steps.append(PIPELINES[t](**cfg))
+class Compose:
+    """Steps in turn as one callable (results, rng=None); a step that
+    returns None ends it with None.  Steps with ``draws`` set are handed
+    the rng."""
 
-    def run(results, rng: np.random.RandomState | None = None):
-        for s in steps:
+    def __init__(self, steps):
+        self.steps = list(steps)
+
+    def __call__(self, results, rng: np.random.RandomState | None = None):
+        for s in self.steps:
             results = (s(results, rng) if getattr(s, "draws", False)
                        else s(results))
             if results is None:
                 return None
         return results
 
-    return run
+
+# the port's transforms take uint8 images
+UNPORTED_OPTIONS = {"LoadImageFromFile": ("to_float32",)}
+
+
+def build_pipeline(cfgs: Sequence[dict]):
+    """A Compose, (results, rng=None) -> results, from mmdet-style
+    {'type': ...} dicts.  With fusion steps (PolyMosaic, PolyMosaic9,
+    MixUp: NUM_SAMPLES > 1), which must be contiguous, a
+    MultiSamplePipeline, called as (results, rng, getter)."""
+    steps = []
+    for cfg in cfgs:
+        cfg = dict(cfg)
+        t = cfg.pop("type")
+        if t not in PIPELINES:
+            raise NotImplementedError(f"pipeline step {t} is not ported")
+        for key in UNPORTED_OPTIONS.get(t, ()):
+            if key in cfg:
+                raise NotImplementedError(f"{t}'s {key} is not ported")
+        steps.append(PIPELINES[t](**cfg))
+    fusion = [i for i, s in enumerate(steps)
+              if getattr(s, "NUM_SAMPLES", 1) > 1]
+    if not fusion:
+        return Compose(steps)
+    first, last = fusion[0], fusion[-1]
+    if fusion != list(range(first, last + 1)):
+        raise ValueError("fusion steps (PolyMosaic / PolyMosaic9 / MixUp) "
+                         "must be contiguous in the pipeline")
+    return MultiSamplePipeline(pre=Compose(steps[:first]),
+                               fusions=steps[first:last + 1],
+                               post=Compose(steps[last + 1:]))
 
 
 def _need(rng, step: str):
@@ -66,20 +99,36 @@ def _need(rng, step: str):
     return rng
 
 
+CACHE_MAX_ITEMS = 4096  # images LoadImageFromFile(cache=True) keeps
+
+
 @register
 class LoadImageFromFile:
     """Load img_prefix/file_name, a .npy BGR image, as mmcv.imread would
-    give it; start the list of box fields."""
+    give it; start the list of box fields.  cache keeps up to
+    CACHE_MAX_ITEMS decoded images by path (the first ones read) and
+    hands out copies, as later steps write into the image."""
+
+    def __init__(self, cache: bool = False):
+        self.cache = {} if cache else None
+
+    def read(self, path: str) -> np.ndarray:
+        if not path.endswith(".npy"):
+            raise ValueError(f"{path}: the port reads images as .npy "
+                             "arrays (BGR uint8) only")
+        if self.cache is not None and path in self.cache:
+            return self.cache[path].copy()
+        if not osp.exists(path):
+            raise FileNotFoundError(path)
+        img = np.load(path)
+        if self.cache is not None and len(self.cache) < CACHE_MAX_ITEMS:
+            self.cache[path] = img.copy()
+        return img
 
     def __call__(self, results):
         path = osp.join(results.get("img_prefix", ""),
                         results["img_info"]["file_name"])
-        if not path.endswith(".npy"):
-            raise ValueError(f"{path}: the port reads images as .npy "
-                             "arrays (BGR uint8) only")
-        if not osp.exists(path):
-            raise FileNotFoundError(path)
-        img = np.load(path)
+        img = self.read(path)
         results["filename"] = path
         results["img"] = img
         results["img_shape"] = img.shape
@@ -111,12 +160,16 @@ class CorrectBox:
     """Each gt polygon, cast to int64, becomes the corners of its
     minimum-area rectangle (cv2.minAreaRect + boxPoints, data/rect.py);
     with refine_rbbox the corners are rolled so that corner 0 is the last
-    of those nearest the original first point."""
+    of those nearest the original first point.  The corrected gts of each
+    distinct tile are kept (a dataset's worth of small arrays): mosaic x
+    mixup corrects 8 tiles a sample, and the hull and calipers are Python
+    that the loader's thread runs under the GIL beside the step."""
 
     def __init__(self, correct_rbbox: bool = True,
                  refine_rbbox: bool = False):
         self.correct_rbbox = correct_rbbox
         self.refine_rbbox = refine_rbbox
+        self.corrected = {}
 
     def correct_one(self, poly8: np.ndarray) -> np.ndarray:
         pts = poly8.astype(np.int64).reshape(4, 2)
@@ -128,10 +181,13 @@ class CorrectBox:
         return np.roll(corners, -i, axis=0).reshape(-1)
 
     def __call__(self, results):
-        if self.correct_rbbox and len(results["gt_bboxes"]):
-            results["gt_bboxes"] = np.stack(
-                [self.correct_one(p) for p in results["gt_bboxes"]]
-            ).astype(np.float32)
+        polys = results["gt_bboxes"]
+        if self.correct_rbbox and len(polys):
+            key = (polys.dtype.str, polys.shape, polys.tobytes())
+            if key not in self.corrected:
+                self.corrected[key] = np.stack(
+                    [self.correct_one(p) for p in polys]).astype(np.float32)
+            results["gt_bboxes"] = self.corrected[key].copy()
         return results
 
 
@@ -289,3 +345,415 @@ class FilterEmpty:
         if len(results.get("gt_bboxes", [])) == 0:
             return None
         return results
+
+
+@register
+class HSVAugment:
+    """Hue, saturation and value scaled by gains drawn in 1 +/- (hgain,
+    sgain, vgain): cv2's uint8 BGR -> HSV, a lookup table a channel (hue
+    mod 180, the others clipped to 255, each truncated to uint8), HSV ->
+    BGR (data/color.py)."""
+
+    draws = True
+
+    def __init__(self, hgain=0.015, sgain=0.7, vgain=0.4):
+        self.gains = (hgain, sgain, vgain)
+
+    def __call__(self, results, rng=None):
+        img = results["img"]
+        r = (_need(rng, "HSVAugment").uniform(-1, 1, 3)
+             * np.array(self.gains) + 1)
+        x = np.arange(0, 256, dtype=np.int16)
+        luts = (((x * r[0]) % 180).astype(img.dtype),
+                np.clip(x * r[1], 0, 255).astype(img.dtype),
+                np.clip(x * r[2], 0, 255).astype(img.dtype))
+        results["img"] = color.hsv_to_bgr(
+            color.apply_lut(color.bgr_to_hsv(img), luts))
+        return results
+
+
+def _rotation(results, angle: float, auto_bound: bool):
+    """Warp the image by angle degrees about its centre (auto_bound: onto
+    the canvas that holds the whole rotated image) -> (the 2 x 3 matrix,
+    bound_w, bound_h); img and img_shape are updated."""
+    h, w = results["img_shape"][:2]
+    center = (w / 2.0, h / 2.0)
+    if auto_bound:
+        rad = np.deg2rad(angle)
+        abs_cos, abs_sin = abs(np.cos(rad)), abs(np.sin(rad))
+        bound_w = int(np.rint(h * abs_sin + w * abs_cos))
+        bound_h = int(np.rint(h * abs_cos + w * abs_sin))
+    else:
+        bound_w, bound_h = w, h
+    rm = warp.get_rotation_matrix_2d(center, angle, 1.0)
+    if auto_bound:
+        rm[0, 2] += bound_w / 2.0 - center[0]
+        rm[1, 2] += bound_h / 2.0 - center[1]
+    results["img"] = warp.warp_affine(results["img"], rm, (bound_w, bound_h))
+    results["img_shape"] = (bound_h, bound_w) + results["img"].shape[2:]
+    return rm, bound_w, bound_h
+
+
+@register
+class PolyRandomRotate:
+    """With probability rotate_ratio, rotation by an angle drawn in
+    +/- angles_range degrees (else by 0: the image is still warped and
+    the gts renormalized); each gt polygon is moved, becomes a rotated box
+    (poly2rbox) kept when its centre lies inside the image and both sides
+    exceed 5 px, and a polygon again (rbox2poly).  A sample that loses
+    every gt is dropped (None)."""
+
+    draws = True
+
+    def __init__(self, rotate_ratio=0.5, angles_range=180, auto_bound=False):
+        self.rotate_ratio = rotate_ratio
+        self.angles_range = angles_range
+        self.auto_bound = auto_bound
+
+    def __call__(self, results, rng=None):
+        rng = _need(rng, "PolyRandomRotate")
+        if rng.rand() < self.rotate_ratio:
+            angle = float(rng.uniform(-self.angles_range, self.angles_range))
+            results["rotate"] = True
+        else:
+            angle = 0.0
+            results["rotate"] = False
+        results["rotate_angle"] = angle
+        rm, bound_w, bound_h = _rotation(results, angle, self.auto_bound)
+        polys = results.get("gt_bboxes", np.zeros((0, 8), np.float32))
+        labels = results.get("gt_labels", np.zeros((0,), np.int64))
+        if len(polys):
+            pts = polys.reshape(-1, 2) @ rm[:, :2].T + rm[:, 2]
+            rboxes = poly2rbox(pts.reshape(-1, 8))
+            keep = ((rboxes[:, 0] > 0) & (rboxes[:, 0] < bound_w)
+                    & (rboxes[:, 1] > 0) & (rboxes[:, 1] < bound_h)
+                    & (rboxes[:, 2] > 5) & (rboxes[:, 3] > 5))
+            rboxes, labels = rboxes[keep], labels[keep]
+            if len(rboxes) == 0:
+                return None
+            results["gt_bboxes"] = rbox2poly(rboxes).astype(np.float32)
+            results["gt_labels"] = labels
+        return results
+
+
+@register
+class RandomRotate:
+    """With probability rate, rotation by an angle drawn from `angles`
+    (degrees); gts are moved and kept when their corners' mean lies inside
+    the image (no size filter).  A sample that loses every gt is dropped
+    (None)."""
+
+    draws = True
+
+    def __init__(self, rate=0.5, angles=(30, 60, 90, 120, 150),
+                 auto_bound=False):
+        self.rate = rate
+        self.angles = list(angles)
+        self.auto_bound = auto_bound
+
+    def __call__(self, results, rng=None):
+        rng = _need(rng, "RandomRotate")
+        if rng.rand() >= self.rate:
+            results["rotate"] = False
+            return results
+        angle = float(rng.choice(self.angles))
+        results["rotate"] = True
+        results["rotate_angle"] = angle
+        rm, bound_w, bound_h = _rotation(results, angle, self.auto_bound)
+        polys = results.get("gt_bboxes", np.zeros((0, 8), np.float32))
+        labels = results.get("gt_labels", np.zeros((0,), np.int64))
+        if len(polys):
+            pts = polys.reshape(-1, 2) @ rm[:, :2].T + rm[:, 2]
+            polys = pts.reshape(-1, 8).astype(np.float32)
+            cx = polys[:, 0::2].mean(1)
+            cy = polys[:, 1::2].mean(1)
+            keep = (cx > 0) & (cx < bound_w) & (cy > 0) & (cy < bound_h)
+            results["gt_bboxes"] = polys[keep]
+            results["gt_labels"] = labels[keep]
+            if keep.sum() == 0:
+                return None
+        return results
+
+
+def _gts(r):
+    return (r.get("gt_bboxes", np.zeros((0, 8), np.float32)).copy(),
+            r.get("gt_labels", np.zeros((0,), np.int64)))
+
+
+def _concat(polys_all, labels_all):
+    return ((np.concatenate(polys_all) if polys_all
+             else np.zeros((0, 8), np.float32)),
+            (np.concatenate(labels_all) if labels_all
+             else np.zeros((0,), np.int64)))
+
+
+def _fused(results, canvas, polys, labels):
+    out = dict(results[0])
+    out["img"] = canvas
+    out["img_shape"] = canvas.shape
+    out["gt_bboxes"] = polys
+    out["gt_labels"] = labels
+    return out
+
+
+@register
+class PolyMosaic:
+    """A fusion step over 4 samples (the reference's
+    Poly_Mosaic_RandomPerspective): with probability mosaic_ratio, the
+    4 images tile a 2s x 2s canvas (grey 114) around a centre drawn in
+    [s/2, 3s/2), their gts offset; with ifcrop, a random affine (rotation
+    `degrees`, scale 1 +/- `scale`, shear, translation around the centre,
+    and a perspective term when `perspective`) maps it onto s x s; gts
+    whose box centre leaves the canvas or whose sides are 5 px or less
+    are dropped, and a mosaic without gts is dropped (None).  Otherwise
+    the group's first sample passes through."""
+
+    NUM_SAMPLES = 4
+    draws = True
+
+    def __init__(self, degrees=0, translate=0, scale=0, shear=0,
+                 perspective=0.0, ifcrop=True, mosaic_ratio=0.5):
+        self.degrees = degrees
+        self.translate = translate
+        self.scale = scale
+        self.shear = shear
+        self.perspective = perspective
+        self.ifcrop = ifcrop
+        self.mosaic_ratio = mosaic_ratio
+
+    def mosaic4(self, results_4, rng):
+        s = max(max(r["img"].shape[:2]) for r in results_4)
+        canvas = np.full((2 * s, 2 * s, 3), 114, results_4[0]["img"].dtype)
+        yc = int(rng.uniform(s * 0.5, s * 1.5))
+        xc = int(rng.uniform(s * 0.5, s * 1.5))
+        polys_all, labels_all = [], []
+        for i, r in enumerate(results_4):
+            img = r["img"]
+            h, w = img.shape[:2]
+            if i == 0:  # top-left: the image's bottom-right corner at (xc, yc)
+                x1a, y1a, x2a, y2a = max(xc - w, 0), max(yc - h, 0), xc, yc
+                x1b, y1b, x2b, y2b = w - (x2a - x1a), h - (y2a - y1a), w, h
+            elif i == 1:  # top-right
+                x1a, y1a, x2a, y2a = xc, max(yc - h, 0), min(xc + w, 2 * s), yc
+                x1b, y1b, x2b, y2b = 0, h - (y2a - y1a), x2a - x1a, h
+            elif i == 2:  # bottom-left
+                x1a, y1a, x2a, y2a = max(xc - w, 0), yc, xc, min(yc + h, 2 * s)
+                x1b, y1b, x2b, y2b = w - (x2a - x1a), 0, w, y2a - y1a
+            else:  # bottom-right
+                x1a, y1a = xc, yc
+                x2a, y2a = min(xc + w, 2 * s), min(yc + h, 2 * s)
+                x1b, y1b, x2b, y2b = 0, 0, x2a - x1a, y2a - y1a
+            canvas[y1a:y2a, x1a:x2a] = img[y1b:y2b, x1b:x2b]
+            polys, labels = _gts(r)
+            if len(polys):
+                polys[:, 0::2] += x1a - x1b
+                polys[:, 1::2] += y1a - y1b
+                polys_all.append(polys)
+                labels_all.append(labels)
+        return (canvas, *_concat(polys_all, labels_all), s)
+
+    def random_perspective(self, img, polys, labels, out_size, rng):
+        """The yolo-style random affine (or perspective) crop onto
+        out_size x out_size; every draw is made, zero ranges included."""
+        h, w = img.shape[:2]
+        c = np.eye(3)
+        c[0, 2] = -w / 2
+        c[1, 2] = -h / 2
+        p = np.eye(3)
+        p[2, 0] = rng.uniform(-self.perspective, self.perspective)
+        p[2, 1] = rng.uniform(-self.perspective, self.perspective)
+        r = np.eye(3)
+        ang = rng.uniform(-self.degrees, self.degrees)
+        sc = rng.uniform(1 - self.scale, 1 + self.scale)
+        r[:2] = warp.get_rotation_matrix_2d((0, 0), ang, sc)
+        sh = np.eye(3)
+        sh[0, 1] = np.tan(np.deg2rad(rng.uniform(-self.shear, self.shear)))
+        sh[1, 0] = np.tan(np.deg2rad(rng.uniform(-self.shear, self.shear)))
+        t = np.eye(3)
+        t[0, 2] = rng.uniform(0.5 - self.translate,
+                              0.5 + self.translate) * out_size
+        t[1, 2] = rng.uniform(0.5 - self.translate,
+                              0.5 + self.translate) * out_size
+        m = t @ sh @ r @ p @ c
+        if self.perspective:
+            img = warp.warp_perspective(img, m, (out_size, out_size), 114)
+        else:
+            img = warp.warp_affine(img, m[:2], (out_size, out_size), 114)
+        if len(polys):
+            pts = polys.reshape(-1, 2)
+            pts = np.concatenate([pts, np.ones((len(pts), 1))], axis=1) @ m.T
+            pts = (pts[:, :2] / pts[:, 2:3] if self.perspective
+                   else pts[:, :2])
+            polys = pts.reshape(-1, 8).astype(np.float32)
+        return img, polys, labels
+
+    @staticmethod
+    def filter(polys, labels, h, w):
+        """Keep the gts whose box centre lies inside (w, h) and whose
+        sides exceed 5 px, as polygons again."""
+        if not len(polys):
+            return polys, labels
+        rb = poly2rbox(polys)
+        keep = ((rb[:, 0] > 0) & (rb[:, 0] < w) & (rb[:, 1] > 0)
+                & (rb[:, 1] < h) & (rb[:, 2] > 5) & (rb[:, 3] > 5))
+        rb, labels = rb[keep], labels[keep]
+        return (rbox2poly(rb).astype(np.float32) if len(rb)
+                else np.zeros((0, 8), np.float32)), labels
+
+    def crop_and_filter(self, results, canvas, polys, labels, s, rng):
+        if self.ifcrop:
+            canvas, polys, labels = self.random_perspective(
+                canvas, polys, labels, s, rng)
+            h = w = s
+        else:
+            h, w = canvas.shape[:2]
+        polys, labels = self.filter(polys, labels, h, w)
+        if len(polys) == 0:
+            return None
+        return _fused(results, canvas, polys, labels)
+
+    def __call__(self, results, rng=None):
+        if not isinstance(results, list):
+            return results
+        rng = _need(rng, "PolyMosaic")
+        if rng.rand() >= self.mosaic_ratio:
+            return results[0]
+        canvas, polys, labels, s = self.mosaic4(results[:4], rng)
+        return self.crop_and_filter(results, canvas, polys, labels, s, rng)
+
+
+@register
+class PolyMosaic9(PolyMosaic):
+    """PolyMosaic over 9 samples: they tile a 3s x 3s canvas on a 3 x 3
+    grid (the first at the centre, each anchored toward it), a 2s x 2s
+    window is cut at an offset drawn in [0, s), then PolyMosaic's crop
+    and filter.  A group short of 9 passes its first sample through."""
+
+    NUM_SAMPLES = 9
+    # grid cells: the centre first, then the 8 neighbours
+    CELLS = [(1, 1), (0, 0), (0, 1), (0, 2), (1, 0), (1, 2), (2, 0),
+             (2, 1), (2, 2)]
+
+    def mosaic9(self, results_9, rng):
+        s = max(max(r["img"].shape[:2]) for r in results_9)
+        canvas = np.full((3 * s, 3 * s, 3), 114, results_9[0]["img"].dtype)
+        polys_all, labels_all = [], []
+        for (gy, gx), r in zip(self.CELLS, results_9):
+            img = r["img"]
+            h, w = (min(d, s) for d in img.shape[:2])
+            y0 = gy * s + (s - h if gy == 0 else 0)
+            x0 = gx * s + (s - w if gx == 0 else 0)
+            canvas[y0:y0 + h, x0:x0 + w] = img[:h, :w]
+            polys, labels = _gts(r)
+            if len(polys):
+                polys[:, 0::2] += x0
+                polys[:, 1::2] += y0
+                polys_all.append(polys)
+                labels_all.append(labels)
+        polys, labels = _concat(polys_all, labels_all)
+        yc = int(rng.uniform(0, s))
+        xc = int(rng.uniform(0, s))
+        canvas = canvas[yc:yc + 2 * s, xc:xc + 2 * s]
+        if len(polys):
+            polys[:, 0::2] -= xc
+            polys[:, 1::2] -= yc
+        return canvas, polys, labels, s
+
+    def __call__(self, results, rng=None):
+        if not isinstance(results, list):
+            return results
+        rng = _need(rng, "PolyMosaic9")
+        if rng.rand() >= self.mosaic_ratio or len(results) < 9:
+            return results[0]
+        canvas, polys, labels, s = self.mosaic9(results[:9], rng)
+        return self.crop_and_filter(results, canvas, polys, labels, s, rng)
+
+
+@register
+class MixUp:
+    """A fusion step over 2 samples: with probability mixup_ratio, img =
+    r img1 + (1 - r) img2 in float32 (both zero-padded to the larger
+    size), r ~ Beta(8, 8), cast back to the first image's dtype
+    (truncating), the gts of both kept.  Otherwise, or for a group of
+    one, the first sample passes through."""
+
+    NUM_SAMPLES = 2
+    draws = True
+
+    def __init__(self, mixup_ratio=0.5):
+        self.mixup_ratio = mixup_ratio
+
+    def __call__(self, results, rng=None):
+        if not isinstance(results, list):
+            return results
+        rng = _need(rng, "MixUp")
+        if rng.rand() >= self.mixup_ratio or len(results) < 2:
+            return results[0]
+        r1, r2 = results[0], results[1]
+        h = max(r1["img"].shape[0], r2["img"].shape[0])
+        w = max(r1["img"].shape[1], r2["img"].shape[1])
+
+        def pad(img):
+            out = np.zeros((h, w) + img.shape[2:], img.dtype)
+            out[:img.shape[0], :img.shape[1]] = img
+            return out
+
+        r = rng.beta(8.0, 8.0)
+        img = (pad(r1["img"]).astype(np.float32) * r
+               + pad(r2["img"]).astype(np.float32) * (1 - r))
+        out = dict(r1)
+        out["img"] = img.astype(r1["img"].dtype)
+        out["img_shape"] = img.shape
+        out["gt_bboxes"] = np.concatenate([r1["gt_bboxes"], r2["gt_bboxes"]])
+        out["gt_labels"] = np.concatenate([r1["gt_labels"], r2["gt_labels"]])
+        return out
+
+
+class MultiSamplePipeline:
+    """A pipeline with fusion steps: `pre` runs on each sample, each
+    fusion step takes groups of its NUM_SAMPLES results of the step
+    before (so [PolyMosaic, MixUp] mixes two 4-image mosaics), `post`
+    runs on the first fused result.
+
+    Called as pipeline(results, rng, getter): getter() returns the raw
+    results of another sample, drawn at random (DotaDataset passes one
+    that draws from rng).  Samples that `pre` drops are replaced, up to
+    5 tries a needed sample; a short supply leaves partial groups, which
+    the fusion steps pass through; fused results that are None are
+    dropped."""
+
+    def __init__(self, pre, fusions, post):
+        self.pre = pre
+        self.fusions = fusions
+        self.post = post
+        self.num_samples = int(np.prod([f.NUM_SAMPLES for f in fusions]))
+
+    def materialize(self, results, rng, getter, need: int) -> list:
+        out = []
+        r0 = self.pre(results, rng)
+        if r0 is not None:
+            out.append(r0)
+        tries = 0
+        while len(out) < need and tries < need * 5:
+            r = self.pre(getter(), rng)
+            if r is not None:
+                out.append(r)
+            tries += 1
+        return out
+
+    def __call__(self, results, rng=None, getter=None):
+        if getter is None:
+            raise TypeError("MultiSamplePipeline needs a sample getter: use "
+                            "it through a dataset (DotaDataset.prepare "
+                            "passes one)")
+        samples = self.materialize(results, rng, getter, self.num_samples)
+        if not samples:
+            return None
+        for f in self.fusions:
+            n = f.NUM_SAMPLES
+            groups = [samples[i:i + n] for i in range(0, len(samples), n)]
+            samples = [r for r in (f(g, rng) for g in groups)
+                       if r is not None]
+            if not samples:
+                return None
+        return self.post(samples[0], rng)

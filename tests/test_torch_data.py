@@ -284,8 +284,8 @@ def test_train_filter_and_refusals(split, tmp_path):
     load = build_pipeline([dict(type="LoadImageFromFile")])
     with pytest.raises(ValueError, match=".npy"):
         load(dict(img_info=dict(file_name="a.png"), img_prefix=""))
-    with pytest.raises(NotImplementedError, match="HSVAugment"):
-        build_pipeline([dict(type="HSVAugment")])
+    with pytest.raises(NotImplementedError, match="PolyImgPlot"):
+        build_pipeline([dict(type="PolyImgPlot")])
     with pytest.raises(ValueError, match="multiscale_mode"):
         build_pipeline([dict(type="RotateResize",
                              img_scale=[(512, 512), (768, 768)],

@@ -2,9 +2,11 @@
 a train step, TTA, soft-NMS, the evaluation path, the training data
 path: train pipeline, loader and checkpoint, Swin serving and an AdamW
 step, the hard and ship-only scenes, the HRSC labels, dataset and
-evaluators, and the benchmark tool's modes); the
-R-50 demo model's flax tree converts completely; CUDA-only entries raise
-without a GPU; CPU tensors never reach a kernel."""
+evaluators, the benchmark tool's modes, and a batch of the hard-aug
+train pipeline); the train pipelines of every config with hard-aug
+steps build; the R-50 demo model's flax tree converts completely;
+CUDA-only entries raise without a GPU; CPU tensors never reach a
+kernel."""
 
 import os
 import subprocess
@@ -20,6 +22,9 @@ import torch
 from orientedreppoints_tpu.utils import Config, builder
 from orientedreppoints_tpu_torch import ops
 from orientedreppoints_tpu_torch.apis import build_detector
+from orientedreppoints_tpu_torch.data.pipelines import (MultiSamplePipeline,
+                                                        build_pipeline)
+from orientedreppoints_tpu_torch.host import load_config
 from orientedreppoints_tpu_torch.models.detector import decode_detections
 from orientedreppoints_tpu_torch.ops import (deform_conv, hull_iou,
                                              minarearect, quad_iou)
@@ -221,6 +226,21 @@ NO_JAX_SCRIPT = textwrap.dedent("""
     spec.loader.exec_module(tool)
     assert tool.class_names(tool.parse_args(["--hrsc"])) == ["ship"]
     assert len(tool.class_names(tool.parse_args(["--hard"]))) == 15
+    # the hard-aug train pipeline (mosaic x mixup, HSV, rotation: cv2's
+    # warps and colour conversions rebuilt) and one loader batch
+    hard_cfg = load_config("configs/dota/synth_r18_512_hard_aug.py")
+    with tempfile.TemporaryDirectory() as wd:
+        j = lambda *p: os.path.join(wd, *p)
+        generate_synth_dota(j("raw"), 1, size=256, n_objects=8, seed=5,
+                            hard=True)
+        ImgSplit(j("raw"), j("split"), gap=64, subsize=128).splitdata()
+        ds = build_dataset(dict(
+            hard_cfg["data"]["train"],
+            ann_file=dota2coco_train(j("split"), j("split.json")),
+            img_prefix=j("split", "images")))
+        batch = next(iter(build_dataloader(ds, hard_cfg, batch_size=2)))
+        assert batch["images"].shape == (2, 512, 512, 3)
+        assert batch["gt_valid"].any()
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "flax", "cv2",
                                            "orientedreppoints_tpu"))
@@ -230,11 +250,33 @@ NO_JAX_SCRIPT = textwrap.dedent("""
 
 
 def test_port_runs_without_jax_flax_cv2():
-    env = dict(os.environ, PYTHONPATH=REPO)
+    # one thread: beside the suite's other workers, torch's default pool
+    # oversubscribes the cores
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
     res = subprocess.run([sys.executable, "-c", NO_JAX_SCRIPT], cwd=REPO,
                          env=env, capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stdout + res.stderr
     assert "LOADED []" in res.stdout
+
+
+AUG_CONFIGS = ["synth_r18_512_hard_aug", "synth_r50_512_hard_aug",
+               "synth_r101_512_hard_aug", "synth_swin_512_hard_aug",
+               "synth_r50_1024_hard_aug", "synth_r18_512_hard_aug_mp1024",
+               "synth_r18_512_hrsc_aug", "orientedreppoints_swin_tiny_demo",
+               "orientedreppoints_r50_mosaic"]
+
+
+@pytest.mark.parametrize("name", AUG_CONFIGS)
+def test_hard_aug_train_pipelines_build(name):
+    """Every config whose train pipeline has a hard-aug step builds it;
+    those with mosaic or mixup as a MultiSamplePipeline."""
+    steps = load_config(os.path.join(REPO, "configs/dota", f"{name}.py"))[
+        "data"]["train"]["pipeline"]
+    types = {s["type"] for s in steps}
+    assert types & {"HSVAugment", "PolyRandomRotate", "PolyMosaic", "MixUp"}
+    pipeline = build_pipeline(steps)
+    assert isinstance(pipeline, MultiSamplePipeline) == bool(
+        types & {"PolyMosaic", "MixUp"})
 
 
 def test_r50_demo_tree_converts_and_loads_strictly():

@@ -106,7 +106,7 @@ def main():
                                            runs["this"][0][2])))
         if "other" in runs:
             (r1, h1, c1), (r0, h0, c0) = runs["this"][0], runs["other"][0]
-            err, ties, ok = chip_smoke.rect_check(r1, r0)
+            err, ties, ok = chip_smoke.rect_check(r1, r0, pts)
             line.update(hull_count_identical=bool(
                 torch.equal(h1, h0) and torch.equal(c1, c0)),
                 rect_max_abs_err=err, rect_ties=ties, rect_ok=ok)

@@ -4,7 +4,8 @@ and scored by the DOTA devkit's own workflow (counterpart of
 tools/synth_benchmark.py):
 
   render scenes -> ImgSplit tiles -> COCO-poly json -> [--train: the
-  config's train pipeline, loader and SGD or AdamW step, a checkpoint every
+  config's train pipeline (the *_hard_aug configs: mosaic x mixup, HSV
+  and rotation), loader and SGD or AdamW step, a checkpoint every
   --ckpt_interval epochs] -> DotaDataset + the test pipeline ->
   run_inference -> Task1 txt -> merge_by_poly (cross-tile polygon NMS) ->
   eval_dota_task1 + eval_maoe [--hrsc: + eval_hrsc2016] [--flip_tta /
@@ -23,6 +24,9 @@ directory.
     python3 tools/synth_benchmark_torch.py [--state_dict weights.pt]
     python3 tools/synth_benchmark_torch.py \\
         --config configs/dota/synth_r18_512_hard.py --hard --train \\
+        --flip_tta --ms_tta 0.5,1.0,1.5
+    python3 tools/synth_benchmark_torch.py \\
+        --config configs/dota/synth_r50_512_hard_aug.py --hard --train \\
         --flip_tta --ms_tta 0.5,1.0,1.5
     python3 tools/synth_benchmark_torch.py --hrsc --train
 """
