@@ -1,7 +1,8 @@
 """Drive the PyTorch port's serving path, training step, TTA test path,
-evaluation path (easy and hard scenes, HRSC scoring), Swin-T serving and
-training, and the synthetic benchmark's training, plain and with the
-hard-aug recipe, on one NVIDIA GPU.
+evaluation path (easy and hard scenes, HRSC scoring), Swin-T, HRNet-W32
+and SSD-VGG16 serving and training, ResNeXt-50 serving, a torchvision
+backbone file loaded, and the synthetic benchmark's training, plain and
+with the hard-aug recipe, on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -29,7 +30,8 @@ Phases, each printing one line or more (a failed phase exits non-zero):
      random weights perturbed so that the decode has thousands of
      candidates; launch counts, finiteness, images/s and peak memory;
   4. decode: the same head outputs decoded through the kernels and through
-     the plain versions, det for det, and both NMS kernels checked and timed
+     the plain versions, det for det (a box that differs must be a
+     min-area tie, rect_check), and both NMS kernels checked and timed
      on that decode's own candidates (the top 4096 class-offset boxes an
      image);
   5. tta: run_inference_tta with the multi-scale x flip recipe TTA_AUGS
@@ -53,6 +55,20 @@ Phases, each printing one line or more (a failed phase exits non-zero):
      bf16, batch 4; its own seeded weights, perturbed the same way), with
      the backbone's device time on one batch;
   7c. swin_decode: the decode phase on the Swin head's outputs;
+  7d. hrnet, hrnet_decode: the slice and decode phases on HRNET_CONFIG
+     (HRNetV2p-W32 + FPN at start level 1 with extra convs, canvas
+     1344^2, bf16, batch 4); hrnet_dcn: the DCN forward of one more batch
+     against its plain version, bit for bit;
+  7e. ssd_vgg, ssd_vgg_decode, ssd_vgg_dcn: the same on SSD_VGG_CONFIG
+     (SSD-VGG16@512: its first five maps, 168 .. 11 at 1344^2, under an
+     FPN without extra levels);
+  7f. resnext, resnext_decode, resnext_dcn: the same on the R-50 demo
+     config with its backbone a ResNeXt-50 32x4d (RESNEXT_BACKBONE);
+  7g. weights: a torchvision-named resnext50_32x4d state dict made from a
+     seed, written to a .pth and loaded on the card through
+     utils/checkpoint.load_pretrained_backbone; every backbone tensor equal
+     to its source under torchvision's names, the neck and head untouched,
+     one finite forward;
   8. eval: tools/synth_benchmark.py's evaluation path without training:
      12 val scenes of 768^2 rendered and cut into 48 tiles of 512^2, the
      COCO-poly json, the dataset with configs/dota/synth_r18_512.py's test
@@ -89,6 +105,10 @@ Phases, each printing one line or more (a failed phase exits non-zero):
      and the share reported), on the same batch;
   10c. swin_train_check: the train_check phase on the Swin-T config: the
      same DropPath masks in both runs, then the same checks;
+  10d. hrnet_train, hrnet_train_check, ssd_vgg_train, ssd_vgg_train_check:
+     the two phases on HRNET_CONFIG and SSD_VGG_CONFIG (SGD; their
+     frozen_stages 1 freezes nothing, as in JAX: neither has ResNet's stem
+     or layer1_* names);
   11. synth_train: tools/synth_benchmark_torch.py --train's path at the
      full width of configs/dota/synth_r18_512.py (R-18, bf16, canvas
      512^2, batch 8, max_gt 64, max_pos 512): 8 train scenes rendered and
@@ -119,8 +139,9 @@ Phases, each printing one line or more (a failed phase exits non-zero):
      refine positives, step ms, the loader's wait share, launches); one
      more step with each training kernel's entry held against its plain
      version, and each kernel timed at those inputs.
-Each counted run (slice, tta, iou_path, swin, eval, hard_eval's two,
-train, swin_train, synth_train, hard_aug_train) sets the launch counts to
+Each counted run (slice, tta, iou_path, swin, hrnet, ssd_vgg, resnext,
+eval, hard_eval's two, train, swin_train, hrnet_train, ssd_vgg_train,
+synth_train, hard_aug_train) sets the launch counts to
 0 just before and reads them just after; it fails if a kernel of its
 path was not launched.  Then one JSON line with every kernel's numbers,
 the card's line from nvidia-smi, and {"ok": true, "device": {...}} last.
@@ -157,6 +178,11 @@ import torch
 
 CONFIG = "configs/dota/orientedreppoints_r50_demo.py"
 SWIN_CONFIG = "configs/dota/orientedreppoints_swin_tiny_demo.py"
+HRNET_CONFIG = "configs/dota/orientedreppoints_hrnet_w32_demo.py"
+SSD_VGG_CONFIG = "configs/dota/orientedreppoints_ssd_vgg16_demo.py"
+# the R-50 demo config with this backbone: ResNeXt-50 32x4d
+RESNEXT_BACKBONE = dict(type="ResNeXt", depth=50, groups=32, base_width=4,
+                        frozen_stages=1)
 SEED = 0
 BATCH = 4
 N_IMAGES = 8
@@ -1856,7 +1882,7 @@ def phase_slice(dev, rng, ops_mod, card, config=CONFIG, phase="slice"):
             first_outs = first_outs or outs
         # the backbone alone on the first batch's canvases, device time
         x = pred.prepare(images[:BATCH])[0].to(pred.model.dtype)
-        if pred.model.backbone_type == "resnet":
+        if pred.model.backbone_type != "swin":
             x = x.permute(0, 3, 1, 2).contiguous(
                 memory_format=torch.channels_last)
         backbone_ms = cuda_ms(lambda: pred.model.backbone(x), 5)
@@ -1869,7 +1895,8 @@ def phase_slice(dev, rng, ops_mod, card, config=CONFIG, phase="slice"):
     ok = (min(cand) >= 1000 and all(launches[k] > 0 for k in SERVING_KERNELS)
           and finite and min(kept) > 0 and len(out) == N_IMAGES)
     ips = [N_IMAGES / t for t in times]
-    say(phase, config=config, batch=BATCH, images=N_IMAGES,
+    say(phase, config=config if isinstance(config, str)
+        else config["model"]["backbone"], batch=BATCH, images=N_IMAGES,
         dtype="bfloat16", candidates_per_image=cand, dets_kept=kept,
         launches=launches, finite=finite,
         images_per_s_median=statistics.median(ips), images_per_s=ips,
@@ -1908,12 +1935,16 @@ def phase_decode(pred, outs, phase="decode"):
     same_labels = same_valid and bool(torch.equal(labels[valid],
                                                   labels_p[valid]))
     err_pts = err_poly = err_score = float("inf")
+    ties, ties_ok = -1, False
     if same_valid:
         d, p = dets[valid], dets_p[valid]
         err_pts = float((d[:, :18] - p[:, :18]).abs().max())
-        err_poly = float(rect_err(d[:, 18:26], p[:, 18:26]).max())
+        # a box the two rects of its (equal) points give differently must
+        # be a min-area tie (rect_check, as the kernel phases hold them)
+        err_poly, ties, ties_ok = rect_check(d[:, 18:26], p[:, 18:26],
+                                             d[:, :18])
         err_score = float((d[:, 26] - p[:, 26]).abs().max())
-    ok = (same_labels and err_pts == 0.0 and err_score == 0.0
+    ok = (same_labels and err_pts == 0.0 and err_score == 0.0 and ties_ok
           and err_poly <= RECT_TOL and len(overs) == len(scans) == 1)
     # both NMS kernels on this batch's own candidates (the top 4096
     # class-offset boxes an image), bit for bit and timed
@@ -1930,7 +1961,133 @@ def phase_decode(pred, outs, phase="decode"):
             num_valid=nv.tolist(), **line)
     say(phase, dets=int(valid.sum()), same_valid=same_valid,
         same_labels=same_labels, max_err_reppoints=err_pts,
-        max_err_poly_px=err_poly, max_err_score=err_score, ok=ok)
+        max_err_poly_px=err_poly, rect_ties=ties, max_err_score=err_score,
+        ok=ok)
+    return ok
+
+
+def phase_dcn(pred, rng, phase):
+    """Every paired-DCN forward of one serving batch (seeded 1024^2
+    images) against its plain version on the same inputs, bit for bit."""
+    from orientedreppoints_tpu_torch.ops import deform_conv
+
+    images = [(rng.random((1024, 1024, 3)) * 255).astype(np.uint8)
+              for _ in range(BATCH)]
+    calls = []
+    with torch.inference_mode(), checking(
+            deform_conv, "deform_sample_pair",
+            deform_conv.deform_sample_pair_plain, dcn_compare, calls):
+        pred.model(pred.prepare(images)[0])
+    ok = len(calls) == 1 and all(c["ok"] for c in calls)
+    say(phase, calls=calls, ok=ok)
+    return ok
+
+
+def resnext_config() -> dict:
+    """The R-50 demo config with RESNEXT_BACKBONE as its backbone."""
+    from orientedreppoints_tpu_torch.host import load_config
+
+    cfg = load_config(CONFIG)
+    cfg["model"]["backbone"] = dict(RESNEXT_BACKBONE)
+    return cfg
+
+
+def torchvision_resnext_sd(rng) -> dict:
+    """A state dict with torchvision's names and shapes of
+    resnext50_32x4d (Bottleneck, width int(planes * 4 / 64) * 32, the
+    grouped conv2 of in / 32 channels, downsample.0 / .1, BN running
+    statistics, fc), values from rng."""
+    sd = {}
+
+    def conv(key, cout, cin, k):
+        sd[key + ".weight"] = torch.from_numpy(rng.normal(
+            0, math.sqrt(2 / (cout * k * k)), (cout, cin, k, k)).astype(
+                np.float32))
+
+    def bn(key, c):
+        for leaf, lo, hi in (("weight", 0.5, 1.5), ("bias", -0.2, 0.2),
+                             ("running_mean", -0.2, 0.2),
+                             ("running_var", 0.5, 2.0)):
+            sd[f"{key}.{leaf}"] = torch.from_numpy(
+                rng.uniform(lo, hi, c).astype(np.float32))
+        sd[key + ".num_batches_tracked"] = torch.tensor(1)
+
+    conv("conv1", 64, 3, 7)
+    bn("bn1", 64)
+    cin = 64
+    for s, blocks in enumerate((3, 4, 6, 3)):
+        planes = 64 * 2 ** s
+        width = planes * 4 // 64 * 32
+        for b in range(blocks):
+            key = f"layer{s + 1}.{b}"
+            conv(key + ".conv1", width, cin, 1)
+            conv(key + ".conv2", width, width // 32, 3)
+            conv(key + ".conv3", planes * 4, width, 1)
+            for i, c in ((1, width), (2, width), (3, planes * 4)):
+                bn(f"{key}.bn{i}", c)
+            if b == 0:
+                conv(key + ".downsample.0", planes * 4, cin, 1)
+                bn(key + ".downsample.1", planes * 4)
+            cin = planes * 4
+    sd["fc.weight"] = torch.zeros(1000, cin)
+    sd["fc.bias"] = torch.zeros(1000)
+    return sd
+
+
+def torchvision_name(key: str) -> str:
+    """The torchvision name of a port backbone tensor (`backbone.` cut):
+    stem.conv -> conv1, stem.bn -> bn1, layer{s}_{b}.conv{i}.conv /
+    .bn -> layer{s}.{b}.conv{i} / .bn{i}, .downsample.conv / .bn ->
+    .downsample.0 / .1; BN scale, bias, mean, var -> weight, bias,
+    running_mean, running_var."""
+    parts = key.split(".")
+    leaf = {"scale": "weight", "mean": "running_mean",
+            "var": "running_var"}.get(parts[-1], parts[-1])
+    if parts[0] == "stem":
+        return ("conv1" if parts[1] == "conv" else "bn1") + "." + leaf
+    stage, block = parts[0][len("layer"):].split("_")
+    if parts[1] == "downsample":
+        mod = "downsample." + ("0" if parts[2] == "conv" else "1")
+    else:
+        mod = parts[1] if parts[2] == "conv" else "bn" + parts[1][4:]
+    return f"layer{stage}.{block}.{mod}.{leaf}"
+
+
+def phase_weights(dev, rng, card):
+    """A torchvision resnext50_32x4d .pth through load_pretrained_backbone
+    into the ResNeXt detector on the card."""
+    from orientedreppoints_tpu_torch.apis import init_detector
+    from orientedreppoints_tpu_torch.utils.checkpoint import \
+        load_pretrained_backbone
+
+    sd = torchvision_resnext_sd(rng)
+    model, _ = init_detector(resnext_config(), device=dev, seed=SEED)
+    before = {k: v.clone() for k, v in model.state_dict().items()
+              if not k.startswith("backbone.")}
+    with tempfile.TemporaryDirectory() as wd:
+        path = os.path.join(wd, "resnext50_32x4d.pth")
+        torch.save({"state_dict": sd}, path)
+        load_pretrained_backbone(model, path, 50)
+    after = model.backbone.state_dict()
+    equal = all(torch.equal(v.cpu(), sd[torchvision_name(k)])
+                for k, v in after.items())
+    used = {torchvision_name(k) for k in after}
+    unused = sorted(k for k in sd if k not in used
+                    and not k.endswith("num_batches_tracked"))
+    kept = all(torch.equal(model.state_dict()[k], v)
+               for k, v in before.items())
+    x = torch.from_numpy(rng.normal(size=(1, 512, 512, 3)).astype(
+        np.float32)).to(dev)
+    with torch.inference_mode():
+        outs = model(x)
+    finite = all(bool(torch.isfinite(t.float()).all())
+                 for ts in outs.values() for t in ts)
+    ok = (equal and kept and finite and unused == ["fc.bias", "fc.weight"]
+          and next(model.parameters()).device.type == "cuda")
+    say("weights", file="resnext50_32x4d (torchvision names, seeded)",
+        backbone_tensors=len(after), equal_to_source=equal,
+        unused_source=unused, neck_and_head_unchanged=kept, finite=finite,
+        card=card, ok=ok)
     return ok
 
 
@@ -1973,9 +2130,9 @@ def masks_per_step(model) -> int:
 
 def phase_train(dev, ops_mod, card, sd, batch, config=CONFIG,
                 phase="train"):
-    """The config's step: R-50 with SGD (stem and layer1 frozen), or
-    Swin-T with AdamW (nothing frozen) and DropPath, whose draws and
-    dropped share are counted."""
+    """The config's step: R-50 with SGD (stem and layer1 frozen), HRNet or
+    SSD-VGG with SGD (nothing frozen), or Swin-T with AdamW (nothing
+    frozen) and DropPath, whose draws and dropped share are counted."""
     model, step = build_trainer(sd, "bfloat16", dev, config)
     swin = model.backbone_type == "swin"
     before = {k: v.detach().clone() for k, v in model.named_parameters()}
@@ -2000,12 +2157,17 @@ def phase_train(dev, ops_mod, card, sd, batch, config=CONFIG,
             say(f"{phase}_step", step=i, **rec)
     launches = ops_mod.launch_counts()
     peak = torch.cuda.max_memory_allocated()
-    frozen_same, unchanged, trainable = 0, [], 0
+    frozen_same, unchanged, unreached, trainable = 0, [], [], 0
     for k, p in model.named_parameters():
         same = torch.equal(p.detach(), before[k])
         if p.requires_grad:
             trainable += 1
             unchanged += [k] if same else []
+            # the loss does not reach it (HRNet's last stride-4 fusion: the
+            # FPN starts at level 1, as in JAX): a zero grad, so only the
+            # decay moves it, and a zero bias stays zero
+            unreached += [k] if same and not (p.grad.any()
+                                              or p.detach().any()) else []
         else:
             frozen_same += same
     n_frozen = sum(not p.requires_grad for p in model.parameters())
@@ -2019,8 +2181,8 @@ def phase_train(dev, ops_mod, card, sd, batch, config=CONFIG,
           and max(max(r["refine_pos_per_image"]) for r in records) < n
           and min(min(r["iou_gt_0p1_share"]) for r in records) > 0
           and all(launches[k] > 0 for k in TRAIN_KERNELS)
-          and (n_frozen == 0 if swin else n_frozen > 0)
-          and frozen_same == n_frozen and not unchanged and fired)
+          and (n_frozen > 0) == (model.backbone_type == "resnet")
+          and frozen_same == n_frozen and unchanged == unreached and fired)
     med = statistics.median(times)
     say(phase, config=config, batch=TRAIN_BATCH, canvas=TRAIN_CANVAS,
         dtype="bfloat16", steps=TRAIN_STEPS, point_sets_per_image=n,
@@ -2033,7 +2195,8 @@ def phase_train(dev, ops_mod, card, sd, batch, config=CONFIG,
         drop_path_dropped_share=dropped_share(draws),
         frozen_tensors=n_frozen, frozen_unchanged=frozen_same,
         trainable_tensors=trainable, trainable_unchanged=unchanged,
-        finite=finite, card=card, ok=ok)
+        unchanged_zero_without_grad=unreached, finite=finite, card=card,
+        ok=ok)
     return ok, launches
 
 
@@ -2651,6 +2814,9 @@ def main() -> int:
     rng_quad = np.random.default_rng(SEED + 2)
     rng_host = np.random.default_rng(SEED + 3)
     rng_swin = np.random.default_rng(SEED + 4)
+    rng_hrnet = np.random.default_rng(SEED + 5)
+    rng_ssd = np.random.default_rng(SEED + 6)
+    rng_resnext = np.random.default_rng(SEED + 7)
     kernels = phase_kernels(dev, rng)
     train_res = phase_train_kernels(dev, rng_train)
     kernels["min_area_rect"]["ok"] &= train_res.pop(
@@ -2675,6 +2841,20 @@ def main() -> int:
     ok_swin_decode = phase_decode(pred, outs, "swin_decode")
     del pred, outs
     torch.cuda.empty_cache()
+    ok_more, launches_more = [], []  # HRNet, SSD-VGG, ResNeXt serving
+    serving = (("hrnet", HRNET_CONFIG, rng_hrnet),
+               ("ssd_vgg", SSD_VGG_CONFIG, rng_ssd),
+               ("resnext", resnext_config(), rng_resnext))
+    for name, config, rng_bb in serving:
+        ok_bb, launches_bb, pred, outs = phase_slice(dev, rng_bb, ops_mod,
+                                                     card, config, name)
+        ok_more += [ok_bb, phase_decode(pred, outs, f"{name}_decode"),
+                    phase_dcn(pred, rng_bb, f"{name}_dcn")]
+        launches_more.append(launches_bb)
+        del pred, outs
+        torch.cuda.empty_cache()
+    ok_more.append(phase_weights(dev, rng_resnext, card))
+    torch.cuda.empty_cache()
     ok_eval, launches_eval = phase_eval(dev, ops_mod, card)
     torch.cuda.empty_cache()
     ok_hard, launches_hard, launches_hard_tta = phase_hard_eval(dev, ops_mod,
@@ -2697,6 +2877,17 @@ def main() -> int:
     torch.cuda.empty_cache()
     ok_swin_check = phase_train_check(dev, ops_mod, sd, batch, SWIN_CONFIG,
                                       "swin_train_check")
+    torch.cuda.empty_cache()
+    for name, config, rng_bb in (("hrnet", HRNET_CONFIG, rng_hrnet),
+                                 ("ssd_vgg", SSD_VGG_CONFIG, rng_ssd)):
+        sd = perturbed_weights(rng_bb, config)
+        ok_bb, launches_bb = phase_train(dev, ops_mod, card, sd, batch,
+                                         config, f"{name}_train")
+        torch.cuda.empty_cache()
+        ok_more += [ok_bb, phase_train_check(
+            dev, ops_mod, sd, batch, config, f"{name}_train_check")]
+        launches_more.append(launches_bb)
+        torch.cuda.empty_cache()
     del batch, sd
     torch.cuda.empty_cache()
     ok_synth, launches_synth = phase_synth_train(dev, ops_mod, card)
@@ -2704,12 +2895,14 @@ def main() -> int:
     ok_hard_aug, launches_hard_aug = phase_hard_aug_train(dev, ops_mod, card)
 
     # launches: each kernel's count over the counted runs of the paths
-    # that run it (serving, training, TTA, the IoU path, eval, Swin
-    # serving and training); the single-image over-mask is the TTA run's
-    # over-mask count
+    # that run it (serving, training, TTA, the IoU path, eval, Swin,
+    # HRNet, SSD-VGG and ResNeXt serving, Swin, HRNet and SSD-VGG
+    # training); the single-image over-mask is the TTA run's over-mask
+    # count
     runs = (launches, launches_train, launches_tta, launches_iou,
             launches_eval, launches_hard, launches_hard_tta, launches_synth,
-            launches_hard_aug, launches_swin, launches_swin_train)
+            launches_hard_aug, launches_swin, launches_swin_train,
+            *launches_more)
     single = (launches_tta, launches_hard_tta)  # the single-image entry
     counts = {name: sum(r[name] for r in runs) for name in ops_mod.KERNELS}
     counts["quad_over_mask"] = sum(
@@ -2730,7 +2923,7 @@ def main() -> int:
             and ok_iou and ok_eval and ok_hard and ok_train and ok_check
             and ok_synth and ok_hard_aug
             and ok_swin and ok_swin_decode and ok_swin_train
-            and ok_swin_check):
+            and ok_swin_check and all(ok_more)):
         print("chip_smoke: a phase failed", file=sys.stderr)
         return 1
     print(json.dumps({"ok": True, "device": {

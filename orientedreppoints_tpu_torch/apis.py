@@ -47,25 +47,30 @@ def resolve_device(device: str | torch.device) -> torch.device:
     return device
 
 
-SWIN_KWARGS = ("embed_dim", "depths", "num_heads", "window_size",
-               "out_indices", "drop_path_rate")
+# utils/builder.py's backbone types (JAX package) and the kwargs it passes
+BACKBONES = {"ResNet": "resnet", "ResNeXt": "resnet",
+             "SwinTransformer": "swin", "HRNet": "hrnet", "SSDVGG": "ssd_vgg"}
+BACKBONE_KWARGS = {
+    "resnet": ("groups", "base_width", "out_indices"),
+    "swin": ("embed_dim", "depths", "num_heads", "window_size",
+             "out_indices", "drop_path_rate"),
+    "hrnet": ("extra",),
+    "ssd_vgg": ("input_size", "depth", "l2_norm_scale"),
+}
 
 
 def build_detector(cfg, compute_dtype: str = "bfloat16"):
-    """The config's detector: ResNet (groups 1) or SwinTransformer with the
-    kwargs the JAX builder passes, the neck's start_level /
-    add_extra_convs when given (else the backbone's default wiring)."""
+    """The config's detector with the backbone kwargs JAX's build_detector
+    passes (lists as tuples), the neck's start_level / add_extra_convs when
+    given (else the backbone's default wiring); an unknown backbone type
+    raises."""
     m = cfg["model"]
     bb = m["backbone"]
-    if bb["type"] == "ResNet" and bb.get("groups", 1) == 1:
-        bb_type, kwargs = "resnet", None
-    elif bb["type"] == "SwinTransformer":
-        bb_type = "swin"
-        kwargs = {k: tuple(v) if isinstance(v, list) else v
-                  for k, v in bb.items() if k in SWIN_KWARGS}
-    else:
-        raise NotImplementedError(f"backbone {bb['type']} with groups "
-                                  f"{bb.get('groups', 1)} is not ported")
+    if bb["type"] not in BACKBONES:
+        raise NotImplementedError(f"backbone {bb['type']} is not ported")
+    bb_type = BACKBONES[bb["type"]]
+    kwargs = {k: tuple(v) if isinstance(v, list) else v
+              for k, v in bb.items() if k in BACKBONE_KWARGS[bb_type]}
     neck = m["neck"]
     head = m["bbox_head"]
     return OrientedRepPointsDetector(
@@ -74,7 +79,7 @@ def build_detector(cfg, compute_dtype: str = "bfloat16"):
         fpn_out_channels=neck["out_channels"], num_levels=neck["num_outs"],
         fpn_start_level=neck.get("start_level"),
         fpn_add_extra_convs=neck.get("add_extra_convs"),
-        dtype=DTYPES[compute_dtype], backbone_kwargs=kwargs,
+        dtype=DTYPES[compute_dtype], backbone_kwargs=kwargs or None,
         head_kwargs={k: head[k] for k in (
             "feat_channels", "point_feat_channels", "stacked_convs",
             "num_points", "gradient_mul") if k in head})
@@ -295,11 +300,12 @@ def build_img_norm(cfg):
 
 def build_trainer(model, cfg, iters_per_epoch: int = 1000, seed: int = 0):
     """The config's training recipe on `model` (on its device): the
-    backbone's frozen_stages frozen (ResNet's stem and layers; Swin has
-    neither, so nothing, as in JAX), SGD with momentum and weight decay or
-    AdamW with the no-decay substrings, under lr_config's warmup + step
-    schedule counted in iterations (iters_per_epoch of them an epoch), the
-    global-norm clip, and the step, normalizing on the device when
+    backbone's frozen_stages frozen (ResNet's stem and layers; Swin,
+    HRNet and SSD-VGG have neither, so nothing, as in JAX), SGD with
+    momentum and weight decay or AdamW with the no-decay substrings,
+    under lr_config's warmup + step schedule counted in iterations
+    (iters_per_epoch of them an epoch), the global-norm clip, and the
+    step, normalizing on the device when
     cfg.tpu.device_normalize and drawing DropPath masks from (seed, step).
     Returns (optimizer, scheduler, step)."""
     opt, lr = cfg["optimizer"], cfg["lr_config"]

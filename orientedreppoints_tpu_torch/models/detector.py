@@ -1,4 +1,5 @@
-"""Detector (ResNet or Swin + FPN + head) and the inference decode
+"""Detector (a ResNet, ResNeXt, Swin, HRNet or SSD-VGG backbone + FPN +
+head) and the inference decode
 (counterpart of models/detector.py).
 
 decode_detections: per-level sigmoid in f32 -> top nms_pre by max class
@@ -21,22 +22,27 @@ from ..ops.minarearect import min_area_rect
 from ..ops.nms import multiclass_rnms, multiclass_rnms_batch, topk_stable
 from .fpn import FPN
 from .head import OrientedRepPointsHead
+from .hrnet import HRNet
 from .resnet import ResNet
+from .ssd_vgg import SSDVGG
 from .swin import SwinTransformer
 
 POINT_STRIDES = (8, 16, 32, 64, 128)
 
 
 class OrientedRepPointsDetector(nn.Module):
-    """Backbone (ResNet or Swin) + FPN + head.
+    """Backbone + FPN + head.
 
-    forward takes (B, H, W, 3) normalized images and returns the head's
-    dict of per-level NHWC outputs, computed in ``dtype``.  The FPN wiring
-    defaults to the JAX package's per backbone: ResNet start_level 1 with
-    extra convs, Swin start_level 0 with max-pool extra levels;
-    fpn_start_level / fpn_add_extra_convs override it when given.  gen is
-    the DropPath generator a train-mode Swin draws from (ResNet has no
-    stochastic layer and ignores it).
+    backbone_type: "resnet" (ResNet or ResNeXt), "swin", "hrnet" or
+    "ssd_vgg", built with backbone_kwargs.  forward takes (B, H, W, 3)
+    normalized images and returns the head's dict of per-level NHWC
+    outputs, computed in ``dtype``.  The FPN wiring defaults to the JAX
+    package's per backbone: ResNet and HRNet start_level 1 with extra
+    convs, Swin start_level 0 with max-pool extra levels, SSD-VGG
+    start_level 0 over its first num_levels maps (max_outs) with no extra
+    level; fpn_start_level / fpn_add_extra_convs override it when given.
+    gen is the DropPath generator a train-mode Swin draws from (the other
+    backbones have no stochastic layer and ignore it).
     """
 
     def __init__(self, backbone_type: str = "resnet", depth: int = 50,
@@ -49,14 +55,21 @@ class OrientedRepPointsDetector(nn.Module):
         super().__init__()
         self.dtype = dtype
         self.backbone_type = backbone_type
+        kw = backbone_kwargs or {}
         if backbone_type == "resnet":
-            self.backbone = ResNet(depth=depth)
+            self.backbone = ResNet(depth=depth, **kw)
             start, extra = 1, True
         elif backbone_type == "swin":
-            self.backbone = SwinTransformer(**(backbone_kwargs or {}))
+            self.backbone = SwinTransformer(**kw)
             start, extra = 0, False
+        elif backbone_type == "ssd_vgg":
+            self.backbone = SSDVGG(max_outs=num_levels, **kw)
+            start, extra = 0, False
+        elif backbone_type == "hrnet":
+            self.backbone = HRNet(**kw)
+            start, extra = 1, True
         else:
-            raise ValueError(f"backbone {backbone_type} is not ported")
+            raise ValueError(f"unknown backbone {backbone_type}")
         if fpn_start_level is not None:
             start = fpn_start_level
         if fpn_add_extra_convs is not None:

@@ -3,10 +3,10 @@ the SGD and the AdamW recipes of the JAX package's optax chains.
 
 Optimizer parity (configs/dota/orientedreppoints_r50_demo.py,
 configs/dota/orientedreppoints_swin_tiny_demo.py):
-  * frozen_stages=1: the stem and layer1_* take no update and no decay
-    (their parameters get requires_grad=False, so autograd and the
-    optimizer never see them); Swin has neither, so nothing freezes, as
-    in JAX;
+  * frozen_stages=1: ResNet's stem and layer1_* take no update and no
+    decay (their parameters get requires_grad=False, so autograd and the
+    optimizer never see them); Swin, HRNet (stem1, stem2, layer1) and
+    SSD-VGG have no module of those names, so nothing freezes, as in JAX;
   * the global-norm clip at 35 runs first, over the trainable grads only,
     as optax.clip_by_global_norm does it (g / norm * max_norm when the norm
     is at least max_norm);
@@ -66,7 +66,9 @@ def lr_schedule(base_lr: float = 0.008, warmup_iters: int = 500,
 
 def default_frozen_prefixes(frozen_stages: int = 1) -> list[str]:
     """ResNet frozen_stages: the stem, then layer1 .. layer{frozen_stages},
-    as state_dict name prefixes."""
+    as state_dict name prefixes.  Each ends where JAX's key tuple does
+    (("backbone", "stem"), ("backbone", f"layer{s}_{blk}")): "stem."
+    takes no HRNet stem1 / stem2 and "layer1_" no HRNet layer1."""
     out = ["backbone.stem."] if frozen_stages >= 0 else []
     return out + [f"backbone.layer{s}_" for s in range(1, frozen_stages + 1)]
 

@@ -7,12 +7,14 @@ SGD state with its momentum buffers, the LambdaLR state, the optimizer
 step count and meta (the config text, the classes, the epoch N).  It is
 written to a temporary file in ckpt_dir and renamed into place, so a
 reader never sees half a file.  Loading is strict: a missing or extra
-tensor, or an optimizer of other parameter groups, raises.  Reading the
-JAX package's orbax checkpoints is not ported.
+tensor, or an optimizer of other parameter groups, raises.  The JAX
+package's orbax checkpoints reach the port as state dicts written by
+tools/export_torch_state_dict.py, which runs where JAX is.
 
-Also the official-Swin converter (counterpart of convert_swin_tiny and
-load_pretrained_swin), with the bias-table resize through host.resize_cubic
-(cv2's bicubic in numpy).
+Also the pretrained-backbone converters: torchvision ResNet / ResNeXt
+(counterpart of convert_torchvision_resnet and load_pretrained_backbone)
+and official Swin (convert_swin_tiny and load_pretrained_swin), with the
+bias-table resize through host.resize_cubic (cv2's bicubic in numpy).
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ import numpy as np
 import torch
 
 from ..host import resize_cubic
+from ..models.resnet import ARCH_SETTINGS
 
 _NAME = re.compile(r"^epoch_(\d+)\.pt$")
 KEYS = ("model", "optimizer", "scheduler", "step", "meta")
@@ -82,6 +85,69 @@ def load_eval_variables(path: str, model) -> dict:
     payload = _read(path)
     model.load_state_dict(payload["model"], strict=True)
     return payload["meta"]
+
+
+# ---------------------------------------------------------------------------
+# torchvision ResNet / ResNeXt weights (resnet18 .. resnet152,
+# resnext50_32x4d, ...) -> the port's ResNet backbone
+# ---------------------------------------------------------------------------
+
+_BN = {"weight": "scale", "bias": "bias", "running_mean": "mean",
+       "running_var": "var"}
+
+
+def convert_torchvision_resnet(state_dict: dict,
+                               depth: int = 50) -> dict[str, torch.Tensor]:
+    """A torchvision ResNet or ResNeXt state dict (numpy or tensor values)
+    -> the detector's backbone tensors (`backbone.` names): conv1 / bn1 ->
+    stem.conv / stem.bn, layer{s}.{b}.conv{i} / bn{i} -> layer{s}_{b}.
+    conv{i}.conv / .bn, downsample.0 / .1 -> .downsample.conv / .bn; BN
+    weight, bias, running_mean, running_var -> scale, bias, mean, var.
+    Conv weights keep their OIHW layout (a ResNeXt's grouped conv2 too);
+    fc and num_batches_tracked are dropped.  A tensor the depth needs and
+    the dict lacks raises KeyError."""
+    sd = {k: np.asarray(v, np.float32) for k, v in state_dict.items()
+          if not k.endswith("num_batches_tracked")}
+    out: dict[str, np.ndarray] = {}
+
+    def conv_bn(dst, conv, bn):
+        out[f"backbone.{dst}.conv.weight"] = sd[f"{conv}.weight"]
+        for src, leaf in _BN.items():
+            out[f"backbone.{dst}.bn.{leaf}"] = sd[f"{bn}.{src}"]
+
+    conv_bn("stem", "conv1", "bn1")
+    block_type, stage_blocks = ARCH_SETTINGS[depth]
+    n_convs = 3 if block_type == "bottleneck" else 2
+    for stage, blocks in enumerate(stage_blocks):
+        for b in range(blocks):
+            dst, src = f"layer{stage + 1}_{b}", f"layer{stage + 1}.{b}"
+            for ci in range(1, n_convs + 1):
+                conv_bn(f"{dst}.conv{ci}", f"{src}.conv{ci}", f"{src}.bn{ci}")
+            if f"{src}.downsample.0.weight" in sd:
+                conv_bn(f"{dst}.downsample", f"{src}.downsample.0",
+                        f"{src}.downsample.1")
+    return {k: torch.from_numpy(np.ascontiguousarray(v))
+            for k, v in out.items()}
+
+
+def load_pretrained_backbone(model, pth_path: str, depth: int = 50) -> None:
+    """Overwrite the detector's ResNet / ResNeXt backbone from a
+    torchvision .pth file (its `state_dict` wrapper unwrapped), strictly:
+    every backbone tensor is replaced, and the neck and head keep their
+    values.  Any other backbone raises ValueError."""
+    if model.backbone_type != "resnet":
+        raise ValueError(
+            f"load_pretrained_backbone: torchvision ResNet / ResNeXt weights "
+            f"do not fit a {model.backbone_type} backbone (Swin: "
+            "load_pretrained_swin)")
+    sd = torch.load(pth_path, map_location="cpu", weights_only=True)
+    if "state_dict" in sd:
+        sd = sd["state_dict"]
+    prefix = "backbone."
+    model.backbone.load_state_dict(
+        {k[len(prefix):]: v
+         for k, v in convert_torchvision_resnet(sd, depth).items()},
+        strict=True)
 
 
 # ---------------------------------------------------------------------------

@@ -14,6 +14,7 @@ state_dict key by joining with dots and renaming the leaf:
   Swin relative_position_bias_table -> same name, same layout
   FrozenBN scale, bias          -> scale, bias            (parent "bn")
   FrozenBN mean, var            -> mean, var              (batch_stats)
+  SSD-VGG L2Norm weight (1-D)   -> weight
   DCN (K, Cin, Cout) weights    -> same name, same layout
 
 Load the result with ``model.load_state_dict(sd, strict=True)``, which
@@ -52,7 +53,8 @@ def _leaf(path: tuple, value: np.ndarray):
                                                                    "bias"):
         return {"scale": "weight", "bias": "bias"}[leaf], value
     if leaf in ("bias", "scale", "mean", "var", "cls_dcn_weight",
-                "refine_dcn_weight", "relative_position_bias_table"):
+                "refine_dcn_weight", "relative_position_bias_table") or (
+            leaf == "weight" and value.ndim == 1):
         return leaf, value
     raise ValueError(f"{'/'.join(path)}: no torch counterpart")
 

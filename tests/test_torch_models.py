@@ -93,16 +93,23 @@ def test_frozen_batch_norm():
     assert {n for n, _ in mod.named_buffers()} == {"mean", "var"}
 
 
-@pytest.mark.parametrize("depth", [18, 50])
-def test_resnet(depth):
+@pytest.mark.parametrize("depth, kw", [
+    (18, {}), (50, {}),
+    (50, dict(groups=4, base_width=4, out_indices=(1, 2, 3)))],
+    ids=["18", "50", "resnext50_4x4d_c3_c5"])
+def test_resnet(depth, kw):
+    """ResNet, and ResNeXt (groups 4, base width 4: conv2 grouped, widths
+    int(64 * 4 / 64) * 4 = 16 .. 128) returning C3..C5 only."""
     x = np.random.RandomState(5).randn(1, 64, 64, 3).astype(np.float32)
-    ref = ResNetRef(depth=depth)
-    v, mod = init_pair(ref, ResNet(depth), [x])
+    ref = ResNetRef(depth=depth, **kw)
+    v, mod = init_pair(ref, ResNet(depth, **kw), [x])
     outs_ref = ref.apply(v, x)
     with torch.no_grad():
         outs = mod(nchw(x))
-    assert len(outs) == len(outs_ref) == 4
-    for o, r in zip(outs, outs_ref):
+    n = len(kw.get("out_indices", range(4)))
+    assert len(outs) == len(outs_ref) == len(mod.out_channels) == n
+    for o, r, c in zip(outs, outs_ref, mod.out_channels):
+        assert r.shape[-1] == c
         assert_close_nhwc(o, r)
 
 

@@ -2,8 +2,9 @@
 a train step, TTA, soft-NMS, the evaluation path, the training data
 path: train pipeline, loader and checkpoint, Swin serving and an AdamW
 step, the hard and ship-only scenes, the HRSC labels, dataset and
-evaluators, the benchmark tool's modes, and a batch of the hard-aug
-train pipeline); the train pipelines of every config with hard-aug
+evaluators, the benchmark tool's modes, a batch of the hard-aug train
+pipeline, and a forward of HRNet, SSD-VGG and ResNeXt detectors); the
+train pipelines of every config with hard-aug
 steps build; the R-50 demo model's flax tree converts completely;
 CUDA-only entries raise without a GPU; CPU tensors never reach a
 kernel."""
@@ -154,7 +155,7 @@ NO_JAX_SCRIPT = textwrap.dedent("""
         assert eval_maoe(*args, ovthresh=0.7)[0] == 0.0
     # Swin: serving through the max-pool FPN, and one AdamW step with
     # DropPath firing
-    from orientedreppoints_tpu_torch.apis import build_trainer
+    from orientedreppoints_tpu_torch.apis import build_detector, build_trainer
     from orientedreppoints_tpu_torch.host import load_config
     swin_cfg = load_config("configs/dota/synth_swin_512.py")
     swin_cfg["model"]["backbone"].update(embed_dim=16, depths=[2, 2, 2, 2],
@@ -241,6 +242,29 @@ NO_JAX_SCRIPT = textwrap.dedent("""
         batch = next(iter(build_dataloader(ds, hard_cfg, batch_size=2)))
         assert batch["images"].shape == (2, 512, 512, 3)
         assert batch["gt_valid"].any()
+    # HRNet, SSD-VGG@512 and ResNeXt: a detector of each, one forward
+    tiny = lambda n, block, c: dict(num_modules=1, num_branches=n,
+                                    block=block, num_blocks=(1,) * n,
+                                    num_channels=c)
+    backbones = [
+        dict(type="HRNet", extra=dict(
+            stage1=tiny(1, "BOTTLENECK", (8,)),
+            stage2=tiny(2, "BASIC", (8, 16)),
+            stage3=tiny(3, "BASIC", (8, 16, 32)),
+            stage4=tiny(4, "BASIC", (8, 16, 32, 64)))),
+        dict(type="SSDVGG", input_size=512, depth=11),
+        dict(type="ResNeXt", depth=50, groups=4, base_width=4)]
+    for bb in backbones:
+        det = build_detector(dict(model=dict(
+            backbone=bb, neck=dict(out_channels=32, num_outs=5),
+            bbox_head=dict(num_classes=16, feat_channels=32,
+                           point_feat_channels=32))), "float32")
+        det.init_weights(torch.Generator().manual_seed(0))
+        with torch.no_grad():
+            outs = det.eval()(torch.zeros(1, 64, 64, 3))
+        assert [t.shape[1] for t in outs["cls_scores"]] == [8, 4, 2, 1, 1]
+        assert all(bool(torch.isfinite(t).all())
+                   for t in outs["pts_refine"]), bb["type"]
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "flax", "cv2",
                                            "orientedreppoints_tpu"))

@@ -49,7 +49,7 @@ def stage_times(pred, images):
         t0 = mark("prepare_ms", t0)
         m = pred.model
         x = imgs.to(m.dtype)
-        if m.backbone_type == "resnet":
+        if m.backbone_type != "swin":
             x = x.permute(0, 3, 1, 2).contiguous(
                 memory_format=torch.channels_last)
         feats = m.backbone(x)

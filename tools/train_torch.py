@@ -4,7 +4,8 @@
 
     python3 tools/train_torch.py CONFIG [--work_dir DIR] [--seed 0] \\
         [--resume_from DIR_OR_FILE | --load_from FILE] [--total_epochs N] \\
-        [--max_iters N] [--validate [--val_max_images N]] [--device cuda]
+        [--max_iters N] [--validate [--val_max_images N]] \\
+        [--pretrained_backbone resnet50.pth] [--device cuda]
 
 The config's train data (DotaDataset over .npy tiles, the train pipeline
 (mosaic and mixup take their extra tiles from the dataset), the loader of
@@ -12,7 +13,9 @@ its `tpu` section), its SGD or AdamW recipe and LR
 schedule (epochs counted in the loader's batches), and a checkpoint
 work_dir/ckpts/epoch_N.pt after every epoch.  --resume_from restores the
 model, optimizer, scheduler and step and goes on from the saved epoch;
---load_from takes only the weights.  --validate scores the val split
+--load_from takes only the weights.  --pretrained_backbone overwrites a
+ResNet / ResNeXt backbone from a torchvision .pth before training
+(utils/checkpoint.load_pretrained_backbone).  --validate scores the val split
 after every epoch (apis.run_inference + apis.evaluate_results).  Logs go
 to stdout and work_dir/train.log.
 """
@@ -34,14 +37,16 @@ import numpy as np  # noqa: E402
 def parse_args(argv=None):
     p = argparse.ArgumentParser(
         description=__doc__.split("\n\n")[0],
-        epilog="Not ported yet: --pretrained_backbone (a torchvision "
-               "ResNet .pth, ROADMAP Queue 1 item 4) and the host-RSS "
-               "re-exec --rss_limit_gb (ROADMAP Queue 1 item 8).")
+        epilog="Not ported yet: the host-RSS re-exec --rss_limit_gb "
+               "(ROADMAP Queue 1 item 8).")
     p.add_argument("config")
     p.add_argument("--work_dir")
     p.add_argument("--resume_from",
                    help="a checkpoint file, or a directory: its latest")
     p.add_argument("--load_from", help="a checkpoint file: weights only")
+    p.add_argument("--pretrained_backbone",
+                   help="a torchvision ResNet / ResNeXt .pth for the "
+                   "backbone, of the config's depth")
     p.add_argument("--seed", type=int, default=0,
                    help="initial weights, the loader's draws and the "
                    "DropPath masks")
@@ -85,6 +90,12 @@ def main(argv=None):
     model, _ = init_detector(cfg, device=device, seed=args.seed,
                              compute_dtype=tpu.get("compute_dtype",
                                                    "bfloat16"))
+    if args.pretrained_backbone:
+        checkpoint.load_pretrained_backbone(
+            model, args.pretrained_backbone,
+            cfg["model"]["backbone"].get("depth", 50))
+        log.info("loaded pretrained backbone from %s",
+                 args.pretrained_backbone)
     dataset = build_dataset(cfg["data"]["train"],
                             device_normalize=build_img_norm(cfg) is not None)
     loader = build_dataloader(dataset, cfg, seed=args.seed)
