@@ -1,8 +1,10 @@
 """Drive the PyTorch port's serving path, training step, TTA test path,
 evaluation path (easy and hard scenes, HRSC scoring), Swin-T, HRNet-W32
 and SSD-VGG16 serving and training, ResNeXt-50 serving, a torchvision
-backbone file loaded, and the synthetic benchmark's training, plain and
-with the hard-aug recipe, on one NVIDIA GPU.
+backbone file loaded, the synthetic benchmark's training, plain and
+with the hard-aug recipe, and real DOTA input (PNG scenes, the
+multi-scale prep, the test tool and training on the tiles), on one
+NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -138,10 +140,25 @@ Phases, each printing one line or more (a failed phase exits non-zero):
      counted steps through the loader and apis.train_epochs (losses,
      refine positives, step ms, the loader's wait share, launches); one
      more step with each training kernel's entry held against its plain
-     version, and each kernel timed at those inputs.
+     version, and each kernel timed at those inputs;
+  13. dota_input: DOTA_SCENES (2048 x 1536 and 1600 x 2400) rendered and
+     written as PNG (data/image_io) in raw/{train,val,test}, read back
+     equal, the decoder's ms a megapixel; devkit/prepare.py's
+     prepare_dota1_ms at subsize 1024 (rates 0.5, 1.0, 1.5; seconds by
+     rate), every tile equal to its crop of host.resize_cubic_uint8, the
+     rate-1 labels equal to the .npy route's; two ship-only BMP scenes
+     through prepare_hrsc2016 and the HrscDataset; tools/test_torch.py's
+     path (R-50 demo config, bf16, batch 4, seeded weights from a state
+     dict file) over the test split's PNG tiles counted, its first 8
+     tiles through the plain versions too (Task1 file for file), images/s
+     with the PNG loading and the test pipeline's ms a tile alone,
+     the merged files, the val labels as detections scoring mAP 1; 3 SGD
+     steps on the trainval tiles through the config's train pipeline and
+     loader (batch 2): finite losses, the loader's wait share, launches a
+     step.
 Each counted run (slice, tta, iou_path, swin, hrnet, ssd_vgg, resnext,
 eval, hard_eval's two, train, swin_train, hrnet_train, ssd_vgg_train,
-synth_train, hard_aug_train) sets the launch counts to
+synth_train, hard_aug_train, dota_input's two) sets the launch counts to
 0 just before and reads them just after; it fails if a kernel of its
 path was not launched.  Then one JSON line with every kernel's numbers,
 the card's line from nvidia-smi, and {"ok": true, "device": {...}} last.
@@ -167,6 +184,7 @@ import contextlib
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -312,6 +330,17 @@ LOSS_NOISE_FACTOR = 10.0
 HARD_AUG_CONFIG = "configs/dota/synth_r50_512_hard_aug.py"
 HARD_AUG_SCENES = 8
 HARD_AUG_STEPS = 6  # counted, after one warm-up step
+# phase dota_input: two DOTA-sized scenes (h, w) through the PNG codec,
+# the multi-scale prep (subsize 1024), the test tool and 3 training steps
+DOTA_SCENES = ((1536, 2048), (2400, 1600))
+DOTA_OBJECTS = 120
+DOTA_SEED = 30000
+DOTA_SUBSIZE = 1024
+DOTA_GAPS = (824, 500)  # prepare_dota1_ms's: rate 1.0, the other rates
+DOTA_TRAIN_STEPS = 3
+DOTA_PLAIN_IMAGES = 2 * BATCH  # test tiles through the plain versions too
+HRSC_PREP_SCENES = 2
+HRSC_PREP_SIZE = (600, 1000)  # (h, w) of the ship-only BMP scenes
 
 
 def say(phase: str, **fields) -> None:
@@ -1434,11 +1463,12 @@ def phase_eval(dev, ops_mod, card):
                                     prefix="V")
         stage("render_s")
         ImgSplit(path("val_raw"), path("val_split"), gap=EVAL_GAP,
-                 subsize=EVAL_SUBSIZE).splitdata()
+                 subsize=EVAL_SUBSIZE, ext=".npy", num_process=1).splitdata()
         stage("split_s")
         cfg = load_config(EVAL_CONFIG)
         cfg["data"]["test"].update(
-            ann_file=dota2coco_train(path("val_split"), path("test.json")),
+            ann_file=dota2coco_train(path("val_split"), path("test.json"),
+                                     ext=".npy"),
             img_prefix=path("val_split", "images"), test_mode=True)
         ds = apis.build_dataset(cfg["data"]["test"])
         stage("json_dataset_s")
@@ -1573,11 +1603,12 @@ def hard_val_set(wd, n, hard, specs=None):
                                 seed=EVAL_SEED, prefix="V", hard=hard,
                                 specs=specs)
     ImgSplit(os.path.join(wd, "val_raw"), os.path.join(wd, "val_split"),
-             gap=EVAL_GAP, subsize=EVAL_SUBSIZE).splitdata()
+             gap=EVAL_GAP, subsize=EVAL_SUBSIZE, ext=".npy",
+             num_process=1).splitdata()
     cfg = load_config(HARD_CONFIG)
     cfg["data"]["test"].update(
         ann_file=dota2coco_train(os.path.join(wd, "val_split"),
-                                 os.path.join(wd, "test.json")),
+                                 os.path.join(wd, "test.json"), ext=".npy"),
         img_prefix=os.path.join(wd, "val_split", "images"), test_mode=True)
     return names, apis.build_dataset(cfg["data"]["test"]), cfg
 
@@ -2379,10 +2410,12 @@ def synth_train_data(wd, scenes, config=None, hard=False):
     generate_synth_dota(raw, scenes, size=EVAL_SCENE_SIZE,
                         n_objects=EVAL_OBJECTS, seed=SEED, prefix="T",
                         hard=hard)
-    ImgSplit(raw, split, gap=EVAL_GAP, subsize=EVAL_SUBSIZE).splitdata()
+    ImgSplit(raw, split, gap=EVAL_GAP, subsize=EVAL_SUBSIZE, ext=".npy",
+             num_process=1).splitdata()
     cfg = load_config(config or EVAL_CONFIG)
     cfg["data"]["train"].update(
-        ann_file=dota2coco_train(split, os.path.join(wd, "train.json")),
+        ann_file=dota2coco_train(split, os.path.join(wd, "train.json"),
+                                 ext=".npy"),
         img_prefix=os.path.join(split, "images"))
     return cfg, train_dataset(cfg)
 
@@ -2787,6 +2820,426 @@ def phase_hard_aug_train(dev, ops_mod, card):
     return ok, launches
 
 
+def render_dota_scene(rng, h: int, w: int, n_objects: int, specs=None):
+    """A scene of h x w: render_scene at the longer side, cropped, with
+    the objects that lie wholly inside the crop."""
+    from orientedreppoints_tpu_torch.data.synth import render_scene
+
+    img, objs = render_scene(rng, size=max(h, w), n_objects=n_objects,
+                             specs=specs)
+    keep = [o for o in objs if o["poly"][0::2].max() < w
+            and o["poly"][1::2].max() < h]
+    return np.ascontiguousarray(img[:h, :w]), keep
+
+
+def paeth_png(path: str, img: np.ndarray) -> None:
+    """img (H, W, 3) BGR as an RGB PNG whose every row is Paeth-filtered
+    (libpng's adaptive encoder picks Paeth and Average, which the decoder
+    rebuilds as a wavefront; the port's writer filters Up)."""
+    import struct
+    import zlib
+
+    from orientedreppoints_tpu_torch.data import image_io
+
+    h, w, _ = img.shape
+    x = img[..., ::-1].reshape(h, w * 3).astype(np.int16)
+    up = np.vstack([np.zeros((1, w * 3), np.int16), x[:-1]])
+    left = np.hstack([np.zeros((h, 3), np.int16), x[:, :-3]])
+    upleft = np.hstack([np.zeros((h, 3), np.int16), up[:, :-3]])
+    pa, pb = np.abs(up - upleft), np.abs(left - upleft)
+    pc = np.abs(left + up - 2 * upleft)
+    pred = np.where((pa <= pb) & (pa <= pc), left,
+                    np.where(pb <= pc, up, upleft))
+    rows = np.hstack([np.full((h, 1), 4, np.uint8),
+                      ((x - pred) & 255).astype(np.uint8)])
+    with open(path, "wb") as f:
+        f.write(image_io.PNG_SIGNATURE
+                + image_io._chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8,
+                                                       2, 0, 0, 0))
+                + image_io._chunk(b"IDAT", zlib.compress(rows.tobytes(), 1))
+                + image_io._chunk(b"IEND", b""))
+
+
+def decode_ms_per_mpx(path: str, reps: int = 3) -> tuple[float, np.ndarray]:
+    """image_io.imread of path: the best of reps in ms a megapixel, and
+    the image."""
+    from orientedreppoints_tpu_torch.data import image_io
+
+    best = math.inf
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        img = image_io.imread(path)
+        best = min(best, time.perf_counter() - t0)
+    return best * 1e3 / (img.shape[0] * img.shape[1] / 1e6), img
+
+
+@contextlib.contextmanager
+def timed_by_rate(cls, clock: dict):
+    """cls.splitdata's seconds added up by rate into clock."""
+    fn = cls.splitdata
+
+    def timed(self, rate=1.0):
+        t0 = time.perf_counter()
+        fn(self, rate)
+        clock[rate] = clock.get(rate, 0.0) + time.perf_counter() - t0
+    cls.splitdata = timed
+    try:
+        yield
+    finally:
+        cls.splitdata = fn
+
+
+def tile_errors(folder: str, scenes: dict) -> tuple[int, int]:
+    """Every tile image under folder against the crop of
+    resize_cubic_uint8(scene, rate) that its name gives (zero-padded to
+    DOTA_SUBSIZE) -> (tiles checked, tiles that differ)."""
+    from orientedreppoints_tpu_torch.data import image_io
+    from orientedreppoints_tpu_torch.devkit.dota_utils import parse_tile_name
+    from orientedreppoints_tpu_torch.host import resize_cubic_uint8
+
+    resized, checked, bad = {}, 0, 0
+    for f in sorted(os.listdir(folder)):
+        name, rate, left, up = parse_tile_name(os.path.splitext(f)[0])
+        if (name, rate) not in resized:
+            resized[name, rate] = resize_cubic_uint8(scenes[name], rate)
+        want = np.zeros((DOTA_SUBSIZE, DOTA_SUBSIZE, 3), np.uint8)
+        crop = resized[name, rate][up:up + DOTA_SUBSIZE,
+                                   left:left + DOTA_SUBSIZE]
+        want[:crop.shape[0], :crop.shape[1]] = crop
+        checked += 1
+        bad += not np.array_equal(image_io.imread(os.path.join(folder, f)),
+                                  want)
+    return checked, bad
+
+
+def hrsc_xml(objs) -> str:
+    """HRSC2016 XML of rotated boxes (poly2rbox's cx, cy, w, h, angle)."""
+    from orientedreppoints_tpu_torch.core.rbox import poly2rbox
+
+    boxes = poly2rbox(np.stack([o["poly"] for o in objs])) if objs else []
+    body = "".join(
+        f"<HRSC_Object><difficult>0</difficult><mbox_cx>{b[0]}</mbox_cx>"
+        f"<mbox_cy>{b[1]}</mbox_cy><mbox_w>{b[2]}</mbox_w><mbox_h>{b[3]}"
+        f"</mbox_h><mbox_ang>{b[4]}</mbox_ang></HRSC_Object>" for b in boxes)
+    return f"<HRSC_Image><HRSC_Objects>{body}</HRSC_Objects></HRSC_Image>"
+
+
+def phase_dota_input(dev, ops_mod, card):
+    """Real DOTA input without cv2: two DOTA-sized scenes rendered and
+    written as PNG in raw/{train,val,test} (test without labels), each
+    read back equal; the decoder's ms a megapixel (the port's Up-filtered
+    PNGs and a Paeth-filtered one); devkit/prepare.prepare_dota1_ms
+    (subsize 1024, rate 1.0 at gap 824, 0.5 and 1.5 at 500; seconds by
+    rate), every tile equal to its crop of resize_cubic_uint8(scene,
+    rate), the rate-1 labels equal to the .npy route's; two ship-only
+    scenes as BMP through prepare_hrsc2016 and the HrscDataset; then
+    tools/test_torch.py's path in this process over the test split's PNG
+    tiles with the R-50 demo config at full width (bf16, batch 4, seeded
+    weights perturbed as in `slice`, from a state dict file): counted
+    through the kernels, then the first DOTA_PLAIN_IMAGES tiles through
+    the plain DCN forward, over-mask and scan (each min-area-rect call
+    checked against its plain version), Task1 files of those tiles byte
+    for byte; images/s with the PNG loading, the test pipeline's ms a
+    tile alone, the merged
+    files, and the val scene's labels as detections scoring mAP 1 and
+    mAOE 0; last DOTA_TRAIN_STEPS SGD steps of the config (batch
+    TRAIN_BATCH) on the trainval tiles through its train pipeline and
+    loader, every loss finite and each training kernel launched as often
+    a step as the step calls it."""
+    import importlib.util
+    import logging
+
+    from orientedreppoints_tpu_torch import apis
+    from orientedreppoints_tpu_torch.data import image_io
+    from orientedreppoints_tpu_torch.data.synth import SYNTH_CLASS_SPECS
+    from orientedreppoints_tpu_torch.devkit import (evaluation, hrsc,
+                                                    img_split, prepare,
+                                                    result_merge)
+    from orientedreppoints_tpu_torch.devkit.dota_utils import (
+        DOTA10_CLASSES, parse_dota_poly, write_dota_poly)
+    from orientedreppoints_tpu_torch.host import load_config
+
+    rng = np.random.RandomState(DOTA_SEED)
+    secs = {}
+    clock = [time.perf_counter()]
+
+    def stage(name):
+        now = time.perf_counter()
+        secs[name] = now - clock[0]
+        clock[0] = now
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as wd:
+        def path(*p):
+            return os.path.join(wd, *p)
+
+        # 1. scenes: A in train, B in val and (unlabelled) test
+        scenes, labels = {}, {}
+        for name, (h, w) in zip(("DA0000", "DB0000"), DOTA_SCENES):
+            scenes[name], labels[name] = render_dota_scene(
+                rng, h, w, DOTA_OBJECTS)
+        stage("render_s")
+        where = {"train": ["DA0000"], "val": ["DB0000"], "test": ["DB0000"]}
+        for split, names in where.items():
+            os.makedirs(path("raw", split, "images"))
+            if split != "test":
+                os.makedirs(path("raw", split, "labelTxt"))
+            for n in names:
+                image_io.imwrite(path("raw", split, "images", n + ".png"),
+                                 scenes[n])
+                if split != "test":
+                    write_dota_poly(path("raw", split, "labelTxt",
+                                         n + ".txt"), labels[n])
+        stage("write_png_s")
+        round_trip = all(
+            np.array_equal(image_io.imread(path("raw", s, "images",
+                                                n + ".png")), scenes[n])
+            for s, names in where.items() for n in names)
+        decode = {}
+        for n in scenes:
+            decode[n], _ = decode_ms_per_mpx(path("raw", "train" if n ==
+                                                  "DA0000" else "val",
+                                                  "images", n + ".png"))
+        paeth_png(path("paeth.png"), scenes["DA0000"])
+        decode["DA0000_paeth"], back = decode_ms_per_mpx(path("paeth.png"),
+                                                          1)
+        round_trip &= np.array_equal(back, scenes["DA0000"])
+        stage("decode_checks_s")
+
+        # 2. prep: split seconds by rate, every tile, the .npy route
+        split_s = {}
+        with timed_by_rate(img_split.ImgSplit, split_s):
+            trainval, test = prepare.prepare_dota1_ms(
+                path("raw"), path("prep"), gap_ss=DOTA_GAPS[0],
+                gap_ms=DOTA_GAPS[1], subsize=DOTA_SUBSIZE)
+        stage("prepare_dota1_ms_s")
+        tiles = {d: sorted(os.listdir(os.path.join(d, "images")))
+                 for d in (trainval, test)}
+        checked, bad = 0, 0
+        for d in (trainval, test):
+            c, b = tile_errors(os.path.join(d, "images"), scenes)
+            checked, bad = checked + c, bad + b
+        stage("tile_checks_s")
+        os.makedirs(path("raw_npy", "images"))
+        np.save(path("raw_npy", "images", "DA0000.npy"), scenes["DA0000"])
+        shutil.copytree(path("raw", "train", "labelTxt"),
+                        path("raw_npy", "labelTxt"))
+        img_split.ImgSplit(path("raw_npy"), path("npy_split"),
+                           gap=DOTA_GAPS[0],
+                           subsize=DOTA_SUBSIZE, ext=".npy",
+                           num_process=1).splitdata(1.0)
+        npy_labels = sorted(os.listdir(path("npy_split", "labelTxt")))
+        png_labels = sorted(f for f in os.listdir(os.path.join(
+            trainval, "labelTxt")) if f.startswith("DA0000__1.0__"))
+        labels_equal = npy_labels == png_labels and all(
+            open(path("npy_split", "labelTxt", f), "rb").read()
+            == open(os.path.join(trainval, "labelTxt", f), "rb").read()
+            for f in npy_labels)
+        stage("npy_route_s")
+
+        # HRSC: ship-only scenes as BMP -> prepare_hrsc2016 -> dataset
+        ships = {"ship": SYNTH_CLASS_SPECS["ship"]}
+        hrsc_dir = path("hrsc", "Train")
+        os.makedirs(os.path.join(hrsc_dir, "AllImages"))
+        os.makedirs(os.path.join(hrsc_dir, "Annotations"))
+        bmps, n_ships = {}, 0
+        for k in range(HRSC_PREP_SCENES):
+            name = f"10000{k}"
+            bmps[name + ".bmp"], objs = render_dota_scene(
+                rng, *HRSC_PREP_SIZE, 12,
+                specs=ships)
+            n_ships += len(objs)
+            image_io.imwrite(os.path.join(hrsc_dir, "AllImages",
+                                          name + ".bmp"),
+                             bmps[name + ".bmp"])
+            with open(os.path.join(hrsc_dir, "Annotations", name + ".xml"),
+                      "w") as f:
+                f.write(hrsc_xml(objs))
+        hrsc.prepare_hrsc2016(path("hrsc"))
+        hrsc_ds = apis.build_dataset(dict(
+            type="HrscDataset",
+            ann_file=os.path.join(hrsc_dir, "hrsc_train.json"),
+            img_prefix=os.path.join(hrsc_dir, "images"), test_mode=True,
+            pipeline=[dict(type="LoadImageFromFile")]))
+        hrsc_ok = (len(hrsc_ds) == HRSC_PREP_SCENES
+                   and sum(len(a["labels"]) for a in hrsc_ds.anns) == n_ships
+                   and all(np.array_equal(
+                       hrsc_ds[i]["img"],
+                       bmps[hrsc_ds[i]["img_info"]["file_name"]])
+                       for i in range(len(hrsc_ds))))
+        stage("hrsc_s")
+        say("dota_input_data", scenes={n: list(s.shape[:2])
+                                       for n, s in scenes.items()},
+            scene_gts={n: len(v) for n, v in labels.items()},
+            png_round_trip_equal=round_trip, decode_ms_per_mpx=decode,
+            split_s_by_rate={str(r): s for r, s in split_s.items()},
+            tiles_trainval=len(tiles[trainval]),
+            tiles_test=len(tiles[test]), tiles_checked=checked,
+            tiles_differing=bad, rate1_labels_equal_npy_route=labels_equal,
+            hrsc_images=len(hrsc_ds), hrsc_ships=n_ships, hrsc_ok=hrsc_ok,
+            **secs)
+
+        # 3. serving: tools/test_torch.py's path on the test split
+        with open(CONFIG) as f:
+            text = f.read()
+        for split, d, ann in (("test", test, "test_dota.json"),
+                              ("train", trainval, "trainval_dota.json")):
+            text += (f"\ndata[{split!r}].update(ann_file="
+                     f"{os.path.join(d, ann)!r}, img_prefix="
+                     f"{os.path.join(d, 'images')!r})\n")
+        with open(path("dota_r50.py"), "w") as f:
+            f.write(text)
+        sd = perturbed_weights(np.random.default_rng(SEED + 8), CONFIG)
+        torch.save(sd, path("w.pt"))
+        spec = importlib.util.spec_from_file_location("test_torch",
+                                                      "tools/test_torch.py")
+        tool = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(tool)
+        log = logging.getLogger("test_torch")
+        common = [path("dota_r50.py"), "--checkpoint", path("w.pt"),
+                  "--batch_size", str(BATCH), "--device", str(dev)]
+        args = tool.parse_args(common + [
+            "--out", path("results.npz"), "--format_task1", path("task1"),
+            "--merge_dir", path("merged")])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops_mod.reset_launch_counts()
+        results, ds, serve_s = tool.infer(args, log)
+        launches = ops_mod.launch_counts()
+        serve_peak = torch.cuda.max_memory_allocated()
+        clock[0] = time.perf_counter()
+        tool.emit_outputs(args, results, ds, log)
+        stage("write_merge_s")
+        # the host's share: the test pipeline alone (PNG decode included)
+        t0 = time.perf_counter()
+        for i in range(DOTA_PLAIN_IMAGES):
+            ds[i]
+        host_ms = (time.perf_counter() - t0) * 1e3 / DOTA_PLAIN_IMAGES
+        # the first batches through the plain versions (the plain
+        # over-mask takes ~2.2 s a batch): their Task1 files against the
+        # kernel route's of the same tiles
+        rects = []
+        with plain_inference(rects):
+            results_plain, _, plain_s = tool.infer(tool.parse_args(
+                common + ["--max_images", str(DOTA_PLAIN_IMAGES)]), log)
+        subset = {k: results[k] for k in results_plain}
+        same = same_results(subset, results_plain)
+        for folder, res in (("sub_kernel", subset),
+                            ("sub_plain", results_plain)):
+            result_merge.write_task1_results(res, DOTA10_CLASSES,
+                                             path(folder))
+        task1_equal = sorted(os.listdir(path("sub_kernel"))) == sorted(
+            os.listdir(path("sub_plain"))) and all(
+            open(path("sub_kernel", f), "rb").read()
+            == open(path("sub_plain", f), "rb").read()
+            for f in os.listdir(path("sub_kernel")))
+        clock[0] = time.perf_counter()
+        # the classes the val scene has (VOC AP of a class without a gt
+        # is not 1)
+        classnames = sorted({o["name"] for o in labels["DB0000"]})
+        annopath = path("raw", "val", "labelTxt", "{:s}.txt")
+        mAP, _ = evaluation.eval_dota_task1(
+            path("merged", "Task1_{:s}.txt"), annopath, ["DB0000"],
+            classnames=classnames, use_07_metric=False)
+        oracle = {"DB0000": [np.array(
+            [list(o["poly"]) + [1.0] for o in parse_dota_poly(
+                annopath.format("DB0000")) if o["name"] == c],
+            np.float64).reshape(-1, 9) for c in DOTA10_CLASSES]}
+        result_merge.write_task1_results(oracle, DOTA10_CLASSES,
+                                         path("oracle"))
+        o_det = path("oracle", "Task1_{:s}.txt")
+        o_map, _ = evaluation.eval_dota_task1(
+            o_det, annopath, ["DB0000"], classnames=classnames,
+            use_07_metric=False)
+        o_maoe, _ = evaluation.eval_maoe(o_det, annopath, ["DB0000"],
+                                         classnames=classnames,
+                                         ovthresh=0.7)
+        stage("score_s")
+        dets = [sum(len(a) for a in per) for per in results.values()]
+        npz_keys = len(np.load(path("results.npz")).files)
+        merged_dets = count_lines(path("merged"))
+
+        # 4. training: DOTA_TRAIN_STEPS steps on the trainval tiles
+        cfg = load_config(path("dota_r50.py"))
+        train_ds = train_dataset(cfg)
+        loader = apis.build_dataloader(train_ds, cfg, batch_size=TRAIN_BATCH,
+                                       seed=SEED)
+        model, _ = apis.init_detector(cfg, state_dict=sd,
+                                      compute_dtype=cfg["tpu"][
+                                          "compute_dtype"], device=dev)
+        opt, sched, step = apis.build_trainer(model, cfg, len(loader),
+                                              seed=SEED)
+        routes = synth_kernel_routes()
+        records, hull_calls, rect_calls = [], [], []
+
+        def on_step(epoch, losses, stats, batch):
+            records.append({k: float(v) for k, v in losses.items()})
+            say("dota_input_train_step", step=len(records), **records[-1],
+                refine_pos_per_image=(stats["gt_inds"] > 0).sum(1).tolist(),
+                gts=int(batch["gt_valid"].sum()))
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops_mod.reset_launch_counts()
+        with count_calls(*routes["min_area_rect_hull"][:2], hull_calls), \
+                count_calls(*routes["min_area_rect_rect"][:2], rect_calls):
+            run = apis.train_epochs(model, loader, step, opt, sched,
+                                    path("ckpts"), 1,
+                                    max_iters=DOTA_TRAIN_STEPS,
+                                    ckpt_interval=10,
+                                    meta=dict(classes=list(train_ds.CLASSES)),
+                                    on_step=on_step)
+        train_launches = ops_mod.launch_counts()
+        train_peak = torch.cuda.max_memory_allocated()
+        del model, opt, sched, step
+        n_train = len(train_ds)
+
+    n = len(records)
+    per_step = {k: train_launches[k] / max(n, 1) for k in TRAIN_KERNELS}
+    calls = dict(hull=len(hull_calls) / max(n, 1),
+                 rect=len(rect_calls) / max(n, 1))
+    # a step: the min-area-rect kernel for the hull once and the rect
+    # twice, the hull IoU once, the paired DCN forward and backward once
+    launches_ok = (n == DOTA_TRAIN_STEPS and calls == dict(hull=1, rect=2)
+                   and per_step == {"min_area_rect": 3, "hull_quad_iou": 1,
+                                    "deform_sample_pair": 1,
+                                    "deform_sample_pair_backward": 1})
+    finite = all(np.isfinite(v) for r in records for v in r.values())
+    ok_serve = (all(launches[k] > 0 for k in SERVING_KERNELS)
+                and len(results) == len(tiles[test])
+                and len(results_plain) == DOTA_PLAIN_IMAGES and same
+                and task1_equal
+                and len(rects) == -(-DOTA_PLAIN_IMAGES // BATCH)
+                and all(r["ok"] for r in rects) and min(dets) > 0
+                and abs(o_map - 1.0) <= 1e-12 and o_maoe == 0.0
+                and np.isfinite(mAP) and merged_dets > 0)
+    ok = (round_trip and bad == 0 and checked == sum(map(len, tiles.values()))
+          and labels_equal and hrsc_ok and ok_serve and finite
+          and launches_ok)
+    waits, times = run["wait_s"], run["step_s"]
+    say("dota_input", config=CONFIG, batch=BATCH,
+        dtype=cfg["tpu"]["compute_dtype"],
+        test_tiles=len(results), launches=launches,
+        images_per_s=len(results) / serve_s, serve_s=serve_s,
+        host_pipeline_ms_per_tile=host_ms, plain_tiles=len(results_plain),
+        plain_serve_s=plain_s, max_memory_allocated_bytes=serve_peak,
+        dets_per_tile_min=min(dets), dets_tiles=sum(dets),
+        dets_merged=merged_dets, npz_arrays=npz_keys,
+        plain_equal_det_for_det=same, task1_byte_equal=task1_equal,
+        min_area_rect_calls_checked=len(rects),
+        min_area_rect_ties=sum(r["ties"] for r in rects),
+        merged_mAP=mAP, oracle_mAP=o_map, oracle_mAOE_deg=o_maoe,
+        train_tiles=n_train, train_batch=TRAIN_BATCH, train_steps=n,
+        train_losses=records, step_ms=[t * 1e3 for t in times],
+        loader_wait_ms=[w * 1e3 for w in waits],
+        loader_wait_share=sum(waits) / (sum(waits) + sum(times)),
+        train_max_memory_allocated_bytes=train_peak,
+        train_launches=train_launches, launches_per_step=per_step,
+        min_area_rect_entry_calls_per_step=calls, finite=finite,
+        phase_s=time.perf_counter() - t_phase, **secs, card=card, ok=ok)
+    return ok, launches, train_launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2893,16 +3346,19 @@ def main() -> int:
     ok_synth, launches_synth = phase_synth_train(dev, ops_mod, card)
     torch.cuda.empty_cache()
     ok_hard_aug, launches_hard_aug = phase_hard_aug_train(dev, ops_mod, card)
+    torch.cuda.empty_cache()
+    ok_dota, launches_dota, launches_dota_train = phase_dota_input(
+        dev, ops_mod, card)
 
     # launches: each kernel's count over the counted runs of the paths
     # that run it (serving, training, TTA, the IoU path, eval, Swin,
     # HRNet, SSD-VGG and ResNeXt serving, Swin, HRNet and SSD-VGG
-    # training); the single-image over-mask is the TTA run's over-mask
-    # count
+    # training, the DOTA input's serving and training); the single-image
+    # over-mask is the TTA run's over-mask count
     runs = (launches, launches_train, launches_tta, launches_iou,
             launches_eval, launches_hard, launches_hard_tta, launches_synth,
             launches_hard_aug, launches_swin, launches_swin_train,
-            *launches_more)
+            launches_dota, launches_dota_train, *launches_more)
     single = (launches_tta, launches_hard_tta)  # the single-image entry
     counts = {name: sum(r[name] for r in runs) for name in ops_mod.KERNELS}
     counts["quad_over_mask"] = sum(
@@ -2921,7 +3377,7 @@ def main() -> int:
     if not (all(r["ok"] for r in kernels.values()) and ok_entries
             and ok_host and ok_slice and ok_decode and ok_tta and ok_tta_check
             and ok_iou and ok_eval and ok_hard and ok_train and ok_check
-            and ok_synth and ok_hard_aug
+            and ok_synth and ok_hard_aug and ok_dota
             and ok_swin and ok_swin_decode and ok_swin_train
             and ok_swin_check and all(ok_more)):
         print("chip_smoke: a phase failed", file=sys.stderr)

@@ -8,10 +8,11 @@ names mirror it so each function has an obvious counterpart:
   core/        point grids, offset decoding, polygon -> rbox, and the
                training loss: assigners, targets, APAA, losses,
                compute_losses
-  data/        synthetic DOTA scenes (cv2's fills in numpy), DotaDataset
-               and its test pipeline (.npy images)
+  data/        synthetic DOTA scenes (cv2's fills in numpy), PNG / BMP
+               files (image_io), DotaDataset and its pipelines
   devkit/      DOTA devkit in numpy: labelTxt, polygon IoU and NMS,
-               ImgSplit, COCO-poly json, Task1 / mAOE evaluators, merge
+               ImgSplit at any rate, COCO-poly json, the DOTA and HRSC
+               prep, Task1 / mAOE evaluators, merge
   ops/         geometry, min-area-rect and hulls, hull-gt IoU, quad IoU
                over-mask, rotated NMS, deformable conv (forward and
                backward); each kernel beside its plain PyTorch version
@@ -23,7 +24,7 @@ names mirror it so each function has an obvious counterpart:
 
 Every kernel wrapper runs its plain PyTorch version for CPU tensors and its
 CUDA kernel (built from ``csrc/`` at first use) for CUDA tensors.  Nothing
-here imports JAX, flax or cv2.
+here imports JAX, flax, cv2, PIL or imageio.
 """
 
 __version__ = "0.1.0"

@@ -3,10 +3,12 @@ data/pipelines.py, after mmdet/datasets/pipelines/{loading,transforms}.py
 and the reference's poly_transforms.py), in numpy and CPU tensors on the
 host: LoadImageFromFile (with its decoded-image cache), LoadAnnotations,
 CorrectBox, RotateResize, RotateRandomFlip, Normalize, Pad, FilterEmpty,
-and the hard-aug transforms HSVAugment, PolyRandomRotate, RandomRotate,
-PolyMosaic, PolyMosaic9 and MixUp with MultiSamplePipeline.
+the hard-aug transforms HSVAugment, PolyRandomRotate, RandomRotate,
+PolyMosaic, PolyMosaic9 and MixUp with MultiSamplePipeline, and the debug
+stage PolyImgPlot.
 
-Images are .npy arrays (BGR uint8).  RotateResize resizes through
+Images are read by data/image_io (PNG, BMP or .npy, BGR uint8, as
+cv2.imread gives them).  RotateResize resizes through
 host.imrescale / host.resize_uint8, cv2's uint8 INTER_LINEAR in the
 port's own arithmetic; CorrectBox snaps each gt to cv2's minAreaRect
 corners through data/rect.py; the rotations and the mosaics' affine crop
@@ -25,6 +27,7 @@ rng.
 
 from __future__ import annotations
 
+import os
 import os.path as osp
 from typing import Sequence
 
@@ -33,7 +36,7 @@ import torch
 
 from .. import host
 from ..core.rbox import poly2rbox, rbox2poly
-from . import color, rect, warp
+from . import color, image_io, rect, synth, warp
 
 PIPELINES = {}
 
@@ -60,10 +63,6 @@ class Compose:
         return results
 
 
-# the port's transforms take uint8 images
-UNPORTED_OPTIONS = {"LoadImageFromFile": ("to_float32",)}
-
-
 def build_pipeline(cfgs: Sequence[dict]):
     """A Compose, (results, rng=None) -> results, from mmdet-style
     {'type': ...} dicts.  With fusion steps (PolyMosaic, PolyMosaic9,
@@ -75,9 +74,6 @@ def build_pipeline(cfgs: Sequence[dict]):
         t = cfg.pop("type")
         if t not in PIPELINES:
             raise NotImplementedError(f"pipeline step {t} is not ported")
-        for key in UNPORTED_OPTIONS.get(t, ()):
-            if key in cfg:
-                raise NotImplementedError(f"{t}'s {key} is not ported")
         steps.append(PIPELINES[t](**cfg))
     fusion = [i for i, s in enumerate(steps)
               if getattr(s, "NUM_SAMPLES", 1) > 1]
@@ -104,23 +100,23 @@ CACHE_MAX_ITEMS = 4096  # images LoadImageFromFile(cache=True) keeps
 
 @register
 class LoadImageFromFile:
-    """Load img_prefix/file_name, a .npy BGR image, as mmcv.imread would
-    give it; start the list of box fields.  cache keeps up to
-    CACHE_MAX_ITEMS decoded images by path (the first ones read) and
-    hands out copies, as later steps write into the image."""
+    """Load img_prefix/file_name (.png, .bmp or .npy) through
+    image_io.imread, BGR uint8 as mmcv.imread gives it (float32 with
+    to_float32); start the list of box fields.  A file that is missing
+    raises FileNotFoundError, one that image_io does not read
+    ImageReadError (cv2.imread's None, which the JAX step turns into
+    FileNotFoundError).  cache keeps up to CACHE_MAX_ITEMS decoded images
+    by path (the first ones read) and hands out copies, as later steps
+    write into the image."""
 
-    def __init__(self, cache: bool = False):
+    def __init__(self, to_float32: bool = False, cache: bool = False):
+        self.to_float32 = to_float32
         self.cache = {} if cache else None
 
     def read(self, path: str) -> np.ndarray:
-        if not path.endswith(".npy"):
-            raise ValueError(f"{path}: the port reads images as .npy "
-                             "arrays (BGR uint8) only")
         if self.cache is not None and path in self.cache:
             return self.cache[path].copy()
-        if not osp.exists(path):
-            raise FileNotFoundError(path)
-        img = np.load(path)
+        img = image_io.imread(path)
         if self.cache is not None and len(self.cache) < CACHE_MAX_ITEMS:
             self.cache[path] = img.copy()
         return img
@@ -129,6 +125,8 @@ class LoadImageFromFile:
         path = osp.join(results.get("img_prefix", ""),
                         results["img_info"]["file_name"])
         img = self.read(path)
+        if self.to_float32:
+            img = img.astype(np.float32)
         results["filename"] = path
         results["img"] = img
         results["img_shape"] = img.shape
@@ -707,6 +705,45 @@ class MixUp:
         out["gt_bboxes"] = np.concatenate([r1["gt_bboxes"], r2["gt_bboxes"]])
         out["gt_labels"] = np.concatenate([r1["gt_labels"], r2["gt_labels"]])
         return out
+
+
+@register
+class PolyImgPlot:
+    """Debug stage: draw the gt polygons on a copy of the image (its uint8
+    cast) and write img_save_path/sample_NNNNN.png, for the first max_imgs
+    samples; the results pass through.  Each polygon rounded half to even,
+    closed, thickness 2, in its label's colour (cv2.polylines through
+    synth.polylines, the file through image_io.imwrite)."""
+
+    COLORS = [
+        (54, 67, 244), (99, 30, 233), (176, 39, 156), (183, 58, 103),
+        (181, 81, 63), (243, 150, 33), (212, 188, 0), (136, 150, 0),
+        (80, 175, 76), (74, 195, 139), (57, 220, 205), (59, 235, 255),
+        (0, 152, 255), (34, 87, 255), (72, 85, 121), (180, 180, 180),
+    ]
+
+    def __init__(self, img_save_path: str = "work_dirs/pipeline_vis",
+                 max_imgs: int = 100):
+        self.save_path = img_save_path
+        self.max_imgs = max_imgs
+        self.count = 0
+
+    def __call__(self, results):
+        if results is None or self.count >= self.max_imgs:
+            return results
+        os.makedirs(self.save_path, exist_ok=True)
+        img = np.asarray(results["img"]).astype(np.uint8)
+        polys = np.asarray(results.get("gt_bboxes",
+                                       np.zeros((0, 8), np.float32)))
+        labels = np.asarray(results.get("gt_labels",
+                                        np.zeros(len(polys), np.int64)))
+        for poly, lab in zip(polys, labels):
+            synth.polylines(img, np.round(poly).astype(np.int32).reshape(4, 2),
+                            self.COLORS[int(lab) % len(self.COLORS)], 2)
+        image_io.imwrite(osp.join(self.save_path,
+                                  f"sample_{self.count:05d}.png"), img)
+        self.count += 1
+        return results
 
 
 class MultiSamplePipeline:

@@ -28,11 +28,12 @@ end points included:
     to a whole degree, ellipse2Poly's outline from cv2's table of sines
     (7 decimals) at a step set by the larger axis, filled as a convex
     polygon;
-  * cv2.polylines(..., thickness 1): the thin line of each edge.
+  * cv2.polylines(..., closed): draw_line of each edge.
 
 The random stream is drawn in the reference's order, so polygons, names
-and labels are the reference's exactly.  Images are written as .npy (BGR
-uint8, as cv2 stores them).
+and labels are the reference's exactly.  generate_synth_dota writes the
+images as .npy (BGR uint8, as cv2 stores them) unless asked for PNG (the
+JAX generator's files) or BMP, through data/image_io.
 """
 
 from __future__ import annotations
@@ -44,6 +45,7 @@ import numpy as np
 
 from ..devkit import dota_utils as util
 from ..host import resize_cubic
+from . import image_io
 
 # name -> (BGR colour, (min_long, max_long), (min_aspect, max_aspect))
 SYNTH_CLASS_SPECS = {
@@ -416,13 +418,15 @@ def fill_ellipse(img: np.ndarray, center, axes, angle: float, color) -> None:
     _fill_convex(img, v, col)
 
 
-def polylines(img: np.ndarray, pts: np.ndarray, color) -> None:
-    """cv2.polylines(img, [pts], True, color, 1) for one closed polygon of
-    integer vertices."""
+def polylines(img: np.ndarray, pts: np.ndarray, color,
+              thickness: int = 1) -> None:
+    """cv2.polylines(img, [pts], True, color, thickness) for one closed
+    polygon of integer vertices: each edge as draw_line draws it (thicker
+    than 1, cv2 caps only each edge's end, which is the next edge's start:
+    the same round caps)."""
     p = [(int(x), int(y)) for x, y in np.asarray(pts).reshape(-1, 2)]
-    col = _colour(img, color)
     for a, b in zip(p[-1:] + p[:-1], p):
-        _thin_line(img, a, b, col)
+        draw_line(img, a, b, color, thickness)
 
 
 def render_scene(
@@ -526,9 +530,9 @@ def render_scene(
 def generate_synth_dota(outdir: str, n_scenes: int, size: int = 768,
                         n_objects: int = 24, seed: int = 0,
                         prefix: str = "S", hard: bool = False,
-                        specs: dict | None = None):
-    """Write n_scenes scenes to outdir/images/<name>.npy and
-    outdir/labelTxt/<name>.txt; returns the scene names.
+                        specs: dict | None = None, ext: str = ".npy"):
+    """Write n_scenes scenes to outdir/images/<name><ext> (.npy, .png or
+    .bmp) and outdir/labelTxt/<name>.txt; returns the scene names.
 
     hard=True renders the 15-class benchmark (HARD_RENDER_KWARGS: clutter,
     noise, dense packing, a brightness ramp) instead of the easy 6-class
@@ -547,7 +551,7 @@ def generate_synth_dota(outdir: str, n_scenes: int, size: int = 768,
         name = f"{prefix}{i:04d}"
         img, objs = render_scene(rng, size=size, n_objects=n_objects,
                                  **kwargs)
-        np.save(osp.join(imgdir, name + ".npy"), img)
+        image_io.imwrite(osp.join(imgdir, name + ext), img)
         util.write_dota_poly(osp.join(labdir, name + ".txt"), objs)
         names.append(name)
     return names

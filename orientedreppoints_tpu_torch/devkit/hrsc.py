@@ -3,11 +3,11 @@
   * _parse_hrsc_xml / generate_txt_labels (HRSC2DOTA.py:10-77): the XML
     annotations' rotated boxes (mbox cx, cy, w, h, ang) -> DOTA labelTxt
     lines "x1 y1 ... x4 y4 ship difficult", parsed with the stdlib;
+  * prepare_hrsc2016 (prepare_hrsc2016.py): per split, the labelTxt, an
+    `images` symlink to AllImages and the COCO-poly json of the .bmp
+    images (sizes from their headers, data/image_io);
   * eval_hrsc2016 (hrsc2016_evaluation.py:87-269): the VOC AP of the one
     class "ship" over oriented polygons, VOC-07 11-point by default.
-
-prepare_hrsc2016 (labelTxt -> COCO json beside the .bmp images) is not
-ported: the port reads .npy images only.
 """
 
 from __future__ import annotations
@@ -19,6 +19,7 @@ import xml.etree.ElementTree as ET
 import numpy as np
 
 from ..core.rbox import rbox2poly
+from .dota2coco import dota2coco_train
 from .evaluation import _imagenames, voc_eval_poly
 
 
@@ -61,6 +62,23 @@ def generate_txt_labels(root_path: str, img_dir: str = "AllImages",
         with open(osp.join(out_path, base + ".txt"), "w") as f:
             f.write("\n".join(lines) + ("\n" if lines else ""))
     return out_path
+
+
+def prepare_hrsc2016(root_path: str, ext: str = ".bmp"):
+    """root_path/{Train,Test}/{AllImages,Annotations} -> each split's
+    labelTxt, images -> AllImages symlink and hrsc_{train,test}.json."""
+    for split in ("Train", "Test"):
+        split_dir = osp.join(root_path, split)
+        if not osp.isdir(split_dir):
+            continue
+        generate_txt_labels(split_dir)
+        imgs = osp.join(split_dir, "images")
+        if not osp.exists(imgs):
+            os.symlink(osp.join(split_dir, "AllImages"), imgs,
+                       target_is_directory=True)
+        dota2coco_train(split_dir,
+                        osp.join(split_dir, f"hrsc_{split.lower()}.json"),
+                        cls_names=("ship",), ext=ext)
 
 
 def eval_hrsc2016(detpath: str, annopath: str, imagesetfile_or_names,

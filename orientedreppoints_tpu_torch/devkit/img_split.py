@@ -10,19 +10,30 @@ devkit/img_split.py, after DOTA_devkit/ImgSplit_multi_process.py):
     clamped to [1, subsize];
   * a clipped instance keeping inter / area <= thresh (0.7) becomes
     difficult '2' (savepatches :160-225);
-  * tiles 'name__rate__left___up', zero-padded to subsize.
+  * a scene resized by `rate` first (the multi-scale prep's 0.5 / 1.5):
+    cv2's uint8 INTER_CUBIC, host.resize_cubic_uint8, with the polygons
+    scaled by the rate;
+  * tiles 'name__rate__left___up', zero-padded to subsize (padding);
+  * SplitOnlyImage: the test split's images alone.
 
-Images are .npy arrays (BGR uint8) in and out.  Only rate 1.0 is ported:
-other rates resize the scene with cv2's bicubic uint8 resize first.
+Images are read and written by data/image_io (PNG by default, ext; BMP
+and .npy too).  num_process > 1 splits the scenes in a spawn pool whose
+workers import only the port, each with one torch thread; the files are
+those of one process.
 """
 
 from __future__ import annotations
 
+import multiprocessing
 import os
 import os.path as osp
+from functools import partial
 
 import numpy as np
+import torch
 
+from ..data import image_io
+from ..host import resize_cubic_uint8
 from . import dota_utils as util
 from .polygon import clip_polygon, orient_ccw, polygon_area
 
@@ -53,24 +64,32 @@ def best_point_order(poly: np.ndarray, ref_poly: np.ndarray) -> np.ndarray:
 
 
 class ImgSplit:
-    """Split basepath/{images,labelTxt} into outpath/{images,labelTxt}, one
-    scene after another in this process."""
+    """Split basepath/{images,labelTxt} into outpath/{images,labelTxt}
+    (images only with images_only)."""
 
     def __init__(self, basepath: str, outpath: str, gap: int = 512,
-                 subsize: int = 1024, thresh: float = 0.7):
+                 subsize: int = 1024, thresh: float = 0.7,
+                 choosebestpoint: bool = True, ext: str = ".png",
+                 padding: bool = True, num_process: int = 8,
+                 images_only: bool = False):
         self.basepath = basepath
         self.outpath = outpath
         self.gap = gap
         self.subsize = subsize
         self.slide = subsize - gap
         self.thresh = thresh
-        self.ext = ".npy"
+        self.choosebestpoint = choosebestpoint
+        self.ext = ext
+        self.padding = padding
+        self.num_process = num_process
+        self.images_only = images_only
         self.imagepath = osp.join(basepath, "images")
         self.labelpath = osp.join(basepath, "labelTxt")
         self.outimagepath = osp.join(outpath, "images")
         self.outlabelpath = osp.join(outpath, "labelTxt")
         os.makedirs(self.outimagepath, exist_ok=True)
-        os.makedirs(self.outlabelpath, exist_ok=True)
+        if not images_only:
+            os.makedirs(self.outlabelpath, exist_ok=True)
 
     def _clip_objects(self, objects, left, up, right, down):
         """Clip gt polygons to the tile window -> tile-frame objects."""
@@ -95,7 +114,8 @@ class ImgSplit:
                 inter = reduce_poly5_to_poly4(inter)
             elif len(inter) > 5:
                 continue  # the reference drops >5-gons
-            inter = best_point_order(inter, poly)
+            if self.choosebestpoint:
+                inter = best_point_order(inter, poly)
             tile_poly = np.clip(np.floor(inter - [left, up]), 1, self.subsize)
             difficult = obj["difficult"] if half_iou > self.thresh else "2"
             out.append(dict(poly=tile_poly.reshape(-1), name=obj["name"],
@@ -103,17 +123,21 @@ class ImgSplit:
         return out
 
     def split_single(self, name: str, rate: float = 1.0):
-        """Cut one scene (images/<name>.npy, labelTxt/<name>.txt)."""
-        if rate != 1.0:
-            raise NotImplementedError(
-                f"ImgSplit at rate {rate}: only rate 1.0 is ported (other "
-                "rates resize the scene with cv2's bicubic first)")
+        """Cut one scene (images/<name><ext>, labelTxt/<name>.txt) resized
+        by rate; a missing image is skipped (cv2.imread's None), an
+        unreadable one raises."""
         path = osp.join(self.imagepath, name + self.ext)
         if not osp.exists(path):
             return
-        img = np.load(path)
-        objects = util.parse_dota_poly(osp.join(self.labelpath,
-                                                name + ".txt"))
+        img = image_io.imread(path)
+        objects = []
+        if not self.images_only:
+            objects = util.parse_dota_poly(osp.join(self.labelpath,
+                                                    name + ".txt"))
+            for o in objects:
+                o["poly"] = np.asarray(o["poly"], np.float64) * rate
+        if rate != 1.0:
+            img = resize_cubic_uint8(img, rate)
         h, w = img.shape[:2]
         base = f"{name}__{rate}__"
         left = 0
@@ -136,16 +160,43 @@ class ImgSplit:
             left += self.slide
 
     def _save_patch(self, img, objects, subname, left, up, right, down):
-        tile_objs = self._clip_objects(objects, left, up, right, down)
-        util.write_dota_poly(osp.join(self.outlabelpath, subname + ".txt"),
-                             tile_objs)
+        if not self.images_only:
+            tile_objs = self._clip_objects(objects, left, up, right, down)
+            util.write_dota_poly(osp.join(self.outlabelpath,
+                                          subname + ".txt"), tile_objs)
         sub = img[up:up + self.subsize, left:left + self.subsize]
-        canvas = np.zeros((self.subsize, self.subsize, 3), dtype=img.dtype)
-        canvas[:sub.shape[0], :sub.shape[1]] = sub
-        np.save(osp.join(self.outimagepath, subname + self.ext), canvas)
+        if self.padding:
+            canvas = np.zeros((self.subsize, self.subsize, 3),
+                              dtype=img.dtype)
+            canvas[:sub.shape[0], :sub.shape[1]] = sub
+            sub = canvas
+        image_io.imwrite(osp.join(self.outimagepath, subname + self.ext),
+                         sub)
 
     def splitdata(self, rate: float = 1.0):
-        """Split every scene under basepath/images."""
-        for p in util.list_files(self.imagepath, self.ext):
-            if util.basename_noext(p) != "Thumbs":
-                self.split_single(util.basename_noext(p), rate)
+        """Split every scene under basepath/images at rate."""
+        names = [util.basename_noext(p)
+                 for p in util.list_files(self.imagepath, self.ext)
+                 if util.basename_noext(p) != "Thumbs"]
+        workers = min(self.num_process, len(names))
+        if workers <= 1:
+            for n in names:
+                self.split_single(n, rate)
+            return
+        ctx = multiprocessing.get_context("spawn")
+        with ctx.Pool(workers, initializer=torch.set_num_threads,
+                      initargs=(1,)) as pool:
+            pool.map(partial(_split_worker, self, rate), names)
+
+
+def _split_worker(split: ImgSplit, rate: float, name: str):
+    split.split_single(name, rate)
+
+
+class SplitOnlyImage(ImgSplit):
+    """Image-only tiling of the test split
+    (SplitOnlyImage_multi_process.py)."""
+
+    def __init__(self, basepath: str, outpath: str, **kw):
+        kw["images_only"] = True
+        super().__init__(basepath, outpath, **kw)

@@ -11,6 +11,9 @@ Counterparts of:
     float canvas, as ``resize_linear`` on the device;
   * cv2.resize's INTER_CUBIC on a float32 image (the synthetic scenes'
     background and the Swin bias-table resize) — ``resize_cubic``, numpy;
+  * ``devkit/img_split.py``'s ``cv2.resize(img, None, fx=rate, fy=rate,
+    interpolation=cv2.INTER_CUBIC)`` on a uint8 scene —
+    ``resize_cubic_uint8``, cv2's fixed-point arithmetic on CPU tensors;
   * ``core/rbox.py::rbbox2result`` — split dets into per-class arrays.
 """
 
@@ -127,12 +130,13 @@ def resize_uint8(img: torch.Tensor, size: tuple[int, int]) -> torch.Tensor:
 
 
 
-def _cubic_taps(src: int, dst: int):
+def _cubic_taps(src: int, dst: int, scale: float | None = None):
     """cv2.resize INTER_CUBIC's taps along one axis, src -> dst samples:
-    half-pixel source coordinates in float32, A = -0.75, the last weight
+    half-pixel source coordinates (dst + 0.5) * scale - 0.5 in double, cast
+    to float32 (scale src / dst unless given), A = -0.75, the last weight
     as 1 minus the other three, and taps off the edge clamped to the
     border sample.  Returns (indices (dst, 4), weights (dst, 4) f32)."""
-    scale = src / dst
+    scale = src / dst if scale is None else scale
     f = ((np.arange(dst) + 0.5) * scale - 0.5).astype(np.float32)
     s = np.floor(f).astype(np.int64)
     x = f - s.astype(np.float32)
@@ -169,6 +173,64 @@ def resize_cubic(img: np.ndarray, size: tuple[int, int]) -> np.ndarray:
     n_vec = flat.shape[1] // 4 * 4
     flat[:, :n_vec] = rev.reshape(h, -1)[:, :n_vec]
     return flat.reshape(fwd.shape)
+
+
+CUBIC_BLOCK_ROWS = 256  # output rows resize_cubic_uint8 computes at once
+
+
+def resize_cubic_uint8(img: np.ndarray, rate: float) -> np.ndarray:
+    """(H, W[, C]) uint8 -> (round(H rate), round(W rate)[, C]) uint8, as
+    cv2.resize(img, None, fx=rate, fy=rate, interpolation=INTER_CUBIC)
+    computes it in OpenCV's own loops (cv2.ipp.setUseIPP(False)), bit for
+    bit.  The sizes round half to even (saturate_cast<int>); the taps sit
+    at (d + 0.5) / rate - 0.5 with 1 / rate in double (the rate itself, not
+    the output over the input size), their weights rounded to 2048ths.  The
+    horizontal pass sums integer taps.  The vertical pass takes cv2's
+    vector body over the first 8 floor(w C / 8) values of each row: each
+    sum and weight / 2^22 cast to float32, then from the last tap to the
+    first a float32 multiply and a float32 add, rounded half to even; the
+    rest of the row is its scalar tail, (sum of taps + 2^21) >> 22.  Both
+    clip to 0..255; an output of the input's size is a copy, as in cv2.
+    (cv2 with IPP differs by one grey level in up to ~8% of values at
+    rates other than 0.5 and 2.)  CPU tensors, CUBIC_BLOCK_ROWS output
+    rows at a time."""
+    img = np.asarray(img)
+    if img.dtype != np.uint8:
+        raise ValueError(f"resize_cubic_uint8 takes uint8, not {img.dtype}")
+    x = torch.from_numpy(np.ascontiguousarray(
+        img.reshape(img.shape[0], img.shape[1], -1)))
+    src_h, src_w, ch = x.shape
+    h, w = int(np.rint(src_h * rate)), int(np.rint(src_w * rate))
+    if (h, w) == (src_h, src_w):
+        return img.copy()
+    ix, wx = _cubic_taps(src_w, w, 1.0 / rate)
+    iy, wy = _cubic_taps(src_h, h, 1.0 / rate)
+    ix = torch.from_numpy(ix)
+    cx = torch.from_numpy(np.rint(wx * np.float32(2048)).astype(np.int32))
+    cy = torch.from_numpy(np.rint(wy * np.float32(2048)).astype(np.int64))
+    n_vec = w * ch // 8 * 8
+    out = torch.empty((h, w * ch), dtype=torch.uint8)
+    for d0 in range(0, h, CUBIC_BLOCK_ROWS):
+        d1 = min(d0 + CUBIC_BLOCK_ROWS, h)
+        lo, hi = int(iy[d0:d1].min()), int(iy[d0:d1].max()) + 1
+        src = x[lo:hi].to(torch.int32)
+        rows = src[:, ix[:, 0]] * cx[:, 0, None]
+        for j in range(1, 4):
+            rows = rows + src[:, ix[:, j]] * cx[:, j, None]
+        rows = rows.reshape(hi - lo, w * ch)
+        taps = [rows[torch.from_numpy(iy[d0:d1, j] - lo)] for j in range(4)]
+        beta = [cy[d0:d1, j, None] for j in range(4)]
+        acc = taps[0].to(torch.int64) * beta[0]
+        for j in range(1, 4):
+            acc = acc + taps[j].to(torch.int64) * beta[j]
+        res = (acc + (1 << 21)) >> 22
+        bf = [(b.to(torch.float32) * 2.0 ** -22) for b in beta]  # exact
+        v = taps[3][:, :n_vec].to(torch.float32) * bf[3]
+        for j in (2, 1, 0):
+            v = taps[j][:, :n_vec].to(torch.float32) * bf[j] + v
+        res[:, :n_vec] = torch.round(v).to(torch.int64)
+        out[d0:d1] = res.clamp(0, 255).to(torch.uint8)
+    return out.reshape((h, w) + img.shape[2:]).numpy()
 
 
 class Normalize:

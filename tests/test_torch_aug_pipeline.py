@@ -67,10 +67,10 @@ def split(tmp_path_factory):
         (root / "ref_raw" / "labelTxt" / f"{n}.txt").write_bytes(
             (root / "port_raw" / "labelTxt" / f"{n}.txt").read_bytes())
     ImgSplit(str(root / "port_raw"), str(root / "port"), gap=128,
-             subsize=256).splitdata()
+             subsize=256, ext=".npy", num_process=1).splitdata()
     ImgSplitRef(str(root / "ref_raw"), str(root / "ref"), gap=128,
                 subsize=256, num_process=1).splitdata()
-    dota2coco_train(str(root / "port"), str(root / "port.json"))
+    dota2coco_train(str(root / "port"), str(root / "port.json"), ext=".npy")
     dota2coco_ref(str(root / "ref"), str(root / "ref.json"))
     return root
 
@@ -224,8 +224,8 @@ def test_fusion_transform_matches_jax(split, name):
 
 def test_image_cache_hands_out_copies(split, monkeypatch):
     """cache=True: the same pixels as a fresh read, a copy each call, at
-    most CACHE_MAX_ITEMS kept; to_float32 refused; CorrectBox's kept
-    corrections likewise."""
+    most CACHE_MAX_ITEMS kept; to_float32 (ported) the same pixels in
+    float32; CorrectBox's kept corrections likewise."""
     monkeypatch.setattr(pipelines, "CACHE_MAX_ITEMS", 2)
     step = pipelines.LoadImageFromFile(cache=True)
     got, _ = datasets(split, [])
@@ -236,9 +236,12 @@ def test_image_cache_hands_out_copies(split, monkeypatch):
         np.testing.assert_array_equal(again, first[i])
         again[:] = 0
         np.testing.assert_array_equal(step(got.get_raw(i))["img"], first[i])
-    with pytest.raises(NotImplementedError, match="to_float32"):
-        pipelines.build_pipeline([dict(type="LoadImageFromFile",
-                                       to_float32=True)])
+    as_float = pipelines.build_pipeline([dict(type="LoadImageFromFile",
+                                              to_float32=True, cache=True)])
+    for i in range(3):
+        img = as_float(got.get_raw(i))["img"]
+        assert img.dtype == np.float32
+        np.testing.assert_array_equal(img, first[i])
     # CorrectBox keeps each tile's corrected gts, and hands out copies
     load = pipelines.build_pipeline(PRE[:2])
     correct = pipelines.CorrectBox(refine_rbbox=True)

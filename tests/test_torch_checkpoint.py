@@ -58,9 +58,9 @@ def data(tmp_path_factory):
         generate_synth_dota(str(root / f"{split}_raw"), n, size=256,
                             seed=seed, prefix=prefix)
         ImgSplit(str(root / f"{split}_raw"), str(root / f"{split}_split"),
-                 gap=64, subsize=128).splitdata()
+                 gap=64, subsize=128, ext=".npy", num_process=1).splitdata()
         dota2coco_train(str(root / f"{split}_split"),
-                        str(root / f"{split}_split" / name))
+                        str(root / f"{split}_split" / name), ext=".npy")
     (root / "narrow.py").write_text(narrow_config_text(str(root)))
     cfg = load_config(str(root / "narrow.py"))
     return root, cfg

@@ -28,7 +28,7 @@ from orientedreppoints_tpu_torch.data import synth
 from orientedreppoints_tpu_torch.data.pipelines import build_pipeline
 from orientedreppoints_tpu_torch.devkit import img_split
 from orientedreppoints_tpu_torch.devkit.dota2coco import dota2coco_train
-from orientedreppoints_tpu_torch.host import resize_cubic
+from orientedreppoints_tpu_torch.host import resize_cubic, resize_cubic_uint8
 
 # measured over the four scenes below: 11 of 786,432 pixels differ, each
 # by one grey level, all of them cv2's IPP bicubic (with IPP off the
@@ -168,9 +168,9 @@ def split(scenes, request):
     ImgSplitRef(str(scenes / "ref"), str(out / "ref"), gap=gap,
                 subsize=subsize, num_process=1).splitdata()
     img_split.ImgSplit(str(scenes / "port"), str(out / "port"), gap=gap,
-                       subsize=subsize).splitdata()
+                       subsize=subsize, ext=".npy", num_process=1).splitdata()
     dota2coco_ref(str(out / "ref"), str(out / "ref.json"))
-    dota2coco_train(str(out / "port"), str(out / "port.json"))
+    dota2coco_train(str(out / "port"), str(out / "port.json"), ext=".npy")
     return out, subsize
 
 
@@ -198,10 +198,23 @@ def test_img_split_tiles_and_labels_equal(split):
 
 
 def test_img_split_refuses_other_rates(scenes, tmp_path):
+    """Rates other than 1 are ported (tests/test_torch_image_io.py holds
+    them against JAX): a scene at rate 0.5 gives the tiles of its cubic
+    resize.  Split scenes are read through image_io, which refuses other
+    extensions."""
     s = img_split.ImgSplit(str(scenes / "port"), str(tmp_path), gap=100,
-                           subsize=200)
-    with pytest.raises(NotImplementedError, match="rate 0.5"):
-        s.split_single("S256_0000", 0.5)
+                           subsize=200, ext=".npy", num_process=1)
+    s.split_single("S256_0000", 0.5)
+    tile = np.load(tmp_path / "images" / "S256_0000__0.5__0___0.npy")
+    half = resize_cubic_uint8(np.load(scenes / "port" / "images"
+                                      / "S256_0000.npy"), 0.5)
+    np.testing.assert_array_equal(tile[:128, :128], half)
+    assert not tile[128:].any() and not tile[:, 128:].any()
+    (tmp_path / "jpg" / "images").mkdir(parents=True)
+    (tmp_path / "jpg" / "images" / "a.jpg").write_bytes(b"")
+    with pytest.raises(ValueError, match=".jpg"):
+        img_split.ImgSplit(str(tmp_path / "jpg"), str(tmp_path / "o"),
+                           ext=".jpg", num_process=1).splitdata()
 
 
 def test_dota2coco_json_equal(split):
@@ -272,7 +285,7 @@ def test_dota_dataset_and_test_pipeline_equal(split, scale):
 
 def test_train_filter_and_refusals(split, tmp_path):
     """Outside test_mode tiles without annotations are dropped, as in the
-    JAX dataset; PNGs and the untranslated transforms are refused."""
+    JAX dataset; JPEGs and the untranslated transforms are refused."""
     out, _ = split
     from orientedreppoints_tpu.data.dota import DotaDataset as DotaRef
     from orientedreppoints_tpu_torch.data.dota import DotaDataset
@@ -283,9 +296,9 @@ def test_train_filter_and_refusals(split, tmp_path):
     assert [i["id"] for i in got.img_infos] == [i["id"] for i in ref.img_infos]
     load = build_pipeline([dict(type="LoadImageFromFile")])
     with pytest.raises(ValueError, match=".npy"):
-        load(dict(img_info=dict(file_name="a.png"), img_prefix=""))
-    with pytest.raises(NotImplementedError, match="PolyImgPlot"):
-        build_pipeline([dict(type="PolyImgPlot")])
+        load(dict(img_info=dict(file_name="a.jpg"), img_prefix=""))
+    with pytest.raises(NotImplementedError, match="Corrupt"):
+        build_pipeline([dict(type="Corrupt")])
     with pytest.raises(ValueError, match="multiscale_mode"):
         build_pipeline([dict(type="RotateResize",
                              img_scale=[(512, 512), (768, 768)],

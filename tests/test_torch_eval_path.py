@@ -74,9 +74,9 @@ def data(tmp_path_factory):
     ImgSplitRef(str(root / "raw"), str(root / "ref"), gap=64, subsize=TILE,
                 num_process=1).splitdata()
     ImgSplit(str(root / "raw_npy"), str(root / "port"), gap=64,
-             subsize=TILE).splitdata()
+             subsize=TILE, ext=".npy", num_process=1).splitdata()
     dota2coco_ref(str(root / "ref"), str(root / "ref.json"))
-    dota2coco_train(str(root / "port"), str(root / "port.json"))
+    dota2coco_train(str(root / "port"), str(root / "port.json"), ext=".npy")
 
     def dcfg(side):
         return dict(type="DotaDataset", ann_file=str(root / f"{side}.json"),

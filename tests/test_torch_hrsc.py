@@ -176,7 +176,7 @@ def test_hrsc_dataset_equal(tmp_path):
             dict(poly=p, name="ship", difficult=str(k % 2))
             for k, p in enumerate(rbox2poly(boxes).astype(np.float64))])
     ann = dota2coco_train(str(tmp_path), str(tmp_path / "ship.json"),
-                          cls_names=("ship",))
+                          cls_names=("ship",), ext=".npy")
     for test_mode in (False, True):
         got = apis.build_dataset(dict(type="HrscDataset", ann_file=ann,
                                       pipeline=[], test_mode=test_mode))

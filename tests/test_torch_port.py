@@ -103,10 +103,12 @@ NO_JAX_SCRIPT = textwrap.dedent("""
         j = lambda *p: os.path.join(wd, *p)
         names = generate_synth_dota(j("raw"), 1, size=192, n_objects=6,
                                     seed=3)
-        ImgSplit(j("raw"), j("split"), gap=32, subsize=128).splitdata()
+        ImgSplit(j("raw"), j("split"), gap=32, subsize=128, ext=".npy",
+                 num_process=1).splitdata()
         ds = build_dataset(dict(
             type="DotaDataset",
-            ann_file=dota2coco_train(j("split"), j("split.json")),
+            ann_file=dota2coco_train(j("split"), j("split.json"),
+                                     ext=".npy"),
             img_prefix=j("split", "images"), test_mode=True, pipeline=[
                 dict(type="LoadImageFromFile"),
                 dict(type="RotateResize", img_scale=(64, 64)),
@@ -219,7 +221,7 @@ NO_JAX_SCRIPT = textwrap.dedent("""
         ds = build_dataset(dict(
             type="HrscDataset", pipeline=[], test_mode=True,
             ann_file=dota2coco_train(j("ship"), j("ship.json"),
-                                     cls_names=("ship",))))
+                                     cls_names=("ship",), ext=".npy")))
         assert isinstance(ds, HrscDataset) and len(ds) == 1
     spec = importlib.util.spec_from_file_location(
         "tool", "tools/synth_benchmark_torch.py")
@@ -234,10 +236,12 @@ NO_JAX_SCRIPT = textwrap.dedent("""
         j = lambda *p: os.path.join(wd, *p)
         generate_synth_dota(j("raw"), 1, size=256, n_objects=8, seed=5,
                             hard=True)
-        ImgSplit(j("raw"), j("split"), gap=64, subsize=128).splitdata()
+        ImgSplit(j("raw"), j("split"), gap=64, subsize=128, ext=".npy",
+                 num_process=1).splitdata()
         ds = build_dataset(dict(
             hard_cfg["data"]["train"],
-            ann_file=dota2coco_train(j("split"), j("split.json")),
+            ann_file=dota2coco_train(j("split"), j("split.json"),
+                                     ext=".npy"),
             img_prefix=j("split", "images")))
         batch = next(iter(build_dataloader(ds, hard_cfg, batch_size=2)))
         assert batch["images"].shape == (2, 512, 512, 3)

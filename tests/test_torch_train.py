@@ -425,13 +425,14 @@ def loader_batch(tmp_path_factory):
     root = tmp_path_factory.mktemp("loader_batch")
     generate_synth_dota(str(root / "raw"), 1, size=256, seed=0, prefix="T")
     ImgSplit(str(root / "raw"), str(root / "split"), gap=64,
-             subsize=128).splitdata()
+             subsize=128, ext=".npy", num_process=1).splitdata()
     pipeline = [dict(s, img_scale=(128, 128)) if s["type"] == "RotateResize"
                 else s for s in load_config(
                     "configs/dota/synth_r18_512.py")["train_pipeline"]]
     ds = build_dataset(dict(
         type="DotaDataset", pipeline=pipeline,
-        ann_file=dota2coco_train(str(root / "split"), str(root / "s.json")),
+        ann_file=dota2coco_train(str(root / "split"), str(root / "s.json"),
+                                 ext=".npy"),
         img_prefix=str(root / "split" / "images")), device_normalize=True)
     batch = next(iter(DataLoader(ds, 2, canvas_buckets=[(IMG, IMG)],
                                  max_gt=MAX_GT)))

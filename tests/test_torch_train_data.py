@@ -137,9 +137,9 @@ def split(tmp_path_factory):
     ImgSplitRef(str(root / "ref_raw"), str(root / "ref"), gap=128,
                 subsize=256, num_process=1).splitdata()
     ImgSplit(str(root / "port_raw"), str(root / "port"), gap=128,
-             subsize=256).splitdata()
+             subsize=256, ext=".npy", num_process=1).splitdata()
     dota2coco_ref(str(root / "ref"), str(root / "ref.json"))
-    dota2coco_train(str(root / "port"), str(root / "port.json"))
+    dota2coco_train(str(root / "port"), str(root / "port.json"), ext=".npy")
     return root
 
 

@@ -66,11 +66,12 @@ def main(argv=None) -> int:
                             n_objects=smoke.EVAL_OBJECTS,
                             seed=smoke.EVAL_SEED, prefix="V")
         ImgSplit(osp.join(wd, "raw"), osp.join(wd, "split"),
-                 gap=smoke.EVAL_GAP, subsize=smoke.EVAL_SUBSIZE).splitdata()
+                 gap=smoke.EVAL_GAP, subsize=smoke.EVAL_SUBSIZE, ext=".npy",
+                 num_process=1).splitdata()
         cfg = load_config(smoke.EVAL_CONFIG)
         cfg["data"]["test"].update(
             ann_file=dota2coco_train(osp.join(wd, "split"),
-                                     osp.join(wd, "test.json")),
+                                     osp.join(wd, "test.json"), ext=".npy"),
             img_prefix=osp.join(wd, "split", "images"), test_mode=True)
         ds = apis.build_dataset(cfg["data"]["test"])
         model, _ = apis.init_detector(

@@ -12,7 +12,8 @@ tools/synth_benchmark.py):
   --ms_tta: the same again through run_inference_tta, into *_tta folders].
 
 The scenes are those of tools/synth_benchmark.py: train seed --seed,
-prefix T; val seed --seed + 10000, prefix V; written as .npy images;
+prefix T; val seed --seed + 10000, prefix V; written as .npy images (the
+port's tiles; the PNG route of real DOTA input is devkit/prepare.py);
 --hard: the 15-class benchmark with clutter, --hrsc: ship-only scenes.
 Prints one JSON line with the JAX tool's keys and writes
 work_dir/synth_eval.json; exits 1 when mAP <= 0.6, as the JAX tool does.
@@ -130,11 +131,13 @@ def generate(args):
             n_objects=args.n_objects, seed=seed, prefix=prefix,
             hard=args.hard, specs=specs)
         ImgSplit(osp.join(wd, f"{split}_raw"), osp.join(wd, f"{split}_split"),
-                 gap=args.gap, subsize=args.subsize).splitdata()
+                 gap=args.gap, subsize=args.subsize, ext=".npy",
+                 num_process=1).splitdata()
         # annotated jsons for both: the val one lets apis.evaluate_results
         # score the tiles too; the reported numbers come from labelTxt
         dota2coco_train(osp.join(wd, f"{split}_split"),
-                        osp.join(wd, f"{split}_split", json_name))
+                        osp.join(wd, f"{split}_split", json_name),
+                        ext=".npy")
     print(f"generated and split {[s[0] for s in splits]} scenes in "
           f"{time.perf_counter() - t0:.1f}s", flush=True)
     return names

@@ -7,9 +7,10 @@
         [--max_iters N] [--validate [--val_max_images N]] \\
         [--pretrained_backbone resnet50.pth] [--device cuda]
 
-The config's train data (DotaDataset over .npy tiles, the train pipeline
-(mosaic and mixup take their extra tiles from the dataset), the loader of
-its `tpu` section), its SGD or AdamW recipe and LR
+The config's train data (DotaDataset over the tiles of
+devkit/prepare.py, PNG, BMP or .npy read through data/image_io; the train
+pipeline, whose mosaic and mixup take their extra tiles from the
+dataset; the loader of its `tpu` section), its SGD or AdamW recipe and LR
 schedule (epochs counted in the loader's batches), and a checkpoint
 work_dir/ckpts/epoch_N.pt after every epoch.  --resume_from restores the
 model, optimizer, scheduler and step and goes on from the saved epoch;
