@@ -2,9 +2,10 @@
 evaluation path (easy and hard scenes, HRSC scoring), Swin-T, HRNet-W32
 and SSD-VGG16 serving and training, ResNeXt-50 serving, a torchvision
 backbone file loaded, the synthetic benchmark's training, plain and
-with the hard-aug recipe, and real DOTA input (PNG scenes, the
-multi-scale prep, the test tool and training on the tiles), on one
-NVIDIA GPU.
+with the hard-aug recipe, real DOTA input (PNG scenes, the
+multi-scale prep, the test tool and training on the tiles), and data
+parallelism (serving sharded over two replicas, the training step as
+one- and two-process groups), on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -31,6 +32,16 @@ Phases, each printing one line or more (a failed phase exits non-zero):
      canvas 1344^2, bf16, batch 4) over 8 seeded 1024^2 images, with seeded
      random weights perturbed so that the decode has thousands of
      candidates; launch counts, finiteness, images/s and peak memory;
+  3b. shard_infer: parallel/infer.py's sharded serving on the card: the
+     R-50 Predictor (bf16, batch 4) over [cuda:0, cuda:0], two replicas of
+     two images each, counted (launches 2 a batch), bit for bit equal to
+     the one-device Predictor at the replica's batch of 2; against the
+     one-device batch of 4 (cuDNN picks other bf16 convolutions there)
+     the head outputs' largest difference and the share of its dets the
+     sharded run finds are read; with cuDNN off (PyTorch's convolutions,
+     a sample at a time) the batch-4 head outputs equal the batch-2
+     halves' and the sharded run the one-device batch of 4 det for det,
+     bit for bit; images/s of both, data_devices() and the card count;
   4. decode: the same head outputs decoded through the kernels and through
      the plain versions, det for det (a box that differs must be a
      min-area tie, rect_check), and both NMS kernels checked and timed
@@ -101,6 +112,20 @@ Phases, each printing one line or more (a failed phase exits non-zero):
   10. train_check: one f32 step from the same weights and batch through
      the kernels and through the plain versions: the same refine
      assignment, the same losses, the grads within the atomics' tolerance;
+  10a. ddp: the train phase's R-50 SGD step (bf16, 1344^2, its batch of 2
+     and gts), 3 steps, run three times in this process (their largest
+     difference is the DCN backward's atomics' noise) and once with the
+     batch's rows forwarded one at a time, then as a group of one NCCL
+     process and of two gloo processes on cuda:0 (a row each), each rank
+     a child of this script (--ddp_rank); a group's parameters within
+     NOISE_FACTOR times that noise of the one-process run of the same
+     forward (batch 2 for W = 1, by rows for W = 2); each loss on its own
+     value: step 1 within DDP_STEP1_RTOL, later steps within
+     LOSS_NOISE_FACTOR times its noise; a planted fault (the rbox losses
+     over a rank's own positives) must fail that gate; per rank the step
+     ms (nothing else timed in them), the all-reduce ms of 2 more steps,
+     peak memory and the launches a step (hull 1, rect 2, hull IoU 1, DCN
+     forward and backward 1 each);
   10b. swin_train: the train phase on the Swin-T config: AdamW with its
      no-decay set, nothing frozen, DropPath 0.2 drawing its masks from
      (SEED, step) (22 masks a step, each one's dropped samples recorded
@@ -156,12 +181,13 @@ Phases, each printing one line or more (a failed phase exits non-zero):
      steps on the trainval tiles through the config's train pipeline and
      loader (batch 2): finite losses, the loader's wait share, launches a
      step.
-Each counted run (slice, tta, iou_path, swin, hrnet, ssd_vgg, resnext,
-eval, hard_eval's two, train, swin_train, hrnet_train, ssd_vgg_train,
-synth_train, hard_aug_train, dota_input's two) sets the launch counts to
-0 just before and reads them just after; it fails if a kernel of its
-path was not launched.  Then one JSON line with every kernel's numbers,
-the card's line from nvidia-smi, and {"ok": true, "device": {...}} last.
+Each counted run (slice, shard_infer, tta, iou_path, swin, hrnet,
+ssd_vgg, resnext, eval, hard_eval's two, train, ddp's ranks, swin_train,
+hrnet_train, ssd_vgg_train, synth_train, hard_aug_train, dota_input's
+two) sets the launch counts to 0 just before and reads them just after;
+it fails if a kernel of its path was not launched.  Then one JSON line
+with every kernel's numbers, the card's line from nvidia-smi, and
+{"ok": true, "device": {...}} last.
 
 bound_ms is the least time the card could take for a kernel's work on this
 run's inputs: the larger of its bytes (each input read once, each output
@@ -3240,7 +3266,422 @@ def phase_dota_input(dev, ops_mod, card):
     return ok, launches, train_launches
 
 
+SHARD_BATCH = 4  # the sharded Predictor's batch: 2 a replica
+SHARD_SCORE_TOL = 2e-3  # bf16 head outputs of another cuDNN algorithm
+SHARD_CENTRE_TOL = 1.0  # px
+DDP_STEPS = 3
+DDP_PROBE_STEPS = 2  # more steps a rank, their all-reduces timed
+# (backend, world, planted fault): W = 2 is two processes on cuda:0
+DDP_RUNS = (("nccl", 1, None), ("gloo", 2, None), ("gloo", 2, "giou_local"))
+DDP_TIMEOUT = 300.0
+# step 1 of a group against the one-process losses of the same forward:
+# only the order of the sums differs
+DDP_STEP1_RTOL = 1e-4
+# a training step's launches: min-area rect 3 (hull 1, rect 2), hull IoU 1,
+# DCN forward 1 and backward 1
+DDP_LAUNCHES = {"min_area_rect": 3.0, "hull_quad_iou": 1.0,
+                "deform_sample_pair": 1.0, "deform_sample_pair_backward": 1.0}
+
+
+def first_batch_differences(model, x, n: int = 3) -> list:
+    """The first n leaf modules (in module order) whose output on the
+    batch x differs from their outputs on its two halves stacked, each
+    with its type and largest difference."""
+    rec, hooks = {}, []
+    for name, m in model.named_modules():
+        if not any(m.children()):
+            hooks.append(m.register_forward_hook(
+                lambda mod, i, o, name=name: rec.setdefault(
+                    name, (type(mod).__name__, []))[1].append(o)))
+    try:
+        half = len(x) // 2
+        model(x), model(x[:half]), model(x[half:])
+    finally:
+        for h in hooks:
+            h.remove()
+    out = []
+    for name, (kind, outs) in rec.items():
+        if len(outs) == 3 and all(isinstance(o, torch.Tensor) for o in outs):
+            whole, halves = outs[0], torch.cat(outs[1:])
+            if not torch.equal(whole, halves):
+                out.append([name, kind, float(
+                    (whole.float() - halves.float()).abs().max())])
+    return out[:n]
+
+
+def phase_shard_infer(dev, rng, ops_mod, card, sd):
+    """parallel/infer.py on the card: the R-50 demo Predictor (bf16,
+    batch 4) sharded over [dev, dev], two replicas of two images each,
+    counted; bit for bit against the one-device Predictor at the
+    replica's batch (2: each shard's own program).  Against the
+    one-device Predictor at batch 4 cuDNN picks other bf16 convolutions
+    (it chooses its algorithm by the batch: the first output that differs
+    is a layer4 3x3 convolution's), so with cuDNN that comparison is read:
+    the head outputs' largest difference, and the share of its dets that
+    the sharded run has too (same label, score within SHARD_SCORE_TOL,
+    centre within SHARD_CENTRE_TOL px).  With cuDNN off (PyTorch's own
+    convolutions, one sample at a time) it is gated: the batch-4 head
+    outputs equal the batch-2 halves' bit for bit, and the sharded run
+    the one-device batch-4 run det for det, bit for bit."""
+    from orientedreppoints_tpu_torch.parallel.infer import data_devices
+    from orientedreppoints_tpu_torch.serving import Predictor
+
+    preds = {name: Predictor(CONFIG, state_dict=sd, batch_size=bs,
+                             compute_dtype="bfloat16", device=dev,
+                             devices=devs)
+             for name, bs, devs in (("sharded", SHARD_BATCH, [dev, dev]),
+                                    ("one_b4", SHARD_BATCH, None),
+                                    ("one_b2", SHARD_BATCH // 2, None))}
+    images = [(rng.random((1024, 1024, 3)) * 255).astype(np.uint8)
+              for _ in range(N_IMAGES)]
+
+    def run(name):
+        p = preds[name]
+        outs = [p.infer(images[lo:lo + p.batch_size])
+                for lo in range(0, N_IMAGES, p.batch_size)]
+        return tuple(torch.cat(t) for t in zip(*outs))
+
+    with torch.inference_mode():
+        run("sharded")  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops_mod.reset_launch_counts()
+        t0 = time.perf_counter()
+        got = run("sharded")
+        torch.cuda.synchronize()
+        sharded_s = time.perf_counter() - t0
+        launches = ops_mod.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        times = {}
+        for name in ("one_b4", "sharded"):
+            t0 = time.perf_counter()
+            out = run(name)
+            torch.cuda.synchronize()
+            times[name] = time.perf_counter() - t0
+            if name == "one_b4":
+                b4 = out
+        b2 = run("one_b2")
+        canvases = preds["one_b4"].prepare(images[:SHARD_BATCH])[0]
+        model = preds["one_b4"].model
+        heads = [model(canvases), model(canvases[:2]), model(canvases[2:])]
+        first_diffs = first_batch_differences(model, canvases)
+        with torch.backends.cudnn.flags(enabled=False, benchmark=False,
+                                        deterministic=False,
+                                        allow_tf32=False):
+            t0 = time.perf_counter()
+            off = [run("sharded"), run("one_b4")]
+            off_heads = [model(canvases), model(canvases[:2]),
+                         model(canvases[2:])]
+            torch.cuda.synchronize()
+            off_s = time.perf_counter() - t0
+    off_equal = all(torch.equal(a, b) for a, b in zip(*off))
+    off_heads_equal = all(
+        torch.equal(a, torch.cat([b, c]))
+        for k in off_heads[0]
+        for a, b, c in zip(*(h[k] for h in off_heads)))
+    head_err = max(float((a.float() - torch.cat([b, c]).float()).abs().max()
+                         / a.float().abs().max())
+                   for k in ("cls_scores", "pts_refine")
+                   for a, b, c in zip(*(h[k] for h in heads)))
+    exact_b2 = all(torch.equal(a, b) for a, b in zip(got, b2))
+    (d, lab, v), (d4, lab4, v4) = got, b4
+    found = []  # per image: the batch-4 dets the sharded run also has
+    for i in range(N_IMAGES):
+        a, b = d[i][v[i]], d4[i][v4[i]]
+        ca, cb = (x[:, 18:26].reshape(-1, 4, 2).mean(1) for x in (a, b))
+        near = ((torch.cdist(cb, ca) <= SHARD_CENTRE_TOL)
+                & ((b[:, None, 26] - a[None, :, 26]).abs() <= SHARD_SCORE_TOL)
+                & (lab4[i][v4[i]][:, None] == lab[i][v[i]][None, :]))
+        found.append(near.any(1).float().mean())
+    batches = N_IMAGES // SHARD_BATCH
+    want = {k: 2 * batches for k in SERVING_KERNELS}
+    finite = bool(torch.isfinite(d[v]).all())
+    ok = (exact_b2 and off_equal and off_heads_equal and finite
+          and int(v.sum()) > 0
+          and all(launches[k] == want[k] for k in SERVING_KERNELS))
+    devices = data_devices()
+    say("shard_infer", config=CONFIG, devices=[str(x) for x in (dev, dev)],
+        data_devices=devices and [str(x) for x in devices],
+        cuda_device_count=torch.cuda.device_count(), batch=SHARD_BATCH,
+        per_replica=SHARD_BATCH // 2, images=N_IMAGES, dtype="bfloat16",
+        dets=int(v.sum()), equal_to_one_device_batch2=exact_b2,
+        batch4_head_max_rel_diff=head_err,
+        batch4_dets=int(v4.sum()),
+        batch4_dets_found_share=[float(f) for f in found],
+        batch4_first_differing_modules=first_diffs,
+        cudnn_off_batch4_heads_equal_halves=off_heads_equal,
+        cudnn_off_equal_to_one_device_batch4=off_equal,
+        cudnn_off_dets=int(off[0][2].sum()), cudnn_off_s=off_s,
+        launches=launches, launches_expected=want, finite=finite,
+        images_per_s_sharded=N_IMAGES / times["sharded"],
+        images_per_s_one_device=N_IMAGES / times["one_b4"],
+        counted_run_s=sharded_s, max_memory_allocated_bytes=peak, card=card,
+        ok=ok)
+    return ok, launches
+
+
+def plant_fault(name: str | None) -> None:
+    """Phase ddp's planted fault, in a rank: "giou_local" makes the
+    rbox losses divide by the rank's own positives (each level's n_lvl
+    and num_pos, as stock DDP would), not the group's."""
+    if name is None:
+        return
+    from orientedreppoints_tpu_torch.core import loss_head
+
+    assert name == "giou_local", name
+    real = loss_head.giou_loss
+
+    def local(pred, gt, weight, divisor, **kw):
+        return real(pred, gt, weight, divisor=(weight > 0).sum(), **kw)
+    loss_head.giou_loss = local
+
+
+def ddp_rank(spec_path: str) -> int:
+    """One rank of phase ddp's group (run as python3 chip_smoke.py
+    --ddp_rank SPEC by tools/launch_torch.launch_local): the R-50 step of
+    apis.build_trainer on this rank's rows of the batch, DDP_STEPS steps,
+    each timed to its end (one synchronize) with nothing else in it;
+    rank 0 saves their losses and the parameters after them.  Then
+    DDP_PROBE_STEPS more steps with every all-reduce timed between two
+    synchronizes.  Prints one line: the steps' ms, the probe steps' ms and
+    all-reduce ms, peak memory, launches a step (over the timed steps),
+    losses."""
+    from orientedreppoints_tpu_torch import apis
+    from orientedreppoints_tpu_torch import ops as ops_mod
+    from orientedreppoints_tpu_torch.parallel import dist
+    from orientedreppoints_tpu_torch.parallel.train import to_device
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    spec = torch.load(spec_path, weights_only=False)
+    plant_fault(spec["fault"])
+    dev = torch.device("cuda", dist.local_rank())
+    group = dist.init_from_env(dev, spec["backend"])
+    try:
+        r, w = dist.rank(group), dist.world_size(group)
+        model, cfg = apis.init_detector(CONFIG, state_dict=spec["sd"],
+                                        compute_dtype="bfloat16", device=dev)
+        step = apis.build_trainer(model, cfg, seed=SEED, group=group)[2]
+        b = len(spec["batch"]["images"]) // w
+        batch = to_device({k: v[r * b:(r + 1) * b]
+                           for k, v in spec["batch"].items()}, dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        ops_mod.reset_launch_counts()
+        losses, step_ms = [], []
+        for _ in range(DDP_STEPS):
+            t0 = time.perf_counter()
+            out = step(batch)
+            torch.cuda.synchronize(dev)
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append({k: float(v) for k, v in out.items()})
+        launches = ops_mod.launch_counts()
+        peak = torch.cuda.max_memory_allocated(dev)
+        if r == 0:
+            torch.save(dict(losses=losses, launches=launches, params={
+                k: v.detach().float().cpu() for k, v in
+                model.state_dict().items()}), spec["out"])
+        reduce_s, real = [], dist.all_reduce_sum
+
+        def timed(t, g):
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            out = real(t, g)
+            torch.cuda.synchronize(dev)
+            reduce_s.append(time.perf_counter() - t0)
+            return out
+
+        probe_ms, reduce_ms, n_reduce = [], [], 0
+        dist.all_reduce_sum = timed
+        try:
+            for _ in range(spec["probe_steps"]):
+                reduce_s.clear()
+                t0 = time.perf_counter()
+                step(batch)
+                torch.cuda.synchronize(dev)
+                probe_ms.append((time.perf_counter() - t0) * 1e3)
+                reduce_ms.append(sum(reduce_s) * 1e3)
+                n_reduce = len(reduce_s)
+        finally:
+            dist.all_reduce_sum = real
+        say("ddp_rank", rank=r, world=w, backend=spec["backend"],
+            fault=spec["fault"], device=str(dev), rows=b, step_ms=step_ms,
+            probe_step_ms=probe_ms, allreduce_ms=reduce_ms,
+            allreduces_a_step=n_reduce, max_memory_allocated_bytes=peak,
+            launches=launches,
+            launches_per_step={k: launches[k] / DDP_STEPS
+                               for k in TRAIN_KERNELS},
+            losses=losses)
+        dist.barrier(group)
+    finally:
+        dist.destroy(group)
+    return 0
+
+
+def tree_cat(outs: list) -> dict:
+    """The detector's output dicts (lists of per-level tensors) of
+    several batches, concatenated along the batch."""
+    return {k: [torch.cat(x) for x in zip(*(o[k] for o in outs))]
+            for k in outs[0]}
+
+
+def forward_by_rows(model) -> None:
+    """Make the model forward its batch one row at a time and stack the
+    outputs, as W ranks of a row each forward it: cuDNN picks its
+    convolutions by the batch, so a batch of 2 rounds otherwise than two
+    of 1 (phase shard_infer names the first module that differs)."""
+    forward = model.forward
+    model.forward = lambda x, gen=None: tree_cat(
+        [forward(x[i:i + 1], gen) for i in range(len(x))])
+
+
+def loss_rel(a: dict, b: dict) -> dict:
+    """Each loss of a relative to b's value of it (the counts left out)."""
+    return {k: abs(a[k] - b[k]) / max(abs(b[k]), 1e-30)
+            for k in b if k.startswith("loss")}
+
+
+def ddp_gate(got: list, ref: list, tol: dict) -> dict:
+    """A group's per-step losses against the one-process run ref of the
+    same forward, loss by loss: step 1 (no atomics yet) within
+    DDP_STEP1_RTOL of each loss and with the same counts, every later
+    step within tol[k] of loss k."""
+    first = loss_rel(got[0], ref[0])
+    later = [loss_rel(g, r) for g, r in zip(got[1:], ref[1:])]
+    counts = all(got[0][k] == ref[0][k] for k in ref[0]
+                 if not k.startswith("loss"))
+    ok = (counts and len(got) == len(ref)
+          and all(v <= DDP_STEP1_RTOL for v in first.values())
+          and all(v <= tol[k] for rel in later for k, v in rel.items()))
+    return dict(step1_rel=first, step1_counts_equal=counts,
+                later_rel=later, ok=ok)
+
+
+def phase_ddp(dev, ops_mod, card, sd, batch):
+    """Data-parallel training on the card: the R-50 demo's SGD step (bf16,
+    1344^2) on the train phase's batch of 2 and its gts, DDP_STEPS steps,
+    as one NCCL process (W = 1) and as two gloo processes on this card
+    (W = 2, a row each: NCCL refuses two ranks on one GPU), each a child
+    process (tools/launch_torch.launch_local), held against the
+    one-process step at batch 2 of the same forward: for W = 1 the step
+    run here (a; also b and c), for W = 2 the step with the batch's rows
+    forwarded one at a time (rows, forward_by_rows: the ranks'
+    convolutions are cuDNN's at batch 1).  The noise: the largest
+    difference between two of a, b and c (the DCN backward's atomics;
+    one pair's loss differences at steps 2-3 ranged over 6x from run to
+    run).  The parameters after the steps: within NOISE_FACTOR times it.
+    The losses, each on its own value (ddp_gate): step 1, whose forward
+    has no atomics, within DDP_STEP1_RTOL with the same counts; steps 2
+    on within LOSS_NOISE_FACTOR times that loss's relative noise.  A
+    planted fault, the W = 2 group with the rbox losses over each rank's
+    own positives (plant_fault), must fail the same gate.  Every rank
+    must launch the training kernels each step (hull 1, rect 2, hull IoU
+    1, DCN forward 1 and backward 1)."""
+    from tools.launch_torch import launch_local
+
+    host_batch = {k: v.cpu().numpy() for k, v in batch.items()}
+    start = {k: v.float() for k, v in sd.items()}
+    runs = []
+    for rows in (False, False, False, True):  # a, b, c (the noise), rows
+        model, step = build_trainer(sd, "bfloat16", dev)
+        if rows:
+            forward_by_rows(model)
+        losses = []
+        for _ in range(DDP_STEPS):
+            losses.append({k: float(v) for k, v in step(batch).items()})
+        torch.cuda.synchronize()
+        runs.append((losses, {k: v.detach().float().cpu()
+                              for k, v in model.state_dict().items()}))
+        del model, step
+        torch.cuda.empty_cache()
+    (la, pa), (lb, pb), (lc, pc), (lr, pr) = runs
+    pairs = ((la, pa, lb, pb), (la, pa, lc, pc), (lb, pb, lc, pc))
+    noise = max(param_diffs(p, q, start)["update_rel"]
+                for _, p, _, q in pairs)
+    noise_rel = {k: max([1e-6] + [loss_rel(x, y)[k] for l1, _, l2, _ in pairs
+                                  for x, y in zip(l1[1:], l2[1:])])
+                 for k in loss_rel(la[0], la[0])}
+    tol = {k: LOSS_NOISE_FACTOR * v for k, v in noise_rel.items()}
+    ok, results, totals = noise > 0, {}, {k: 0 for k in ops_mod.KERNELS}
+    wd = tempfile.mkdtemp(prefix="ddp_")
+    try:
+        for backend, world, fault in DDP_RUNS:
+            name = f"{backend}_w{world}" + (f"_{fault}" if fault else "")
+            spec = dict(sd=sd, batch=host_batch, backend=backend, fault=fault,
+                        probe_steps=0 if fault else DDP_PROBE_STEPS,
+                        out=os.path.join(wd, f"{name}.pt"))
+            spec_path = os.path.join(wd, f"{name}.spec.pt")
+            torch.save(spec, spec_path)
+            t0 = time.perf_counter()
+            try:
+                outs = launch_local(
+                    [sys.executable, os.path.abspath(__file__), "--ddp_rank",
+                     spec_path], world, local_ranks=[dev.index or 0] * world,
+                    timeout=DDP_TIMEOUT)
+            except RuntimeError as e:
+                say("ddp_failed", run=name, error=str(e)[-4000:])
+                ok = False
+                continue
+            wall = time.perf_counter() - t0
+            lines = [json.loads(line.split("] ", 1)[1]) for o in outs
+                     for line in o.splitlines()
+                     if line.startswith("[ddp_rank] ")]
+            res = torch.load(spec["out"], weights_only=False)
+            ref_losses, ref_params = (la, pa) if world == 1 else (lr, pr)
+            diff = param_diffs(res["params"], ref_params, start)
+            gate = ddp_gate(res["losses"], ref_losses, tol)
+            per_step_ok = len(lines) == world and all(
+                line["launches_per_step"] == DDP_LAUNCHES for line in lines)
+            finite = all(np.isfinite(v) for rec in res["losses"]
+                         for v in rec.values())
+            held = (per_step_ok and finite and gate["ok"]
+                    and diff["update_rel"] <= NOISE_FACTOR * noise
+                    and all(line["losses"] == lines[0]["losses"]
+                            for line in lines))
+            # the planted fault must fail the gate; it launches as any
+            # other run, so its counts stay out of the kernels' line
+            run_ok = (not gate["ok"]) if fault else held
+            ok &= run_ok
+            if not fault:
+                for line in lines:
+                    for k in totals:
+                        totals[k] += line["launches"][k]
+            results[name] = dict(
+                world=world, backend=backend, fault=fault, wall_s=wall,
+                params_vs_one_process=diff,
+                params_vs_batch2_forward=param_diffs(res["params"], pa,
+                                                     start),
+                loss_gate=gate,
+                held=held, losses=res["losses"], ranks=lines, ok=run_ok)
+            say("ddp_run", run=name, **results[name])
+    finally:
+        shutil.rmtree(wd, ignore_errors=True)
+    complete = len(results) == len(DDP_RUNS)
+    say("ddp", config=CONFIG, batch=TRAIN_BATCH, canvas=TRAIN_CANVAS,
+        dtype="bfloat16", steps=DDP_STEPS, one_process_losses=la,
+        one_process_losses_again=[lb, lc], one_process_losses_by_rows=lr,
+        by_rows_vs_batch2=dict(
+            step1_loss_rel=loss_rel(lr[0], la[0]),
+            update_rel=param_diffs(pr, pa, start)["update_rel"]),
+        noise_update_rel=noise, noise_loss_rel=noise_rel, loss_tol=tol,
+        step1_rtol=DDP_STEP1_RTOL,
+        noise_factor=NOISE_FACTOR, loss_noise_factor=LOSS_NOISE_FACTOR,
+        runs={k: dict(update_rel=v["params_vs_one_process"]["update_rel"],
+                      update_rel_vs_batch2_forward=v[
+                          "params_vs_batch2_forward"]["update_rel"],
+                      step1_rel=v["loss_gate"]["step1_rel"],
+                      later_rel=v["loss_gate"]["later_rel"],
+                      held=v["held"], ok=v["ok"])
+              for k, v in results.items()},
+        launches=totals, card=card, ok=ok and complete)
+    return ok and complete, totals
+
+
 def main() -> int:
+    if sys.argv[1:2] == ["--ddp_rank"]:
+        return ddp_rank(sys.argv[2])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -3281,6 +3722,10 @@ def main() -> int:
     ok_slice, launches, pred, outs = phase_slice(dev, rng, ops_mod, card)
     ok_decode = phase_decode(pred, outs)
     del outs
+    ok_shard, launches_shard = phase_shard_infer(
+        dev, np.random.default_rng(SEED + 8), ops_mod, card,
+        pred.model.state_dict())
+    torch.cuda.empty_cache()
     dataset = normalized_images(pred.cfg, rng, TTA_IMAGES, TTA_SIZE)
     ok_tta, launches_tta = phase_tta(pred.model, pred.cfg, pred.test_cfg,
                                      dataset, ops_mod, card)
@@ -3324,6 +3769,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     ok_check = phase_train_check(dev, ops_mod, sd, batch)
     torch.cuda.empty_cache()
+    ok_ddp, launches_ddp = phase_ddp(dev, ops_mod, card, sd, batch)
+    torch.cuda.empty_cache()
     sd = perturbed_weights(rng_swin, SWIN_CONFIG)
     ok_swin_train, launches_swin_train = phase_train(
         dev, ops_mod, card, sd, batch, SWIN_CONFIG, "swin_train")
@@ -3358,7 +3805,8 @@ def main() -> int:
     runs = (launches, launches_train, launches_tta, launches_iou,
             launches_eval, launches_hard, launches_hard_tta, launches_synth,
             launches_hard_aug, launches_swin, launches_swin_train,
-            launches_dota, launches_dota_train, *launches_more)
+            launches_dota, launches_dota_train, launches_shard, launches_ddp,
+            *launches_more)
     single = (launches_tta, launches_hard_tta)  # the single-image entry
     counts = {name: sum(r[name] for r in runs) for name in ops_mod.KERNELS}
     counts["quad_over_mask"] = sum(
@@ -3379,7 +3827,7 @@ def main() -> int:
             and ok_iou and ok_eval and ok_hard and ok_train and ok_check
             and ok_synth and ok_hard_aug and ok_dota
             and ok_swin and ok_swin_decode and ok_swin_train
-            and ok_swin_check and all(ok_more)):
+            and ok_swin_check and ok_shard and ok_ddp and all(ok_more)):
         print("chip_smoke: a phase failed", file=sys.stderr)
         return 1
     print(json.dumps({"ok": True, "device": {

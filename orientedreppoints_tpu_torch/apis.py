@@ -4,12 +4,13 @@
   * build_dataset: a data config -> DotaDataset with its pipeline, and
     build_dataloader: the training loader from the config;
   * run_inference and run_inference_tta (multi-scale x flip test-time
-    augmentation) over a dataset, on the model's device;
+    augmentation) over a dataset, on the model's device, or sharded over
+    every visible card (parallel/infer.py);
   * evaluate_results: in-memory tile-level oriented mAP;
   * parse_tta_spec: the CLI's TTA flags -> aug list;
   * the training config readers build_loss_config / build_img_norm,
     build_trainer: the config's SGD or AdamW recipe and step on a model,
-    and
+    one process or one rank of a data-parallel group, and
     train_epochs: the training loop with its checkpoints.
 """
 
@@ -32,7 +33,8 @@ from .devkit.polygon import poly_iou
 from .host import ceil32, load_config, rbbox2result, resize_linear
 from .models.detector import (OrientedRepPointsDetector, decode_detections,
                               decode_no_nms, merge_aug_and_nms)
-from .parallel import train
+from .parallel import dist, train
+from .parallel.infer import data_devices, round_up_batch, shard_infer
 from .utils import checkpoint
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -124,15 +126,18 @@ def build_dataset(dcfg, device_normalize: bool = False) -> DotaDataset:
 
 
 def build_dataloader(dataset, cfg, batch_size: int | None = None,
-                     seed: int = 0) -> DataLoader:
+                     seed: int = 0, group=None) -> DataLoader:
     """The training loader from the config's `tpu` section:
     global_batch_size (default 8), canvas_buckets and max_gt; seed fixes
-    the sampler's shuffles and the pipeline's draws of every epoch."""
+    the sampler's shuffles and the pipeline's draws of every epoch.  With
+    a data-parallel group each rank loads its share of every global batch
+    (data/loader.py), over a gloo group of the same ranks."""
     tpu = cfg.get("tpu", {})
     return DataLoader(dataset,
                       batch_size=batch_size or tpu.get("global_batch_size", 8),
                       canvas_buckets=tpu.get("canvas_buckets", [(1344, 1344)]),
-                      max_gt=tpu.get("max_gt", 512), seed=seed)
+                      max_gt=tpu.get("max_gt", 512), seed=seed,
+                      group=dist.cpu_group(group))
 
 
 def _batches(dataset, n: int, batch_size: int, canvas, device):
@@ -169,33 +174,58 @@ def _device(model) -> torch.device:
     return next(model.parameters()).device
 
 
-@torch.inference_mode()
-def run_inference(model, dataset, test_cfg, canvas=(1344, 1344),
-                  batch_size: int = 4, max_images: int | None = None,
-                  num_fg: int = 15):
-    """Inference over a dataset on the model's device -> {image_name:
-    [per-class (k, 9) arrays]}.  Each image is pasted on a zero canvas,
-    batches go through the model and decode_detections."""
-    device = _device(model)
-    n = len(dataset) if max_images is None else min(max_images, len(dataset))
-    results = {}
-    for imgs, sfs, names in _batches(dataset, n, batch_size, canvas, device):
-        sf = torch.tensor(sfs, dtype=torch.float32, device=device)
-        out = decode_detections(
+def infer_devices(devices, device: torch.device):
+    """The devices a batch shards over: "all" (the entry points'
+    default) is every visible card when `device` is a CUDA one
+    (parallel/infer.data_devices: None below two), else None; a list is
+    taken as it is; None: one device."""
+    if isinstance(devices, str) and devices == "all":
+        return data_devices() if device.type == "cuda" else None
+    return devices
+
+
+def detect_core(test_cfg):
+    """fn(model, canvases, scale factors (B, 1, 1)) -> decode_detections'
+    (dets, labels, valid): the model and the decode with test_cfg."""
+    def core(model, imgs, sf):
+        return decode_detections(
             model(imgs), nms_pre=test_cfg["nms_pre"],
             score_thr=test_cfg["score_thr"],
             iou_thr=test_cfg["nms"]["iou_thr"],
             max_per_img=test_cfg["max_per_img"],
-            pre_nms_cap=test_cfg.get("pre_nms_cap", 4096),
-            scale_factor=sf[:, None, None])
-        _collect(results, *out, names, num_fg)
+            pre_nms_cap=test_cfg.get("pre_nms_cap", 4096), scale_factor=sf)
+    return core
+
+
+@torch.inference_mode()
+def run_inference(model, dataset, test_cfg, canvas=(1344, 1344),
+                  batch_size: int = 4, max_images: int | None = None,
+                  num_fg: int = 15, devices="all"):
+    """Inference over a dataset on the model's device -> {image_name:
+    [per-class (k, 9) arrays]}.  Each image is pasted on a zero canvas,
+    batches go through the model and decode_detections.
+
+    devices: "all" shards each batch over every visible card when the
+    model is on one and the host has two or more (JAX's data_mesh()), a
+    list of devices over those, None on the model's device alone; the
+    batch is rounded up to a multiple of their count."""
+    device = _device(model)
+    devices = infer_devices(devices, device)
+    batch_size = round_up_batch(batch_size, devices)
+    infer = shard_infer(detect_core(test_cfg), model, devices)
+    n = len(dataset) if max_images is None else min(max_images, len(dataset))
+    results = {}
+    for imgs, sfs, names in _batches(dataset, n, batch_size, canvas, device):
+        sf = torch.tensor(sfs, dtype=torch.float32, device=device)
+        _collect(results, *infer(imgs, sf[:, None, None]), names, num_fg)
     return results
 
 
 @torch.inference_mode()
 def run_inference_tta(model, dataset, test_cfg, tta_augs: Sequence[tuple],
                       canvas=(1344, 1344), batch_size: int = 2,
-                      max_images: int | None = None, num_fg: int = 15):
+                      max_images: int | None = None, num_fg: int = 15,
+                      devices="all"):
     """Multi-scale / flip TTA inference on the model's device ->
     {image_name: [per-class (k, 9) arrays]}.
 
@@ -209,18 +239,44 @@ def run_inference_tta(model, dataset, test_cfg, tta_augs: Sequence[tuple],
     factor x r) and runs one multiclass_rnms over all augs' candidates.
     The (1.0, False) aug runs on exactly run_inference's canvas, so that
     recipe alone gives run_inference's detections.
+
+    devices: as run_inference's; each replica runs this whole program
+    (every scale's forward + decode, then the per-image merge) on its
+    shard of the batch, as the JAX package's sharded scale and merge
+    programs do.
     """
     device = _device(model)
+    devices = infer_devices(devices, device)
+    batch_size = round_up_batch(batch_size, devices)
     ch, cw = tuple(canvas)
     scales = list(dict.fromkeys(r for r, _ in tta_augs))
     scale_canvas = {r: (ceil32(ch * r), ceil32(cw * r)) for r in scales}
     aug_shapes = [scale_canvas[r] for r, _ in tta_augs]
     tc = test_cfg
+
+    def core(m, sf_augs, *canvases):
+        """Scale factors (B, A) and each scale's canvases -> every aug
+        decoded, then per image merged -> (dets, labels, valid)."""
+        aug = [None] * len(tta_augs)
+        for r, x in zip(scales, canvases):
+            for ai, (rr, flip) in enumerate(tta_augs):
+                if rr == r:
+                    aug[ai] = decode_no_nms(m(x.flip(2) if flip else x),
+                                            nms_pre=tc["nms_pre"])
+        outs = [merge_aug_and_nms(
+            [b[bi] for b, _ in aug], [s[bi] for _, s in aug],
+            [f for _, f in tta_augs], aug_shapes, list(sf_augs[bi]),
+            score_thr=tc["score_thr"], iou_thr=tc["nms"]["iou_thr"],
+            max_per_img=tc["max_per_img"],
+            pre_nms_cap=tc.get("pre_nms_cap", 4096))
+            for bi in range(sf_augs.shape[0])]
+        return tuple(torch.stack(t) for t in zip(*outs))
+
+    infer = shard_infer(core, model, devices)
     n = len(dataset) if max_images is None else min(max_images, len(dataset))
     results = {}
     for imgs, sfs, names in _batches(dataset, n, batch_size, canvas, device):
-        aug_boxes = [None] * len(tta_augs)
-        aug_scores = [None] * len(tta_augs)
+        canvases = []
         for r in scales:
             sh, sw = scale_canvas[r]
             x = torch.zeros((batch_size, sh, sw, 3), dtype=torch.float32,
@@ -228,21 +284,11 @@ def run_inference_tta(model, dataset, test_cfg, tta_augs: Sequence[tuple],
             rh, rw = (ch, cw) if r == 1.0 else (int(round(ch * r)),
                                                 int(round(cw * r)))
             x[:, :rh, :rw] = resize_linear(imgs, (rh, rw))
-            for ai, (rr, flip) in enumerate(tta_augs):
-                if rr == r:
-                    aug_boxes[ai], aug_scores[ai] = decode_no_nms(
-                        model(x.flip(2) if flip else x),
-                        nms_pre=tc["nms_pre"])
-        real = [bi for bi, name in enumerate(names) if name is not None]
-        outs = [merge_aug_and_nms(
-            [b[bi] for b in aug_boxes], [s[bi] for s in aug_scores],
-            [f for _, f in tta_augs], aug_shapes,
-            [np.float32(sfs[bi] * r) for r, _ in tta_augs],
-            score_thr=tc["score_thr"], iou_thr=tc["nms"]["iou_thr"],
-            max_per_img=tc["max_per_img"],
-            pre_nms_cap=tc.get("pre_nms_cap", 4096)) for bi in real]
-        _collect(results, *(torch.stack(t) for t in zip(*outs)),
-                 [names[bi] for bi in real], num_fg)
+            canvases.append(x)
+        sf_augs = torch.tensor([[np.float32(sf * r) for r, _ in tta_augs]
+                                for sf in sfs], dtype=torch.float32,
+                               device=device)
+        _collect(results, *infer(sf_augs, *canvases), names, num_fg)
     return results
 
 
@@ -298,7 +344,8 @@ def build_img_norm(cfg):
     return None
 
 
-def build_trainer(model, cfg, iters_per_epoch: int = 1000, seed: int = 0):
+def build_trainer(model, cfg, iters_per_epoch: int = 1000, seed: int = 0,
+                  group=None):
     """The config's training recipe on `model` (on its device): the
     backbone's frozen_stages frozen (ResNet's stem and layers; Swin,
     HRNet and SSD-VGG have neither, so nothing, as in JAX), SGD with
@@ -306,8 +353,10 @@ def build_trainer(model, cfg, iters_per_epoch: int = 1000, seed: int = 0):
     under lr_config's warmup + step schedule counted in iterations
     (iters_per_epoch of them an epoch), the global-norm clip, and the
     step, normalizing on the device when
-    cfg.tpu.device_normalize and drawing DropPath masks from (seed, step).
-    Returns (optimizer, scheduler, step)."""
+    cfg.tpu.device_normalize and drawing DropPath masks from (seed, step);
+    with a process group, the step of one rank of the data-parallel
+    global batch (parallel/train.py).  Returns (optimizer, scheduler,
+    step)."""
     opt, lr = cfg["optimizer"], cfg["lr_config"]
     if opt["type"] not in ("SGD", "AdamW"):
         raise NotImplementedError(f"optimizer {opt['type']} is not ported")
@@ -324,7 +373,7 @@ def build_trainer(model, cfg, iters_per_epoch: int = 1000, seed: int = 0):
     step = train.make_train_step(
         model, build_loss_config(cfg), optimizer, scheduler,
         grad_clip=cfg["optimizer_config"]["grad_clip"]["max_norm"],
-        img_norm=build_img_norm(cfg), seed=seed)
+        img_norm=build_img_norm(cfg), seed=seed, group=group)
     return optimizer, scheduler, step
 
 
@@ -333,7 +382,8 @@ def train_epochs(model, loader, step, optimizer, scheduler, ckpt_dir: str,
                  max_iters: int | None = None, ckpt_interval: int = 1,
                  meta: dict | None = None,
                  log: Callable[[str], None] | None = None,
-                 log_interval: int = 50, on_step=None, on_epoch=None) -> dict:
+                 log_interval: int = 50, on_step=None, on_epoch=None,
+                 group=None) -> dict:
     """The training loop: the loader's epochs start_epoch .. stop_epoch - 1
     through step, each step ended by a synchronize of the model's device
     (so its time is the step's), until `it` reaches max_iters.  A
@@ -342,10 +392,15 @@ def train_epochs(model, loader, step, optimizer, scheduler, ckpt_dir: str,
     log_interval steps (the losses, LR, seconds so far and the loader's
     share of them); on_step(epoch, losses, stats, batch) after each
     step, with stats as compute_losses fills them; on_epoch(epoch_reached,
-    it) after each epoch's checkpoint.  Returns dict(epoch: the epoch
-    reached, it, wait_s: the wait for each batch, step_s: each step's
-    time, save_s: each checkpoint's, wall_s)."""
+    it) after each epoch's checkpoint.  With a data-parallel group only
+    rank 0 logs and writes the checkpoints, and every rank waits at a
+    barrier after each write (the losses logged are the group's, the
+    step's sums).  Returns dict(epoch: the epoch reached, it, wait_s: the
+    wait for each batch, step_s: each step's time, save_s: each
+    checkpoint's, wall_s)."""
     device = _device(model)
+    if dist.rank(group) != 0:
+        log = None
     waits, steps, saves = [], [], []
     t0 = time.perf_counter()
     reached = start_epoch
@@ -383,7 +438,7 @@ def train_epochs(model, loader, step, optimizer, scheduler, ckpt_dir: str,
         if reached % ckpt_interval == 0 or last:
             t1 = time.perf_counter()
             checkpoint.save_checkpoint(ckpt_dir, reached, model, optimizer,
-                                       scheduler, it, meta)
+                                       scheduler, it, meta, group=group)
             saves.append(time.perf_counter() - t1)
         if on_epoch:
             on_epoch(reached, it)

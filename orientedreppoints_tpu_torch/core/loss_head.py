@@ -85,10 +85,18 @@ def _decode_levels(offsets, strides):
 
 
 def compute_losses(outs, gt_polys, gt_labels, gt_valid, img_hw,
-                   cfg: LossConfig, stats: dict | None = None):
+                   cfg: LossConfig, stats: dict | None = None, reduce=None):
     """The loss dict: loss_cls, loss_rbox_init, loss_rbox_refine,
     loss_spatial_init, loss_spatial_refine (the init losses summed over
     levels), num_pos, num_assigned_pos, overflow_pos.
+
+    reduce: for one rank of a data-parallel group, a function summing a
+    tensor over the group.  Every count a loss divides by or is gated on
+    (num_pos, each level's n_lvl, the spatial losses' outside points and
+    positives) is then the global batch's, so each loss is this rank's sum
+    over the global count and the group's sum is the one-process loss of
+    the global batch; the counts returned stay this rank's.  None: one
+    process.
 
     stats, when a dict, receives the refine assignment (gt_inds (B, N)) and
     the per-image share of valid (gt, point set) pairs with IoU > 0.1
@@ -136,6 +144,7 @@ def compute_losses(outs, gt_polys, gt_labels, gt_valid, img_hw,
                                 per_level_topk=cfg.per_level_topk,
                                 top_ratio=cfg.top_ratio)
     num_pos = keep.sum()
+    num_pos_all = num_pos if reduce is None else reduce(num_pos.clone())
     pos_per_img = (refine_tg.gt_inds > 0).sum(1)
     overflow_pos = torch.clamp(pos_per_img - cfg.max_pos, min=0).sum()
 
@@ -145,9 +154,9 @@ def compute_losses(outs, gt_polys, gt_labels, gt_valid, img_hw,
     was_pos = refine_tg.gt_inds > 0
     labels_final = torch.where(was_pos & ~sel_full, 0, refine_tg.labels)
 
-    has_pos = (num_pos > 0).to(torch.float32)
+    has_pos = (num_pos_all > 0).to(torch.float32)
     loss_cls = focal_loss(cls_scores, labels_final, refine_tg.label_weights,
-                          avg_factor=num_pos, gamma=cfg.focal_gamma,
+                          avg_factor=num_pos_all, gamma=cfg.focal_gamma,
                           alpha=cfg.focal_alpha,
                           loss_weight=cfg.loss_cls_weight) * has_pos
 
@@ -158,11 +167,11 @@ def compute_losses(outs, gt_polys, gt_labels, gt_valid, img_hw,
         -1, 8)
     w_keep = keep.to(torch.float32).reshape(-1)
     loss_rbox_refine = giou_loss(
-        pred_cand, gt_cand, w_keep, divisor=num_pos,
+        pred_cand, gt_cand, w_keep, divisor=num_pos_all,
         loss_weight=cfg.loss_rbox_refine_weight) * has_pos
     loss_spatial_refine = spatial_border_loss(
         pred_cand, gt_cand, w_keep,
-        loss_weight=cfg.loss_spatial_refine_weight) * has_pos
+        loss_weight=cfg.loss_spatial_refine_weight, reduce=reduce) * has_pos
 
     # ---- init losses per level, over max_gt * pos_num rows each -------------
     max_gt = gt_polys.shape[1]
@@ -178,12 +187,15 @@ def compute_losses(outs, gt_polys, gt_labels, gt_valid, img_hw,
               / norm).reshape(-1, 8)
         w = w_top.reshape(-1)
         n_lvl = (w > 0).sum()
+        if reduce is not None:
+            n_lvl = reduce(n_lvl)
         has = (n_lvl > 0).to(torch.float32)
         loss_rbox_init = loss_rbox_init + giou_loss(
             pred, gt, w, divisor=n_lvl,
             loss_weight=cfg.loss_rbox_init_weight) * has
         loss_spatial_init = loss_spatial_init + spatial_border_loss(
-            pred, gt, w, loss_weight=cfg.loss_spatial_init_weight) * has
+            pred, gt, w, loss_weight=cfg.loss_spatial_init_weight,
+            reduce=reduce) * has
 
     if stats is not None:
         pairs = gt_valid[..., None] & points_valid[:, None, :]

@@ -74,11 +74,14 @@ def giou_loss(pred_pts, target_quads, weight, divisor,
         pred_pts, target_quads, weight, divisor, loss_weight)
 
 
-def spatial_border_loss(pts, gt_quads, weight, loss_weight: float = 1.0):
+def spatial_border_loss(pts, gt_quads, weight, loss_weight: float = 1.0,
+                        reduce=None):
     """0.2 x distance to the gt centre for points outside their gt quad,
     averaged over those points, over (n_pos + 1e-6).
 
-    pts (M, 18), gt_quads (M, 8), weight (M,) positive mask."""
+    pts (M, 18), gt_quads (M, 8), weight (M,) positive mask.  reduce, when
+    given, sums the two counts over a data-parallel group (the global
+    batch's outside points and positives) before the divisions."""
     m = pts.shape[0]
     p = pts.reshape(m, 9, 2)
     quads = gt_quads.reshape(m, 4, 2)
@@ -88,7 +91,9 @@ def spatial_border_loss(pts, gt_quads, weight, loss_weight: float = 1.0):
     center = (quads[:, 0] + quads[:, 2]) / 2.0
     d = torch.sqrt(((p - center[:, None, :]) ** 2).sum(-1) + 1e-12)
     n_out = outside.sum()
+    n_pos = pos.sum()
+    if reduce is not None:
+        n_out, n_pos = reduce(n_out), reduce(n_pos)
     out_term = torch.where(outside, 0.2 * d, 0.0).sum() / torch.clamp(
         n_out, min=1)
-    n_pos = pos.sum()
     return loss_weight * out_term / (n_pos.to(pts.dtype) + 1e-6)

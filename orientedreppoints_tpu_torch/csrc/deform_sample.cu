@@ -47,6 +47,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "device.cuh"
+
 namespace {
 
 constexpr int MAX_LEVELS = 8;
@@ -289,7 +291,10 @@ extern "C" int orp_deform_sample_pair_f32(const void* table_a,
                                           const void* offsets,
                                           const int* levels, void* out_a,
                                           void* out_b, int rows, int C, int K,
-                                          int num_levels, void* stream) {
+                                          int num_levels, int device,
+                                          void* stream) {
+  const DeviceScope scope(device);
+  if (scope.error() != cudaSuccess) return (int)scope.error();
   return launch<float, 4>(table_a, table_b, offsets, levels, out_a, out_b,
                           rows, C, K, num_levels, stream);
 }
@@ -299,8 +304,10 @@ extern "C" int orp_deform_sample_pair_bf16(const void* table_a,
                                            const void* offsets,
                                            const int* levels, void* out_a,
                                            void* out_b, int rows, int C,
-                                           int K, int num_levels,
+                                           int K, int num_levels, int device,
                                            void* stream) {
+  const DeviceScope scope(device);
+  if (scope.error() != cudaSuccess) return (int)scope.error();
   return launch<__nv_bfloat16, 8>(table_a, table_b, offsets, levels, out_a,
                                   out_b, rows, C, K, num_levels, stream);
 }

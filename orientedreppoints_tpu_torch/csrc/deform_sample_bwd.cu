@@ -61,6 +61,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "device.cuh"
+
 namespace {
 
 constexpr int MAX_LEVELS = 8;
@@ -558,7 +560,7 @@ template <typename T>
 int launch(const void* table_a, const void* table_b, const void* offsets,
            const float* grad_a, const float* grad_b, const int* levels,
            float* gtab, void* goff, int rows, int C, int K, int num_levels,
-           void* stream) {
+           int device, void* stream) {
   if (num_levels < 1 || num_levels > MAX_LEVELS || K < 1)
     return (int)cudaErrorInvalidValue;
   Levels lv;
@@ -582,7 +584,7 @@ int launch(const void* table_a, const void* table_b, const void* offsets,
   using Cfg = Tile<T>;
   int max_smem = 0;
   cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                         0);
+                         device);
   const bool tile = K == TK && C % Cfg::CS == 0 &&
                     Cfg::SMEM + 64 <= (size_t)max_smem &&
                     aligned(table_a, 16) && aligned(table_b, 16) &&
@@ -615,18 +617,24 @@ int launch(const void* table_a, const void* table_b, const void* offsets,
 extern "C" int orp_deform_sample_pair_bwd_f32(
     const void* table_a, const void* table_b, const void* offsets,
     const void* grad_a, const void* grad_b, const int* levels, float* gtab,
-    void* goff, int rows, int C, int K, int num_levels, void* stream) {
+    void* goff, int rows, int C, int K, int num_levels, int device,
+    void* stream) {
+  const DeviceScope scope(device);
+  if (scope.error() != cudaSuccess) return (int)scope.error();
   return launch<float>(table_a, table_b, offsets, (const float*)grad_a,
                        (const float*)grad_b, levels, gtab, goff, rows, C, K,
-                       num_levels, stream);
+                       num_levels, device, stream);
 }
 
 extern "C" int orp_deform_sample_pair_bwd_bf16(
     const void* table_a, const void* table_b, const void* offsets,
     const void* grad_a, const void* grad_b, const int* levels, float* gtab,
-    void* goff, int rows, int C, int K, int num_levels, void* stream) {
+    void* goff, int rows, int C, int K, int num_levels, int device,
+    void* stream) {
+  const DeviceScope scope(device);
+  if (scope.error() != cudaSuccess) return (int)scope.error();
   return launch<__nv_bfloat16>(table_a, table_b, offsets,
                                (const float*)grad_a, (const float*)grad_b,
                                levels, gtab, goff, rows, C, K, num_levels,
-                               stream);
+                               device, stream);
 }

@@ -30,6 +30,7 @@
 #include <cuda_runtime.h>
 
 #include "clip_ring.cuh"
+#include "device.cuh"
 
 namespace {
 
@@ -99,7 +100,10 @@ extern "C" int orp_hull_quad_iou(const float* hulls, const int* counts,
                                  const float* quads,
                                  const unsigned char* gt_valid,
                                  const unsigned char* rows_valid, float* out,
-                                 int B, int N, int G, void* stream) {
+                                 int B, int N, int G, int device,
+                                 void* stream) {
+  const DeviceScope scope(device);
+  if (scope.error() != cudaSuccess) return (int)scope.error();
   if ((G + GT_TILE - 1) / GT_TILE > 65535 || B > 65535)
     return (int)cudaErrorInvalidValue;
   if (B > 0 && N > 0 && G > 0) {

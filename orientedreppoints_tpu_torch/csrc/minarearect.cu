@@ -38,6 +38,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "device.cuh"
+
 namespace {
 
 constexpr int K = 9;
@@ -286,7 +288,9 @@ __global__ void __launch_bounds__(THREADS, 6)
 
 // points (n, 18) f32 -> rect (n, 8) f32, hull (n, 9, 2) f32, count (n,) i32.
 extern "C" int orp_min_area_rect(const float* points, float* rect, float* hull,
-                                 int* count, int n, void* stream) {
+                                 int* count, int n, int device, void* stream) {
+  const DeviceScope scope(device);
+  if (scope.error() != cudaSuccess) return (int)scope.error();
   if (n > 0) {
     const long long threads = (long long)n * LANES;
     mar_kernel<<<(unsigned)((threads + THREADS - 1) / THREADS), THREADS, 0,

@@ -34,6 +34,8 @@
 
 #include <cuda_runtime.h>
 
+#include "device.cuh"
+
 namespace {
 
 typedef unsigned long long u64;
@@ -179,7 +181,10 @@ __global__ void __launch_bounds__(THREADS)
 
 // mask (B, N, W) uint64, valid (B, N) bool, nv (B,) i32 -> keep (B, N) bool.
 extern "C" int orp_nms_scan(const void* mask, const bool* valid, const int* nv,
-                            bool* keep, int batch, int n, void* stream) {
+                            bool* keep, int batch, int n, int device,
+                            void* stream) {
+  const DeviceScope scope(device);
+  if (scope.error() != cudaSuccess) return (int)scope.error();
   if (batch > 0 && n > 0) {
     const int words = (n + 63) / 64;
     const size_t smem = 2 * (size_t)words * sizeof(u64);

@@ -41,6 +41,7 @@
 #include <stdint.h>
 
 #include "clip_ring.cuh"
+#include "device.cuh"
 
 namespace {
 
@@ -168,13 +169,18 @@ int launch(const float* a, const float* c, const int* nv, float* out, int B,
 
 // a (B, N, 8) f32 subjects, c (B, M, 8) f32 clip quads -> out (B, N, M) f32.
 extern "C" int orp_quad_iou_full(const float* a, const float* c, float* out,
-                                 int B, int N, int M, void* stream) {
+                                 int B, int N, int M, int device,
+                                 void* stream) {
+  const DeviceScope scope(device);
+  if (scope.error() != cudaSuccess) return (int)scope.error();
   return launch<false>(a, c, nullptr, out, B, N, M, stream);
 }
 
 // As orp_quad_iou_full, with nv (B,) i32: 0 unless j > i and i, j < nv[b].
 extern "C" int orp_quad_iou_tri(const float* a, const float* c, const int* nv,
-                                float* out, int B, int N, int M,
+                                float* out, int B, int N, int M, int device,
                                 void* stream) {
+  const DeviceScope scope(device);
+  if (scope.error() != cudaSuccess) return (int)scope.error();
   return launch<true>(a, c, nv, out, B, N, M, stream);
 }

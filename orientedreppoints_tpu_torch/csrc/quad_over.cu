@@ -40,6 +40,7 @@
 #include <limits.h>
 
 #include "clip_ring.cuh"
+#include "device.cuh"
 
 namespace {
 
@@ -99,7 +100,10 @@ __global__ void __launch_bounds__(TILE)
 
 // quads (B, N, 8) f32, nv (B,) i32 -> out (B, N, ceil(N/64)) uint64 words.
 extern "C" int orp_quad_over_mask(const float* quads, const int* nv, void* out,
-                                  int batch, int n, float thr, void* stream) {
+                                  int batch, int n, float thr, int device,
+                                  void* stream) {
+  const DeviceScope scope(device);
+  if (scope.error() != cudaSuccess) return (int)scope.error();
   const int words = (n + TILE - 1) / TILE;
   const long long tiles = (long long)words * (words + 1) / 2;
   if (batch > 65535 || tiles > INT_MAX) return (int)cudaErrorInvalidValue;

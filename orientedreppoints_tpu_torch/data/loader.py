@@ -9,7 +9,8 @@ device (Normalize(device=True)) else float32; gt_polys (B, G, 8) float32;
 gt_labels (B, G) int32; gt_valid (B, G) bool; img_hw (B, 2) int32, the
 true (unpadded) sizes.
 
-Everything here is host numpy; the worker thread touches no device
+Everything here is host numpy; the worker thread prepares the samples,
+the consumer collates them, and neither touches a device
 (parallel/train.to_device moves a batch).  The sampler's shuffles come
 from RandomState(seed + epoch), as in the JAX loader; the pipeline's
 random draws (RotateResize's scale, RotateRandomFlip, the hard-aug
@@ -18,6 +19,23 @@ RandomState the loader creates per epoch, where the JAX package draws
 from the global np.random.  An epoch's batches
 therefore depend only on (seed, epoch), and a resumed run draws what an
 uninterrupted one would.
+
+Data-parallel (a gloo group over the W ranks, parallel/dist.cpu_group):
+every rank runs the same sampler order over global batches of
+batch_size, prepares and collates only its own batch_size / W of them (W
+must divide batch_size), rank r the rows [r b, (r + 1) b), and all ranks
+put their rows on one canvas, the bucket the global batch's largest image
+needs (a MAX all-reduce of its height and width in the consumer's thread,
+where it keeps its place among the step's collectives; the worker thread
+prepares the samples).  The ranks' batches stacked in rank order
+are the one-process batch of a pipeline without random steps.  A random
+pipeline draws from RandomState([seed, epoch, rank]) at W > 1, so it
+draws differently from one process.  When part of a rank's share drops
+out (FilterEmpty), the ranks hold shares of different sizes, still the
+one-process batch when stacked, and the step takes them
+(parallel/train.make_train_step exchanges the counts).  A global batch
+from which a rank's share drops out entirely is skipped on every rank,
+where one process would step its other rows.
 """
 
 from __future__ import annotations
@@ -27,6 +45,9 @@ import threading
 from typing import Iterator, Sequence
 
 import numpy as np
+import torch
+
+from ..parallel import dist
 
 PREFETCH = 2  # batches the worker thread may hold ready
 
@@ -58,9 +79,12 @@ class GroupedBatchSampler:
                    for g in np.unique(self.flags))
 
 
-def aug_rng(seed: int, epoch: int) -> np.random.RandomState:
-    """The pipeline's RandomState for one epoch."""
-    return np.random.RandomState([seed, epoch])
+def aug_rng(seed: int, epoch: int,
+            rank: int | None = None) -> np.random.RandomState:
+    """The pipeline's RandomState for one epoch (and one rank of a group
+    of more than one)."""
+    return np.random.RandomState([seed, epoch] if rank is None
+                                 else [seed, epoch, rank])
 
 
 def pick_canvas(h, w, buckets):
@@ -104,27 +128,49 @@ class DataLoader:
 
     def __init__(self, dataset, batch_size: int,
                  canvas_buckets: Sequence[tuple[int, int]] = ((1344, 1344),),
-                 max_gt: int = 512, seed: int = 0):
+                 max_gt: int = 512, seed: int = 0, group=None):
+        """batch_size: the global batch; group: a gloo group of the
+        data-parallel ranks (module docstring), None for one process."""
         self.dataset = dataset
         self.batch_size = batch_size
         self.canvas_buckets = [tuple(c) for c in canvas_buckets]
         self.max_gt = max_gt
         self.seed = seed
         self.epoch = 0
+        self.group = group
+        self.rank, self.world = dist.rank(group), dist.world_size(group)
+        if batch_size % self.world:
+            raise ValueError(f"DataLoader: {self.world} ranks do not split "
+                             f"the global batch of {batch_size}")
 
-    def _iter_epoch(self, epoch: int) -> Iterator[dict]:
+    def _samples(self, epoch: int) -> Iterator[list]:
+        """The prepared samples of this rank's rows of each global batch
+        (the worker thread's part)."""
         sampler = GroupedBatchSampler(self.dataset.flag, self.batch_size,
                                       seed=self.seed + epoch)
-        rng = aug_rng(self.seed, epoch)
+        b = self.batch_size // self.world
+        rows = slice(self.rank * b, (self.rank + 1) * b)
+        rng = aug_rng(self.seed, epoch,
+                      self.rank if self.world > 1 else None)
         for batch_idx in sampler:
-            samples = [s for s in (self.dataset.prepare(int(i), rng)
-                                   for i in batch_idx) if s is not None]
-            if not samples:
-                continue
-            canvas = pick_canvas(max(s["img"].shape[0] for s in samples),
-                                 max(s["img"].shape[1] for s in samples),
-                                 self.canvas_buckets)
-            yield collate(samples, canvas, self.max_gt)
+            yield [s for s in (self.dataset.prepare(int(i), rng)
+                               for i in batch_idx[rows]) if s is not None]
+
+    def _collate(self, samples: list) -> dict | None:
+        """The batch of one global batch's samples on the canvas its
+        largest image needs; None when a rank has no sample.  The group's
+        all-reduce runs here, in the consumer's thread, so that it keeps
+        its place among the step's collectives on every rank."""
+        # the largest image, and the least row count (MAX of the negated
+        # counts): over the group when there is one
+        t = dist.all_reduce_max(torch.tensor(
+            [max((s["img"].shape[0] for s in samples), default=0),
+             max((s["img"].shape[1] for s in samples), default=0),
+             -len(samples)]), self.group)
+        if int(t[2]) == 0:
+            return None
+        canvas = pick_canvas(int(t[0]), int(t[1]), self.canvas_buckets)
+        return collate(samples, canvas, self.max_gt)
 
     def __iter__(self):
         q: queue.Queue = queue.Queue(maxsize=PREFETCH)
@@ -145,8 +191,8 @@ class DataLoader:
 
         def worker():
             try:
-                for b in self._iter_epoch(epoch):
-                    if not put(b):
+                for samples in self._samples(epoch):
+                    if not put(samples):
                         return
             except BaseException as e:  # re-raised in the consumer
                 errors.append(e)
@@ -160,7 +206,9 @@ class DataLoader:
                 item = q.get()
                 if item is end:
                     break
-                yield item
+                batch = self._collate(item)
+                if batch is not None:
+                    yield batch
         finally:
             # the consumer may leave mid-epoch (max_iters): unblock the
             # worker and join it, so that no thread outlives the epoch

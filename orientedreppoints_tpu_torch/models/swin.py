@@ -22,7 +22,10 @@ defaults differ:
     the reverse roll;
   * DropPath draws one keep mask per sample from the torch.Generator the
     caller passes (the train step derives it from its seed and step
-    count); the model draws nothing in eval mode.
+    count); the model draws nothing in eval mode.  A rank of a
+    data-parallel group passes BatchRows: it draws the global batch's
+    masks and keeps its own rows, so that the group draws the masks of
+    one process stepping the global batch.
 
 The window attention, LayerNorm, GELU and PatchMerging are XLA code in
 the JAX package, not Pallas kernels; here they are plain PyTorch, and the
@@ -34,6 +37,8 @@ utils/convert.py maps every leaf one to one.
 from __future__ import annotations
 
 from typing import Sequence
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -98,15 +103,35 @@ def window_reverse(windows: torch.Tensor, ws: int, h: int,
     return x.permute(0, 1, 3, 2, 4, 5).reshape(b, h, w, -1)
 
 
+@dataclasses.dataclass(frozen=True)
+class BatchRows:
+    """DropPath's generator for one rank of a data-parallel group: the
+    rank holds the rows [offset, offset + b) of the global batch of
+    `total` rows (the ranks' shares may differ in size)."""
+    gen: torch.Generator
+    offset: int
+    total: int
+
+
 def drop_path(y: torch.Tensor, rate: float,
-              gen: torch.Generator | None) -> torch.Tensor:
+              gen: torch.Generator | BatchRows | None) -> torch.Tensor:
     """Stochastic depth: y times a per-sample keep mask (B, 1, 1, 1) drawn
-    from gen, over keep = 1 - rate.  Identity without gen or at rate 0."""
+    from gen, over keep = 1 - rate.  Identity without gen or at rate 0.
+    With BatchRows the mask of the global batch is drawn, and rows
+    [offset, offset + b) of it kept."""
     if gen is None or rate == 0.0:
         return y
+    b = y.shape[0]
+    offset, total = 0, b
+    if isinstance(gen, BatchRows):
+        gen, offset, total = gen.gen, gen.offset, gen.total
+        if offset + b > total:
+            raise ValueError(f"drop_path: rows [{offset}, {offset + b}) "
+                             f"of a batch of {total}")
     keep = 1.0 - rate
-    shape = (y.shape[0],) + (1,) * (y.dim() - 1)
-    mask = torch.rand(shape, generator=gen, device=y.device) < keep
+    shape = (total,) + (1,) * (y.dim() - 1)
+    mask = torch.rand(shape, generator=gen, device=y.device)
+    mask = mask[offset:offset + b] < keep
     return y * mask.to(y.dtype) / keep
 
 
@@ -283,7 +308,7 @@ class SwinTransformer(nn.Module):
                     m.bias.zero_()
 
     def forward(self, x: torch.Tensor,
-                gen: torch.Generator | None = None) -> tuple:
+                gen: torch.Generator | BatchRows | None = None) -> tuple:
         if self.training and gen is None and any(
                 getattr(self, n).drop_path for s in self.stages for n in s):
             raise ValueError("SwinTransformer in train mode needs the "

@@ -7,9 +7,11 @@ checkout), keyed on a hash of the sources, the headers they include
 (``csrc/*.cuh``) and the flags, then loaded with ctypes.  A failed build
 raises; nothing falls back.
 
-Each exported C function launches on the stream it is given, allocates
-nothing, and returns ``cudaGetLastError()`` as an int; ``launch`` raises if
-that is not 0.
+Each exported C function takes the ordinal of its tensors' device and
+the stream to launch on, makes that device current for the launch (the
+library's own CUDA runtime does not see PyTorch's current device), allocates
+nothing, and returns ``cudaGetLastError()`` as an int; ``launch`` passes the
+device and stream of one input and raises if the result is not 0.
 """
 
 from __future__ import annotations
@@ -35,18 +37,19 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 P = ctypes.c_void_p
 I = ctypes.c_int
 F32 = ctypes.c_float
-# exported function -> argument types (pointers and the stream are c_void_p)
+# exported function -> argument types (pointers and the stream are c_void_p);
+# every one ends (..., device ordinal, stream)
 SIGNATURES = {
-    "orp_min_area_rect": [P, P, P, P, I, P],
-    "orp_quad_over_mask": [P, P, P, I, I, F32, P],
-    "orp_nms_scan": [P, P, P, P, I, I, P],
-    "orp_deform_sample_pair_f32": [P, P, P, P, P, P, I, I, I, I, P],
-    "orp_deform_sample_pair_bf16": [P, P, P, P, P, P, I, I, I, I, P],
-    "orp_deform_sample_pair_bwd_f32": [P] * 8 + [I, I, I, I, P],
-    "orp_deform_sample_pair_bwd_bf16": [P] * 8 + [I, I, I, I, P],
-    "orp_hull_quad_iou": [P, P, P, P, P, P, I, I, I, P],
-    "orp_quad_iou_full": [P, P, P, I, I, I, P],
-    "orp_quad_iou_tri": [P, P, P, P, I, I, I, P],
+    "orp_min_area_rect": [P, P, P, P, I, I, P],
+    "orp_quad_over_mask": [P, P, P, I, I, F32, I, P],
+    "orp_nms_scan": [P, P, P, P, I, I, I, P],
+    "orp_deform_sample_pair_f32": [P, P, P, P, P, P, I, I, I, I, I, P],
+    "orp_deform_sample_pair_bf16": [P, P, P, P, P, P, I, I, I, I, I, P],
+    "orp_deform_sample_pair_bwd_f32": [P] * 8 + [I, I, I, I, I, P],
+    "orp_deform_sample_pair_bwd_bf16": [P] * 8 + [I, I, I, I, I, P],
+    "orp_hull_quad_iou": [P, P, P, P, P, P, I, I, I, I, P],
+    "orp_quad_iou_full": [P, P, P, I, I, I, I, P],
+    "orp_quad_iou_tri": [P, P, P, P, I, I, I, I, P],
 }
 
 _lib = None
@@ -115,9 +118,11 @@ def stream_ptr(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def launch(name: str, *args) -> None:
-    """Call an exported launcher; raise on a nonzero cudaGetLastError."""
-    err = getattr(lib(), name)(*args)
+def launch(name: str, *args, on: torch.Tensor) -> None:
+    """Call an exported launcher with args, then the device ordinal and
+    the current stream of `on`'s device; raise on a nonzero
+    cudaGetLastError."""
+    err = getattr(lib(), name)(*args, on.device.index, stream_ptr(on))
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
 
@@ -131,14 +136,15 @@ def check_dtype_shape(t: torch.Tensor, name: str, dtype, shape=None) -> None:
                          f"got {tuple(t.shape)}")
 
 
-def check_cuda(t: torch.Tensor, name: str, dtype, shape=None) -> None:
-    """Validate a kernel input: CUDA, dtype, contiguity and shape."""
+def check_cuda(t: torch.Tensor, name: str, dtype, shape=None,
+               device: torch.device | None = None) -> None:
+    """Validate a kernel input: CUDA, on `device` (the other inputs'),
+    dtype, contiguity and shape."""
     if not t.is_cuda:
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
-    if t.device.index != 0:
-        # the library carries its own CUDA runtime, whose current device is
-        # the first one; multi-GPU serving is not ported yet
-        raise NotImplementedError(f"{name}: kernels run on cuda:0 only")
+    if device is not None and t.device != device:
+        raise ValueError(f"{name}: on {t.device}, the other inputs on "
+                         f"{device}")
     check_dtype_shape(t, name, dtype, shape)
     if not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")

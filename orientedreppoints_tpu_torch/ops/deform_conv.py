@@ -134,7 +134,7 @@ def deform_sample_pair_kernel(table_a, table_b, offsets, shapes,
     for name, t, shape in (("table_a", table_a, (rows, c)),
                            ("table_b", table_b, (rows, c)),
                            ("offsets", offsets, (rows, 2 * k))):
-        _ext.check_cuda(t, name, table_a.dtype, shape)
+        _ext.check_cuda(t, name, table_a.dtype, shape, table_a.device)
     levels_c = _levels_arg(shapes)
     out_a = torch.empty((rows, k * c), dtype=table_a.dtype,
                         device=table_a.device)
@@ -142,7 +142,7 @@ def deform_sample_pair_kernel(table_a, table_b, offsets, shapes,
     _ext.launch(_KERNEL_DTYPES[table_a.dtype], table_a.data_ptr(),
                 table_b.data_ptr(), offsets.data_ptr(), levels_c,
                 out_a.data_ptr(), out_b.data_ptr(), rows, c, k, len(shapes),
-                _ext.stream_ptr(table_a))
+                on=table_a)
     deform_sample_pair_kernel.launches += 1
     return out_a, out_b
 
@@ -226,9 +226,10 @@ def deform_sample_pair_backward_kernel(table_a, table_b, offsets, grad_a,
     for name, t, shape in (("table_a", table_a, (rows, c)),
                            ("table_b", table_b, (rows, c)),
                            ("offsets", offsets, (rows, 2 * k))):
-        _ext.check_cuda(t, name, table_a.dtype, shape)
+        _ext.check_cuda(t, name, table_a.dtype, shape, table_a.device)
     for name, t in (("grad_a", grad_a), ("grad_b", grad_b)):
-        _ext.check_cuda(t, name, torch.float32, (rows, k * c))
+        _ext.check_cuda(t, name, torch.float32, (rows, k * c),
+                        table_a.device)
     # f32 scratch for the atomics, both instances side by side
     gtab = torch.zeros((rows, 2 * c), dtype=torch.float32,
                        device=table_a.device)
@@ -237,8 +238,7 @@ def deform_sample_pair_backward_kernel(table_a, table_b, offsets, grad_a,
     _ext.launch(_BWD_KERNEL_DTYPES[table_a.dtype], table_a.data_ptr(),
                 table_b.data_ptr(), offsets.data_ptr(), grad_a.data_ptr(),
                 grad_b.data_ptr(), _levels_arg(shapes), gtab.data_ptr(),
-                goff.data_ptr(), rows, c, k, len(shapes),
-                _ext.stream_ptr(table_a))
+                goff.data_ptr(), rows, c, k, len(shapes), on=table_a)
     deform_sample_pair_backward_kernel.launches += 1
     gtab = gtab.to(table_a.dtype)
     return gtab[:, :c], gtab[:, c:], goff

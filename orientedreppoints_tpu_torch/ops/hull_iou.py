@@ -130,15 +130,15 @@ def hull_quad_iou_kernel(hulls, counts, quads, gt_valid=None,
         if m is not None:
             _ext.check_dtype_shape(m, name, torch.bool, shape)
     _ext.check_cuda(hulls, "hulls", torch.float32, (b, n, V, 2))
-    _ext.check_cuda(counts, "counts", torch.int32, (b, n))
-    _ext.check_cuda(quads, "quads", torch.float32, (b, g, 8))
+    _ext.check_cuda(counts, "counts", torch.int32, (b, n), hulls.device)
+    _ext.check_cuda(quads, "quads", torch.float32, (b, g, 8), hulls.device)
     for m, name, shape in masks:
         if m is not None:
-            _ext.check_cuda(m, name, torch.bool, shape)
+            _ext.check_cuda(m, name, torch.bool, shape, hulls.device)
     out = torch.empty((b, g, n), dtype=torch.float32, device=quads.device)
     _ext.launch("orp_hull_quad_iou", hulls.data_ptr(), counts.data_ptr(),
                 quads.data_ptr(), _ptr(gt_valid), _ptr(rows_valid),
-                out.data_ptr(), b, n, g, _ext.stream_ptr(quads))
+                out.data_ptr(), b, n, g, on=quads)
     hull_quad_iou_kernel.launches += 1
     return out
 

@@ -35,7 +35,7 @@ def min_area_rect_kernel(points: torch.Tensor):
     hull = torch.empty((n, K, 2), dtype=torch.float32, device=points.device)
     count = torch.empty((n,), dtype=torch.int32, device=points.device)
     _ext.launch("orp_min_area_rect", points.data_ptr(), rect.data_ptr(),
-                hull.data_ptr(), count.data_ptr(), n, _ext.stream_ptr(points))
+                hull.data_ptr(), count.data_ptr(), n, on=points)
     min_area_rect_kernel.launches += 1
     return rect, hull, count
 

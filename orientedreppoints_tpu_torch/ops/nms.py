@@ -58,12 +58,11 @@ def greedy_scan(mask: torch.Tensor, valid: torch.Tensor,
 def greedy_scan_kernel(mask, valid, num_valid):
     b, n = valid.shape
     _ext.check_cuda(mask, "mask", torch.int64, (b, n, (n + 63) // 64))
-    _ext.check_cuda(valid, "valid", torch.bool, (b, n))
-    _ext.check_cuda(num_valid, "num_valid", torch.int32, (b,))
+    _ext.check_cuda(valid, "valid", torch.bool, (b, n), mask.device)
+    _ext.check_cuda(num_valid, "num_valid", torch.int32, (b,), mask.device)
     keep = torch.empty((b, n), dtype=torch.bool, device=mask.device)
     _ext.launch("orp_nms_scan", mask.data_ptr(), valid.data_ptr(),
-                num_valid.data_ptr(), keep.data_ptr(), b, n,
-                _ext.stream_ptr(mask))
+                num_valid.data_ptr(), keep.data_ptr(), b, n, on=mask)
     greedy_scan_kernel.launches += 1
     return keep
 

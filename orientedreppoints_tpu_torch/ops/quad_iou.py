@@ -108,10 +108,10 @@ def quad_iou_full_kernel(a, b):
     bsz, n, _ = a.shape
     m = b.shape[1]
     _ext.check_cuda(a, "quads_a", torch.float32, (bsz, n, 8))
-    _ext.check_cuda(b, "quads_b", torch.float32, (bsz, m, 8))
+    _ext.check_cuda(b, "quads_b", torch.float32, (bsz, m, 8), a.device)
     out = torch.empty((bsz, n, m), dtype=torch.float32, device=a.device)
     _ext.launch("orp_quad_iou_full", a.data_ptr(), b.data_ptr(),
-                out.data_ptr(), bsz, n, m, _ext.stream_ptr(a))
+                out.data_ptr(), bsz, n, m, on=a)
     quad_iou_full_kernel.launches += 1
     return out
 
@@ -123,12 +123,11 @@ def quad_iou_tri_kernel(a, b, num_valid):
     bsz, n, _ = a.shape
     m = b.shape[1]
     _ext.check_cuda(a, "quads_a", torch.float32, (bsz, n, 8))
-    _ext.check_cuda(b, "quads_b", torch.float32, (bsz, m, 8))
-    _ext.check_cuda(num_valid, "num_valid", torch.int32, (bsz,))
+    _ext.check_cuda(b, "quads_b", torch.float32, (bsz, m, 8), a.device)
+    _ext.check_cuda(num_valid, "num_valid", torch.int32, (bsz,), a.device)
     out = torch.empty((bsz, n, m), dtype=torch.float32, device=a.device)
     _ext.launch("orp_quad_iou_tri", a.data_ptr(), b.data_ptr(),
-                num_valid.data_ptr(), out.data_ptr(), bsz, n, m,
-                _ext.stream_ptr(a))
+                num_valid.data_ptr(), out.data_ptr(), bsz, n, m, on=a)
     quad_iou_tri_kernel.launches += 1
     return out
 
@@ -195,11 +194,11 @@ def quad_over_mask_kernel(quads: torch.Tensor, iou_thr: float,
                           num_valid: torch.Tensor) -> torch.Tensor:
     b, n, _ = quads.shape
     _ext.check_cuda(quads, "quads", torch.float32, (b, n, 8))
-    _ext.check_cuda(num_valid, "num_valid", torch.int32, (b,))
+    _ext.check_cuda(num_valid, "num_valid", torch.int32, (b,), quads.device)
     words = (n + 63) // 64
     out = torch.empty((b, n, words), dtype=torch.int64, device=quads.device)
     _ext.launch("orp_quad_over_mask", quads.data_ptr(), num_valid.data_ptr(),
-                out.data_ptr(), b, n, float(iou_thr), _ext.stream_ptr(quads))
+                out.data_ptr(), b, n, float(iou_thr), on=quads)
     quad_over_mask_kernel.launches += 1
     return out
 

@@ -1,5 +1,6 @@
-"""One-device training step (counterpart of parallel/train.py), with
-the SGD and the AdamW recipes of the JAX package's optax chains.
+"""The training step (counterpart of parallel/train.py), on one device
+or data-parallel over a process group, with the SGD and the AdamW recipes
+of the JAX package's optax chains.
 
 Optimizer parity (configs/dota/orientedreppoints_r50_demo.py,
 configs/dota/orientedreppoints_swin_tiny_demo.py):
@@ -27,9 +28,24 @@ on the model's device seeded from (seed, step count), as the JAX step
 folds its step count into one base key: a resumed run draws the masks of
 an uninterrupted one without saving any generator state.
 
+Data parallelism computes what the JAX mesh step computes: one step of
+the global batch.  Its losses divide by counts over the whole batch
+(num_pos, each level's positives, the spatial losses' counts), so stock
+DDP, which averages the grads of per-rank losses over per-rank counts, is
+not it.  With a group, each rank (one process a card, parallel/dist.py)
+holds its rows of the global batch, in rank order (the shares may differ
+in size when the loader drops samples; the step exchanges the ranks' row
+counts first): compute_losses sums every count over the group before it
+divides, so a rank's loss is its rows' share of the global loss; the
+grads are summed over the group (one flat all-reduce), then clipped by
+their global norm, then the optimizer steps every replica alike;
+DropPath draws the global batch's masks and keeps the rank's rows
+(models/swin.BatchRows, at the rank's row offset).  The losses returned
+are summed over the group, the per-image stats gathered, so every rank
+sees the one-process step's.
+
 apis.build_trainer assembles a recipe from a config; data/loader.py
-feeds it and utils/checkpoint.py saves and restores it.  Not ported yet:
-data-parallel (DDP) training (ROADMAP Queue 1).
+feeds it and utils/checkpoint.py saves and restores it.
 """
 
 from __future__ import annotations
@@ -39,6 +55,8 @@ from typing import Callable, Sequence
 import torch
 
 from ..core.loss_head import LossConfig, compute_losses
+from ..models.swin import BatchRows
+from . import dist
 
 BATCH_KEYS = ("images", "gt_polys", "gt_labels", "gt_valid", "img_hw")
 
@@ -162,9 +180,20 @@ def step_generator(seed: int, step: int, device) -> torch.Generator:
     return gen
 
 
+def all_reduce_grads_(grads: Sequence[torch.Tensor], group) -> None:
+    """Sum the grads over the group in place, as one flat buffer."""
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    dist.all_reduce_sum(flat, group)
+    lo = 0
+    for g in grads:
+        g.copy_(flat[lo:lo + g.numel()].view_as(g))
+        lo += g.numel()
+
+
 def make_train_step(model: torch.nn.Module, loss_cfg: LossConfig, optimizer,
                     scheduler, grad_clip: float = 35.0,
-                    img_norm: dict | None = None, seed: int = 0):
+                    img_norm: dict | None = None, seed: int = 0,
+                    group=None):
     """A step(batch) -> loss dict (with loss_total) that updates the model
     in place.  The forward runs in train mode with step_generator(seed,
     the scheduler's step count) for DropPath.
@@ -174,9 +203,18 @@ def make_train_step(model: torch.nn.Module, loss_cfg: LossConfig, optimizer,
     normalized f32; gt_polys (B, G, 8), gt_labels (B, G), gt_valid (B, G),
     img_hw (B, 2).  step(batch, stats) fills `stats` as compute_losses
     does.
+
+    group: a process group (parallel/dist.py) whose every rank runs this
+    step on its own rows of one global batch, in rank order, from the same
+    parameters; the step is then the one-process step of the global batch
+    (module docstring).  The ranks' row counts may differ, none may be 0.
+    None: one process.
     """
     params = [p for g in optimizer.param_groups for p in g["params"]]
     device = params[0].device
+    rank = dist.rank(group)
+    reduce = None if group is None else (
+        lambda t: dist.all_reduce_sum(t, group))
 
     def step(batch: dict, stats: dict | None = None) -> dict:
         batch = to_device(batch, device)
@@ -185,22 +223,35 @@ def make_train_step(model: torch.nn.Module, loss_cfg: LossConfig, optimizer,
             imgs = device_normalize(imgs, batch["img_hw"], **img_norm)
         was_training = model.training
         model.train()
+        gen = step_generator(seed, scheduler.last_epoch, device)
+        if group is not None:  # the ranks' shares may differ (the loader)
+            counts = dist.row_counts(len(imgs), group, device)
+            gen = BatchRows(gen, sum(counts[:rank]), sum(counts))
         try:
-            outs = model(imgs, step_generator(seed, scheduler.last_epoch,
-                                              device))
+            outs = model(imgs, gen)
         finally:
             model.train(was_training)
         losses = compute_losses(outs, batch["gt_polys"], batch["gt_labels"],
                                 batch["gt_valid"], batch["img_hw"], loss_cfg,
-                                stats=stats)
+                                stats=stats, reduce=reduce)
         total = sum(v for k, v in losses.items() if k.startswith("loss"))
         optimizer.zero_grad(set_to_none=False)
         total.backward()
+        if group is not None:
+            all_reduce_grads_([p.grad for p in params], group)
         clip_by_global_norm_([p.grad for p in params], grad_clip)
         optimizer.step()
         scheduler.step()
         losses = {k: v.detach() for k, v in losses.items()}
         losses["loss_total"] = total.detach()
+        if group is not None:
+            names = list(losses)
+            summed = dist.all_reduce_sum(
+                torch.stack([losses[k].float() for k in names]), group)
+            losses = dict(zip(names, summed.unbind()))
+            if stats is not None:
+                for k in ("gt_inds", "iou_gt_0p1"):
+                    stats[k] = dist.gather_rows(stats[k], group, counts)
         return losses
 
     for p in params:  # every trainable leaf decays, as optax applies it

@@ -1,4 +1,5 @@
-"""Batch-inference serving on one device (counterpart of serving.py).
+"""Batch-inference serving (counterpart of serving.py), on one device or
+sharded over every card of the host.
 
 numpy BGR images in, per-class (k, 9) numpy arrays out:
 
@@ -8,7 +9,10 @@ numpy BGR images in, per-class (k, 9) numpy arrays out:
 
 Each image is resized (keep ratio) and normalized on the device, pasted
 onto a zero canvas of the config's last canvas bucket, and a batch of
-canvases goes through the detector and decode_detections.
+canvases goes through the detector and decode_detections.  On a host with
+two cards or more each batch is sharded over all of them
+(parallel/infer.py, the JAX package's data_mesh) and its size rounded up
+to a multiple of their count.
 """
 
 from __future__ import annotations
@@ -18,26 +22,34 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from .apis import init_detector, resolve_device
+from .apis import detect_core, infer_devices, init_detector, resolve_device
 from .host import Normalize, imrescale, rbbox2result
-from .models.detector import decode_detections
+from .parallel.infer import round_up_batch, shard_infer
 
 
 class Predictor:
     def __init__(self, config, state_dict: dict | None = None,
                  batch_size: int = 4, compute_dtype: str = "bfloat16",
-                 test_cfg_overrides: dict | None = None, device="cuda"):
+                 test_cfg_overrides: dict | None = None, device="cuda",
+                 devices="all"):
         """test_cfg_overrides: merged over the config's test_cfg (e.g.
-        {'score_thr': 0.3, 'max_per_img': 100, 'pre_nms_cap': 1024})."""
+        {'score_thr': 0.3, 'max_per_img': 100, 'pre_nms_cap': 1024}).
+        devices: "all" shards every batch over the host's cards when
+        `device` is a card and there are two or more; a list of devices
+        over those (the model on `device`, a replica on each other); None
+        on `device` alone."""
         self.device = resolve_device(device)
         self.model, self.cfg = init_detector(config, state_dict,
                                              compute_dtype, self.device)
         buckets = self.cfg.get("tpu", {}).get("canvas_buckets",
                                               [(1344, 1344)])
         self.canvas = tuple(buckets[-1])
-        self.batch_size = batch_size
+        self.devices = infer_devices(devices, self.device)
+        self.batch_size = round_up_batch(batch_size, self.devices)
         self.test_cfg = dict(self.cfg["test_cfg"])
         self.test_cfg.update(test_cfg_overrides or {})
+        self._infer = shard_infer(detect_core(self.test_cfg), self.model,
+                                  self.devices)
         norm = self.cfg["img_norm_cfg"]
         self._normalize = Normalize(norm["mean"], norm["std"],
                                     norm.get("to_rgb", True))
@@ -71,13 +83,7 @@ class Predictor:
         """One batch -> device tensors (dets (batch_size, max_per_img, 27),
         labels, valid)."""
         imgs, sfs = self.prepare(images_bgr)
-        tc = self.test_cfg
-        return decode_detections(
-            self.model(imgs), nms_pre=tc["nms_pre"],
-            score_thr=tc["score_thr"], iou_thr=tc["nms"]["iou_thr"],
-            max_per_img=tc["max_per_img"],
-            pre_nms_cap=tc.get("pre_nms_cap", 4096),
-            scale_factor=sfs[:, None, None])
+        return self._infer(imgs, sfs[:, None, None])
 
     def __call__(self, images_bgr: Sequence[np.ndarray]):
         out = []

@@ -6,7 +6,9 @@ A checkpoint is ckpt_dir/epoch_{N}.pt holding the model's state dict, the
 SGD state with its momentum buffers, the LambdaLR state, the optimizer
 step count and meta (the config text, the classes, the epoch N).  It is
 written to a temporary file in ckpt_dir and renamed into place, so a
-reader never sees half a file.  Loading is strict: a missing or extra
+reader never sees half a file.  In data-parallel training rank 0 writes
+it while the others wait at a barrier; every rank resumes from the same
+file.  Loading is strict: a missing or extra
 tensor, or an optimizer of other parameter groups, raises.  The JAX
 package's orbax checkpoints reach the port as state dicts written by
 tools/export_torch_state_dict.py, which runs where JAX is.
@@ -28,22 +30,28 @@ import torch
 
 from ..host import resize_cubic
 from ..models.resnet import ARCH_SETTINGS
+from ..parallel import dist
 
 _NAME = re.compile(r"^epoch_(\d+)\.pt$")
 KEYS = ("model", "optimizer", "scheduler", "step", "meta")
 
 
 def save_checkpoint(ckpt_dir: str, epoch: int, model, optimizer, scheduler,
-                    step: int, meta: dict | None = None) -> str:
-    """Write ckpt_dir/epoch_{epoch}.pt atomically; returns its path."""
-    os.makedirs(ckpt_dir, exist_ok=True)
+                    step: int, meta: dict | None = None, group=None) -> str:
+    """Write ckpt_dir/epoch_{epoch}.pt atomically; returns its path.  With
+    a data-parallel group rank 0 writes it (every replica holds the same
+    state) and all ranks return after it is in place."""
     path = osp.join(ckpt_dir, f"epoch_{epoch}.pt")
-    payload = dict(model=model.state_dict(), optimizer=optimizer.state_dict(),
-                   scheduler=scheduler.state_dict(), step=int(step),
-                   meta=dict(meta or {}, epoch=int(epoch)))
-    tmp = path + ".tmp"
-    torch.save(payload, tmp)
-    os.replace(tmp, path)
+    if dist.rank(group) == 0:
+        os.makedirs(ckpt_dir, exist_ok=True)
+        payload = dict(model=model.state_dict(),
+                       optimizer=optimizer.state_dict(),
+                       scheduler=scheduler.state_dict(), step=int(step),
+                       meta=dict(meta or {}, epoch=int(epoch)))
+        tmp = path + ".tmp"
+        torch.save(payload, tmp)
+        os.replace(tmp, path)
+    dist.barrier(group)
     return path
 
 

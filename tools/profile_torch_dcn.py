@@ -24,6 +24,8 @@ apart.  --csrc points at another checkout's csrc/ (for
 instance the parent commit's, unpacked beside the repo): the tool knows
 the layout of the kernel before its redesign too (one warp a sample,
 scalar f32 atomics, bf16 grads) and takes whichever layout the source has.
+Its launchers must take the device ordinal before the stream, as this
+checkout's do; an older source is timed with its own checkout's tool.
 
 Prints one JSON line a shape and part with each time, the byte bound and
 the card's name and power limit.  The profiler of the machine gives no
@@ -173,6 +175,7 @@ def profile_forward(csrc, card, reps):
                      "fwd")
     dev = torch.device("cuda")
     stream = torch.cuda.current_stream().cuda_stream
+    ordinal = torch.cuda.current_device()
     for shape, levels in (("serving", chip_smoke.LEVELS),
                           ("train", chip_smoke.TRAIN_LEVELS),
                           ("tta_2016", chip_smoke.TTA_LEVELS)):
@@ -187,7 +190,7 @@ def profile_forward(csrc, card, reps):
         for name, fn in libs.items():
             args = (ta.data_ptr(), tb.data_ptr(), offs.data_ptr(), lv,
                     out_a.data_ptr(), out_b.data_ptr(), rows, 256, 9,
-                    len(levels), stream)
+                    len(levels), ordinal, stream)
             ms[name] = chip_smoke.cuda_ms(lambda f=checked(fn): f(*args),
                                           reps)
         nbytes, ops = chip_smoke.dcn_bytes_ops(rows, 256, 9, 2, False)
@@ -212,6 +215,7 @@ def profile_backward(csrc, card, reps):
     libs = build(text, variants, "orp_deform_sample_pair_bwd_bf16", layout)
     dev = torch.device("cuda")
     stream = torch.cuda.current_stream().cuda_stream
+    ordinal = torch.cuda.current_device()
     levels = chip_smoke.TRAIN_LEVELS
     rows, c, k = sum(b * h * w for b, h, w in levels), 256, 9
     ta, tb = (torch.randn(rows, c, device=dev).to(torch.bfloat16)
@@ -223,7 +227,7 @@ def profile_backward(csrc, card, reps):
     lv = deform_conv._levels_arg(levels)
     args = (ta.data_ptr(), tb.data_ptr(), offs.data_ptr(), ga.data_ptr(),
             gb.data_ptr(), lv, gtab.data_ptr(), goff.data_ptr(), rows, c, k,
-            len(levels), stream)
+            len(levels), ordinal, stream)
     ms = {name: chip_smoke.cuda_ms(lambda f=checked(fn): f(*args), reps)
           for name, fn in libs.items()}
     zero_ms = chip_smoke.cuda_ms(lambda: torch.zeros_like(gtab), reps)

@@ -13,8 +13,9 @@ the training step's 2,048 (APAA's init and refine rects) and 75,212
 checkout's csrc/ (for instance the parent commit's, unpacked beside the
 repo): the two run in turns (other, this, this, other) on the same inputs,
 and their hulls and counts are compared bit for bit, their rects within
-chip_smoke.RECT_TOL up to ties.  Prints one JSON line a shape with the
-card's name and power limit.
+chip_smoke.RECT_TOL up to ties (its launcher must take the device ordinal
+before the stream, as this checkout's does).  Prints one JSON line a
+shape with the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -63,7 +64,8 @@ def run(fn, pts):
             torch.empty((n, 9, 2), device=pts.device),
             torch.empty((n,), dtype=torch.int32, device=pts.device))
     stream = torch.cuda.current_stream().cuda_stream
-    args = (pts.data_ptr(), *(o.data_ptr() for o in outs), n, stream)
+    ordinal = torch.cuda.current_device()
+    args = (pts.data_ptr(), *(o.data_ptr() for o in outs), n, ordinal, stream)
 
     def call():
         err = fn(*args)

@@ -115,6 +115,7 @@ def main():
     libs = build()
     dev = torch.device("cuda")
     stream = torch.cuda.current_stream().cuda_stream
+    ordinal = torch.cuda.current_device()
     rng = np.random.default_rng(chip_smoke.SEED)
     n, thr = chip_smoke.NQ, chip_smoke.NMS_THR
     for b in (4, 1):
@@ -127,10 +128,11 @@ def main():
         keep = torch.empty_like(valid)
         calls = {
             "quad_over": lambda fn: fn(q.data_ptr(), nv.data_ptr(),
-                                       out.data_ptr(), b, n, thr, stream),
+                                       out.data_ptr(), b, n, thr, ordinal,
+                                       stream),
             "nms_scan": lambda fn: fn(words.data_ptr(), valid.data_ptr(),
                                       nv.data_ptr(), keep.data_ptr(), b, n,
-                                      stream),
+                                      ordinal, stream),
         }
         for stem, variants in VARIANTS.items():
             ms = {}

@@ -18,7 +18,8 @@ The dropped builds give wrong results; only their times are kept.
 --against DIR builds the same file of another checkout's csrc/ (for
 instance the parent commit's, unpacked beside the repo): the two run in
 turns (other, this, this, other) on the same inputs, and their outputs are
-compared bit for bit.  Prints the compiler's register and spill lines of
+compared bit for bit (its launchers must take the device ordinal before
+the stream, as this checkout's do).  Prints the compiler's register and spill lines of
 this source, then one JSON line a kernel with the card's name and power
 limit.  The profiler of the machine gives no hardware counters, so the
 split of a kernel's time is measured this way.
@@ -131,6 +132,7 @@ def main():
     print(resources, flush=True)
     dev = torch.device("cuda")
     stream = torch.cuda.current_stream().cuda_stream
+    ordinal = torch.cuda.current_device()
     rng = np.random.default_rng(chip_smoke.SEED + 2)  # phase_quad_kernels
     n = chip_smoke.NQ
     q4 = torch.tensor(chip_smoke.nms_quads(rng, 4, n), dtype=torch.float32,
@@ -139,10 +141,11 @@ def main():
     nv = torch.tensor(chip_smoke.TRI_NV, dtype=torch.int32, device=dev)
     cases = {
         "full": (q, lambda fn, out: fn(q.data_ptr(), q.data_ptr(),
-                                       out.data_ptr(), 1, n, n, stream)),
+                                       out.data_ptr(), 1, n, n, ordinal,
+                                       stream)),
         "tri": (q4, lambda fn, out: fn(q4.data_ptr(), q4.data_ptr(),
                                        nv.data_ptr(), out.data_ptr(), 4, n,
-                                       n, stream)),
+                                       n, ordinal, stream)),
     }
     order = ["other", "kernel", "kernel", "other"] if args.against else \
         ["kernel"]

@@ -216,9 +216,11 @@ def evaluate(args, cfg, model, val_names, tta_augs=None, suffix=""):
     {class: aoe}, extra: mAOE_mod90_deg, per_class_aoe_mod90 and, with
     --hrsc, hrsc_ap07)."""
     from orientedreppoints_tpu_torch.apis import (build_dataset,
+                                                  infer_devices,
                                                   run_inference,
                                                   run_inference_tta)
     from orientedreppoints_tpu_torch.devkit.dota_utils import DOTA10_CLASSES
+    from orientedreppoints_tpu_torch.parallel.infer import round_up_batch
     from orientedreppoints_tpu_torch.devkit.evaluation import (
         eval_dota_task1, eval_maoe)
     from orientedreppoints_tpu_torch.devkit.hrsc import eval_hrsc2016
@@ -229,8 +231,10 @@ def evaluate(args, cfg, model, val_names, tta_augs=None, suffix=""):
     canvas = tuple(cfg.get("tpu", {}).get("canvas_buckets",
                                           [(512, 512)])[-1])
     val_ds = build_dataset({**cfg["data"]["test"], "test_mode": True})
-    print(f"inference over {len(val_ds)} val tiles (tta={tta_augs}) ...",
-          flush=True)
+    devices = infer_devices("all", next(model.parameters()).device)
+    print(f"inference over {len(val_ds)} val tiles (tta={tta_augs}) on "
+          f"{len(devices) if devices else 1} device(s), batch "
+          f"{round_up_batch(2 if tta_augs else 4, devices)} ...", flush=True)
     t0 = time.perf_counter()
     if tta_augs is not None:
         results = run_inference_tta(model, val_ds, cfg["test_cfg"], tta_augs,

@@ -16,8 +16,10 @@ written by tools/export_torch_state_dict.py; without it the weights are
 random (seed 0).  --out writes the per-class arrays as a .npz with keys
 'name|class', --format_task1 one Task1 file per class, --merge_dir those
 merged across tiles (devkit/result_merge.merge_by_poly), --eval the
-tile-level mAP against the dataset's annotations.  One device; the
-multi-device inference of tools/test.py waits for ROADMAP Queue 1 item 6.
+tile-level mAP against the dataset's annotations.  On a host with two
+cards or more every batch is sharded over all of them, as tools/test.py
+does over its mesh, its size rounded up to a multiple of their count
+(tools/dist_test_torch.sh; parallel/infer.py).
 """
 
 from __future__ import annotations
@@ -71,6 +73,20 @@ def load_weights(model, path: str) -> None:
     checkpoint.load_eval_variables(path, model)
 
 
+def log_sharding(apis, model, batch_size: int, log) -> None:
+    """Say over how many cards a batch shards and the batch it rounds
+    to (run_inference's default devices)."""
+    from orientedreppoints_tpu_torch.parallel.infer import round_up_batch
+
+    devices = apis.infer_devices("all", next(model.parameters()).device)
+    if devices is not None:
+        log.info("data-parallel inference over %d devices", len(devices))
+        bs = round_up_batch(batch_size, devices)
+        if bs != batch_size:
+            log.info("batch_size %d -> %d (multiple of %d devices)",
+                     batch_size, bs, len(devices))
+
+
 def infer(args, log):
     """The model and dataset of args.config -> (results, dataset,
     seconds of the inference pass, whose results reached the host)."""
@@ -87,6 +103,7 @@ def infer(args, log):
         log.info("loaded weights from %s", args.checkpoint)
     dataset = apis.build_dataset({**cfg["data"]["test"], "test_mode": True})
     canvas = tuple(tpu.get("canvas_buckets", [(1344, 1344)])[-1])
+    log_sharding(apis, model, args.batch_size, log)
     kw = dict(canvas=canvas, batch_size=args.batch_size,
               max_images=args.max_images, num_fg=len(dataset.CLASSES))
     tta_augs = apis.parse_tta_spec(args.ms_tta, args.flip_tta)

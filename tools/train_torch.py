@@ -1,6 +1,6 @@
 #!/usr/bin/env python
-"""Train an oriented detector with the PyTorch port on one device
-(counterpart of tools/train.py).
+"""Train an oriented detector with the PyTorch port on one device, or
+data-parallel with one process a card (counterpart of tools/train.py).
 
     python3 tools/train_torch.py CONFIG [--work_dir DIR] [--seed 0] \\
         [--resume_from DIR_OR_FILE | --load_from FILE] [--total_epochs N] \\
@@ -19,6 +19,15 @@ ResNet / ResNeXt backbone from a torchvision .pth before training
 (utils/checkpoint.load_pretrained_backbone).  --validate scores the val split
 after every epoch (apis.run_inference + apis.evaluate_results).  Logs go
 to stdout and work_dir/train.log.
+
+Data-parallel: with ORP_COORDINATOR_ADDRESS set (tools/dist_train_torch.sh
+and tools/slurm_train_torch.sh set it, with ORP_NUM_PROCESSES,
+ORP_PROCESS_ID and ORP_LOCAL_RANK), each process joins the group
+(parallel/dist.py: NCCL on the cards, gloo with --device cpu), takes the card cuda:{ORP_LOCAL_RANK} and its share
+of every global batch (the config's tpu.global_batch_size), and the step
+is the one-process step of that global batch.  Rank 0 alone logs, writes
+the checkpoints and runs --validate on its own card; every rank resumes
+from the same file.
 """
 
 from __future__ import annotations
@@ -58,7 +67,9 @@ def parse_args(argv=None):
     p.add_argument("--validate", action="store_true",
                    help="score the val split after every epoch")
     p.add_argument("--val_max_images", type=int, default=500)
-    p.add_argument("--device", default="cuda")
+    p.add_argument("--device", default="cuda",
+                   help="cuda, cuda:N or cpu; a data-parallel process "
+                   "takes cuda:{ORP_LOCAL_RANK}")
     return p.parse_args(argv)
 
 
@@ -74,18 +85,29 @@ def main(argv=None):
                                                   run_inference,
                                                   train_epochs)
     from orientedreppoints_tpu_torch.host import load_config
+    from orientedreppoints_tpu_torch.parallel import dist
     from orientedreppoints_tpu_torch.utils import checkpoint
 
     device = resolve_device(args.device)
+    if device.type == "cuda" and os.environ.get("ORP_COORDINATOR_ADDRESS"):
+        device = resolve_device(f"cuda:{dist.local_rank()}")
+    group = dist.init_from_env(device)
+    rank = dist.rank(group)
     cfg = load_config(args.config)
     work_dir = args.work_dir or cfg.get("work_dir", "work_dirs/default")
     os.makedirs(work_dir, exist_ok=True)
     logging.basicConfig(
-        level=logging.INFO, format="%(asctime)s %(levelname)s %(message)s",
-        handlers=[logging.StreamHandler(sys.stdout),
-                  logging.FileHandler(osp.join(work_dir, "train.log"))],
+        level=logging.INFO if rank == 0 else logging.WARNING,
+        format="%(asctime)s %(levelname)s %(message)s",
+        handlers=[logging.StreamHandler(sys.stdout)] + (
+            [logging.FileHandler(osp.join(work_dir, "train.log"))]
+            if rank == 0 else []),
         force=True)
     log = logging.getLogger("train")
+    if group is not None:
+        log.info("data-parallel: %d processes, %s backend",
+                 dist.world_size(group), "nccl" if device.type == "cuda"
+                 else "gloo")
 
     tpu = cfg.get("tpu", {})
     model, _ = init_detector(cfg, device=device, seed=args.seed,
@@ -99,13 +121,13 @@ def main(argv=None):
                  args.pretrained_backbone)
     dataset = build_dataset(cfg["data"]["train"],
                             device_normalize=build_img_norm(cfg) is not None)
-    loader = build_dataloader(dataset, cfg, seed=args.seed)
+    loader = build_dataloader(dataset, cfg, seed=args.seed, group=group)
     iters_per_epoch = max(len(loader), 1)
     total_epochs = args.total_epochs or cfg["total_epochs"]
     log.info("dataset: %d imgs, %d iters/epoch, device %s", len(dataset),
              iters_per_epoch, device)
     optimizer, scheduler, step = build_trainer(model, cfg, iters_per_epoch,
-                                               seed=args.seed)
+                                               seed=args.seed, group=group)
     if args.load_from:
         checkpoint.load_eval_variables(args.load_from, model)
         log.info("loaded weights from %s", args.load_from)
@@ -124,21 +146,27 @@ def main(argv=None):
         log.info("epoch %d done at iter %d", reached - 1, it)
         if not args.validate:
             return
-        val_ds = build_dataset({**cfg["data"]["val"], "test_mode": True})
-        results = run_inference(model, val_ds, cfg["test_cfg"], canvas=canvas,
-                                max_images=args.val_max_images,
-                                num_fg=len(val_ds.CLASSES))
-        mAP, aps = evaluate_results(results, val_ds)
-        log.info("epoch %d val mAP %.4f %s", reached - 1, mAP,
-                 json.dumps({k: round(v, 3) for k, v in aps.items()
-                             if not np.isnan(v)}))
+        if rank == 0:  # on its own card: the others are the ranks'
+            val_ds = build_dataset({**cfg["data"]["val"], "test_mode": True})
+            results = run_inference(
+                model, val_ds, cfg["test_cfg"], canvas=canvas,
+                max_images=args.val_max_images, num_fg=len(val_ds.CLASSES),
+                devices="all" if group is None else None)
+            mAP, aps = evaluate_results(results, val_ds)
+            log.info("epoch %d val mAP %.4f %s", reached - 1, mAP,
+                     json.dumps({k: round(v, 3) for k, v in aps.items()
+                                 if not np.isnan(v)}))
+        dist.barrier(group)
 
-    it = train_epochs(model, loader, step, optimizer, scheduler,
-                      osp.join(work_dir, "ckpts"), total_epochs,
-                      start_epoch=start_epoch, it=it,
-                      max_iters=args.max_iters, meta=meta, log=log.info,
-                      log_interval=args.log_interval,
-                      on_epoch=epoch_done)["it"]
+    try:
+        it = train_epochs(model, loader, step, optimizer, scheduler,
+                          osp.join(work_dir, "ckpts"), total_epochs,
+                          start_epoch=start_epoch, it=it,
+                          max_iters=args.max_iters, meta=meta, log=log.info,
+                          log_interval=args.log_interval,
+                          on_epoch=epoch_done, group=group)["it"]
+    finally:
+        dist.destroy(group)
     log.info("training finished at iter %d", it)
     return 0
 
