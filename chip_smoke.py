@@ -5,7 +5,8 @@ backbone file loaded, the synthetic benchmark's training, plain and
 with the hard-aug recipe, real DOTA input (PNG scenes, the
 multi-scale prep, the test tool and training on the tiles), and data
 parallelism (serving sharded over two replicas, the training step as
-one- and two-process groups), on one NVIDIA GPU.
+one- and two-process groups), corruption robustness, and a long run that
+re-executes itself, on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -94,6 +95,15 @@ Phases, each printing one line or more (a failed phase exits non-zero):
      Task1 mAP (area) and mAOE (IoU 0.7) with each stage's seconds (random
      weights score near 0; not gated); the scene labels as detections
      score mAP 1 and mAOE 0; apis.evaluate_results gives a finite mAP;
+  8a. robustness: tools/test_robustness_torch.py's path in this process
+     on the eval phase's first 24 tiles with its weights: the clean
+     baseline, then the nine corruptions at severities 1, 3 and 5, each
+     setting counted (rect, over-mask, scan and DCN forward launched);
+     P, mPC, rPC and each setting's mAP (read, not gated), the tiles/s of
+     the pass; jpeg_compression@3 through the plain versions too, det for
+     det; a seeded 512^2 probe through the 27 settings with
+     RandomState(7), each output's SHA-256 equal to CORRUPT_DIGESTS (the
+     JAX package's cv2 bytes), each corruption's host ms on that tile;
   8b. hard_eval: the hard benchmark (tools/synth_benchmark.py --hard) on
      4 val scenes (16 tiles) with configs/dota/synth_r18_512_hard.py's test
      pipeline and seeded weights: run_inference counted, and through the
@@ -180,12 +190,23 @@ Phases, each printing one line or more (a failed phase exits non-zero):
      the merged files, the val labels as detections scoring mAP 1; 3 SGD
      steps on the trainval tiles through the config's train pipeline and
      loader (batch 2): finite losses, the loader's wait share, launches a
-     step.
+     step.  The test tool's Task1 files are merged twice, by the default
+     pool (15 class files, 15 spawned workers) and in one process: byte
+     for byte, both timed;
+  14. chunked: tools/synth_benchmark_torch.py --train (R-18 of
+     synth_r18_512.py, 2 scenes, a step an epoch) to epoch 3 as
+     subprocesses: with --rss_limit_gb 0.001 two re-executions (the
+     kernels found built after each) and exit 3; twice uninterrupted; the
+     re-executed run's weights within NOISE_FACTOR times the two
+     uninterrupted runs' difference (the atomics' noise); --skip_train of
+     its work dir scoring as its checkpoint's weights scored in this
+     process (counted).
 Each counted run (slice, shard_infer, tta, iou_path, swin, hrnet,
-ssd_vgg, resnext, eval, hard_eval's two, train, ddp's ranks, swin_train,
-hrnet_train, ssd_vgg_train, synth_train, hard_aug_train, dota_input's
-two) sets the launch counts to 0 just before and reads them just after;
-it fails if a kernel of its path was not launched.  Then one JSON line
+ssd_vgg, resnext, eval, robustness's settings, hard_eval's two, train,
+ddp's ranks, swin_train, hrnet_train, ssd_vgg_train, synth_train,
+hard_aug_train, dota_input's two, chunked's scoring) sets the launch
+counts to 0 just before and reads them just after; it fails if a kernel
+of its path was not launched.  Then one JSON line
 with every kernel's numbers, the card's line from nvidia-smi, and
 {"ok": true, "device": {...}} last.
 
@@ -207,8 +228,12 @@ result, without a GPU or outside a checkout of the repository.
 from __future__ import annotations
 
 import contextlib
+import hashlib
+import importlib.util
+import io
 import json
 import math
+import multiprocessing
 import os
 import shutil
 import statistics
@@ -218,7 +243,12 @@ import tempfile
 import time
 
 import numpy as np
-import torch
+
+if __name__ != "__mp_main__":
+    # a worker of the merge's spawn pool re-imports this file as
+    # __mp_main__ and runs nothing of it: without torch it starts in a
+    # fraction of a second
+    import torch
 
 CONFIG = "configs/dota/orientedreppoints_r50_demo.py"
 SWIN_CONFIG = "configs/dota/orientedreppoints_swin_tiny_demo.py"
@@ -367,6 +397,84 @@ DOTA_TRAIN_STEPS = 3
 DOTA_PLAIN_IMAGES = 2 * BATCH  # test tiles through the plain versions too
 HRSC_PREP_SCENES = 2
 HRSC_PREP_SIZE = (600, 1000)  # (h, w) of the ship-only BMP scenes
+# phase robustness: tools/test_robustness_torch.py's path on the eval
+# phase's first ROBUST_IMAGES val tiles with its seeded weights: the clean
+# baseline, then every corruption at these severities
+ROBUST_IMAGES = 24
+ROBUST_SEVERITIES = (1, 3, 5)
+ROBUST_PLAIN = ("jpeg_compression", 3)  # also through the plain versions
+# corruptions.corrupt(corruption_probe(), name, sev, RandomState(7)): the
+# SHA-256 of each output, computed from the JAX package's cv2 corruptions
+# (tests/test_torch_corruptions.py recomputes them).  One exception:
+# motion_blur@5's 17^2 kernel takes cv2's DFT path, which the port's
+# direct sum leaves 1 grey level off at a few values (9 of 786,432 here;
+# data/filter.py): its digest is the port's own, held to cv2's within
+# that bound by the test
+CORRUPT_PROBE_SEED = 16
+CORRUPT_RNG_SEED = 7
+CORRUPT_DFT_PATH = ("motion_blur@5",)
+CORRUPT_DIGESTS = {
+    "gaussian_noise@1":
+        "153e9817e85c3e69a9f6dca68b267d0136f08ce05442cb5b1ba30c021b8d4e02",
+    "gaussian_noise@3":
+        "7155c3e5fd0ec68ace51178caaeb982c777cd9eb81201bde437fe7d04aabc9df",
+    "gaussian_noise@5":
+        "470b12eac0cb0330943fe63ad7900374e1b9f724b7f0c2b254a3f3215d50be68",
+    "shot_noise@1":
+        "89d11d3be0291e5b74dc7ff76b994a6bfd542c396abf362c3856f4feba79bd0d",
+    "shot_noise@3":
+        "072a36bf920345a5d1717f09d32041863bb0f5522475fbd1ec7664a02cb3fad5",
+    "shot_noise@5":
+        "895abd76baf12103670824f98bcd13c290f873cde926726ade502f11b7f06626",
+    "impulse_noise@1":
+        "f62c8e46aa5f1939fb2a2ab499d45fa0d6f1a9653aa5c5870fad2ce355d8554d",
+    "impulse_noise@3":
+        "6bdd23d9d7cc80595d33853086a706d15e34635760a6eb1189acfce37a15ba7f",
+    "impulse_noise@5":
+        "a2f37a64f1b2e02b1b083ce1c15bf9eb268fa82b0e860bb7b6b805bd8d01fd6e",
+    "defocus_blur@1":
+        "a870d29a1970e596712c28f87ac5e18b67ac266aedfc93a82f652368b347de48",
+    "defocus_blur@3":
+        "b44e43fb00a144735d0679ee7ea1b462cb27d1cec15b63421629a232c872edac",
+    "defocus_blur@5":
+        "2818dcd668ecb8cbb08afcf4094c6471f789ac9ca5c9f74d09e03d019de431f5",
+    "motion_blur@1":
+        "7a7e13c644a44e2124ade96d56767c7e830fb810ad20fcfacd37e9cb983149d9",
+    "motion_blur@3":
+        "90260c5223c2d9535a9d5b8b59a0a8ecc9d62df4043021b9f74d0f8607a6da1d",
+    "motion_blur@5":
+        "ef33e27744efcb74884ce2b475d65981aa4b04d09905e5e3812ac67c1fc2db45",
+    "brightness@1":
+        "f2da6dde97e64f669cc342c317d556d7bff09a289c78671d71e68221a367317d",
+    "brightness@3":
+        "3ad315b700e3629150ab59d2c2490b0a4d4a4f8330e6b946a7a805ecd33ba4d9",
+    "brightness@5":
+        "375eda45195fec204ba21968a96f27ed055fcc8e3934d88cf83dc9f5148872a5",
+    "contrast@1":
+        "3cf9b2b1125fb5d3dfb817794968ad41a729e5099c856f0f877c732df8ca4da5",
+    "contrast@3":
+        "2b2ac2200b8e8137c5cfb8ce477f4f451dd83bf805800c06c2312f314221a97c",
+    "contrast@5":
+        "6a923a1608173986f8a27fe58c2fd32dea3444fc434e8df92574c0cc0bbebffe",
+    "jpeg_compression@1":
+        "f2cbde069b349f82741e98881bb4c418a817b05f494699a3649f5fa29202347e",
+    "jpeg_compression@3":
+        "9d98b2241d96616be9b2495ab4a1cae586a064a247059a3b5f387850e820ba32",
+    "jpeg_compression@5":
+        "d119ed616d9549b66e1023e04fad5d6ec9032c29282a04fdc00f1535346661a8",
+    "pixelate@1":
+        "5773e7a1d9fc0ea8b59764a0b41f9ce7e5654b5349208a534586ec57c14b540b",
+    "pixelate@3":
+        "afdf921ff6ac0044a1fb9468764d39b2f43b4a75aaf5b83de9de64ed9d049c8f",
+    "pixelate@5":
+        "b9ed7dd6f0dbb583811d2bb656c79ea6887f06fb1ceabf2d9fbe131cc1e27748",
+}
+# phase chunked: tools/synth_benchmark_torch.py --train on EVAL_CONFIG, 2
+# train scenes (8 tiles: a step an epoch), to epoch 3, as subprocesses
+CHUNKED_TRAIN_SCENES = 2
+CHUNKED_VAL_SCENES = 2
+CHUNKED_EPOCHS = 3
+CHUNKED_TIMEOUT = 300.0
 
 
 def say(phase: str, **fields) -> None:
@@ -1453,13 +1561,14 @@ def count_lines(folder) -> int:
                for f in os.listdir(folder))
 
 
-def phase_eval(dev, ops_mod, card):
+def phase_eval(dev, ops_mod, card, wd):
     """The synthetic benchmark's evaluation path without training: render
     the val scenes, tile them, build the dataset from the config's test
     pipeline, run_inference with seeded weights (counted), the same tiles
     through the plain versions (det for det, Task1 files byte for byte),
     then write -> merge -> Task1 mAP and mAOE, an oracle of the scene
-    labels (mAP 1, mAOE 0) and apis.evaluate_results on the tiles."""
+    labels (mAP 1, mAOE 0) and apis.evaluate_results on the tiles.  The
+    scenes, tiles and json stay in wd (phase robustness scores them)."""
     from orientedreppoints_tpu_torch import apis
     from orientedreppoints_tpu_torch.data.synth import (SYNTH_CLASS_SPECS,
                                                         generate_synth_dota)
@@ -1479,110 +1588,110 @@ def phase_eval(dev, ops_mod, card):
         clock[0] = now
 
     classnames = list(SYNTH_CLASS_SPECS)
-    with tempfile.TemporaryDirectory() as wd:
-        def path(*p):
-            return os.path.join(wd, *p)
 
-        names = generate_synth_dota(path("val_raw"), EVAL_SCENES,
-                                    size=EVAL_SCENE_SIZE,
-                                    n_objects=EVAL_OBJECTS, seed=EVAL_SEED,
-                                    prefix="V")
-        stage("render_s")
-        ImgSplit(path("val_raw"), path("val_split"), gap=EVAL_GAP,
-                 subsize=EVAL_SUBSIZE, ext=".npy", num_process=1).splitdata()
-        stage("split_s")
-        cfg = load_config(EVAL_CONFIG)
-        cfg["data"]["test"].update(
-            ann_file=dota2coco_train(path("val_split"), path("test.json"),
-                                     ext=".npy"),
-            img_prefix=path("val_split", "images"), test_mode=True)
-        ds = apis.build_dataset(cfg["data"]["test"])
-        stage("json_dataset_s")
-        scene_gts = {n: parse_dota_poly(path("val_raw", "labelTxt",
-                                             n + ".txt")) for n in names}
-        say("eval_data", scenes=len(names), scene_size=EVAL_SCENE_SIZE,
-            tiles=len(ds), tile_size=EVAL_SUBSIZE, gap=EVAL_GAP,
-            scene_gts=sum(len(v) for v in scene_gts.values()),
-            tile_gts=sum(len(a["labels"]) for a in ds.anns),
-            tile_gts_difficult=sum(int(a["difficult"].astype(bool).sum())
-                                   for a in ds.anns), **secs)
+    def path(*p):
+        return os.path.join(wd, *p)
 
-        model, _ = apis.init_detector(
-            cfg, state_dict=perturbed_weights(np.random.default_rng(SEED + 5),
-                                              EVAL_CONFIG, EVAL_BIAS),
-            compute_dtype=cfg["tpu"]["compute_dtype"], device=dev)
-        tc = cfg["test_cfg"]
-        kw = dict(canvas=tuple(cfg["tpu"]["canvas_buckets"][-1]),
-                  batch_size=EVAL_BATCH, num_fg=len(ds.CLASSES))
-        clock[0] = time.perf_counter()
-        apis.run_inference(model, ds, tc, max_images=EVAL_BATCH, **kw)
+    names = generate_synth_dota(path("val_raw"), EVAL_SCENES,
+                                size=EVAL_SCENE_SIZE,
+                                n_objects=EVAL_OBJECTS, seed=EVAL_SEED,
+                                prefix="V")
+    stage("render_s")
+    ImgSplit(path("val_raw"), path("val_split"), gap=EVAL_GAP,
+             subsize=EVAL_SUBSIZE, ext=".npy", num_process=1).splitdata()
+    stage("split_s")
+    cfg = load_config(EVAL_CONFIG)
+    cfg["data"]["test"].update(
+        ann_file=dota2coco_train(path("val_split"), path("test.json"),
+                                 ext=".npy"),
+        img_prefix=path("val_split", "images"), test_mode=True)
+    ds = apis.build_dataset(cfg["data"]["test"])
+    stage("json_dataset_s")
+    scene_gts = {n: parse_dota_poly(path("val_raw", "labelTxt",
+                                         n + ".txt")) for n in names}
+    say("eval_data", scenes=len(names), scene_size=EVAL_SCENE_SIZE,
+        tiles=len(ds), tile_size=EVAL_SUBSIZE, gap=EVAL_GAP,
+        scene_gts=sum(len(v) for v in scene_gts.values()),
+        tile_gts=sum(len(a["labels"]) for a in ds.anns),
+        tile_gts_difficult=sum(int(a["difficult"].astype(bool).sum())
+                               for a in ds.anns), **secs)
+
+    model, _ = apis.init_detector(
+        cfg, state_dict=perturbed_weights(np.random.default_rng(SEED + 5),
+                                          EVAL_CONFIG, EVAL_BIAS),
+        compute_dtype=cfg["tpu"]["compute_dtype"], device=dev)
+    tc = cfg["test_cfg"]
+    kw = dict(canvas=tuple(cfg["tpu"]["canvas_buckets"][-1]),
+              batch_size=EVAL_BATCH, num_fg=len(ds.CLASSES))
+    clock[0] = time.perf_counter()
+    apis.run_inference(model, ds, tc, max_images=EVAL_BATCH, **kw)
+    torch.cuda.synchronize()
+    stage("warmup_batch_s")
+    torch.cuda.reset_peak_memory_stats()
+    ops_mod.reset_launch_counts()
+    results = apis.run_inference(model, ds, tc, **kw)
+    torch.cuda.synchronize()
+    launches = ops_mod.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        apis.run_inference(model, ds, tc, **kw)
         torch.cuda.synchronize()
-        stage("warmup_batch_s")
-        torch.cuda.reset_peak_memory_stats()
-        ops_mod.reset_launch_counts()
-        results = apis.run_inference(model, ds, tc, **kw)
-        torch.cuda.synchronize()
-        launches = ops_mod.launch_counts()
-        peak = torch.cuda.max_memory_allocated()
-        times = []
-        for _ in range(3):
-            t0 = time.perf_counter()
-            apis.run_inference(model, ds, tc, **kw)
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-        clock[0] = time.perf_counter()
+        times.append(time.perf_counter() - t0)
+    clock[0] = time.perf_counter()
 
-        rects = []
-        with plain_inference(rects):
-            results_plain = apis.run_inference(model, ds, tc, **kw)
-        torch.cuda.synchronize()
-        stage("plain_inference_s")
-        same = same_results(results, results_plain)
-        result_merge.write_task1_results(results, DOTA10_CLASSES,
-                                         path("task1_raw"))
-        stage("write_task1_s")
-        result_merge.write_task1_results(results_plain, DOTA10_CLASSES,
-                                         path("task1_plain"))
-        task1_equal = all(
-            open(path("task1_raw", f), "rb").read()
-            == open(path("task1_plain", f), "rb").read()
-            for f in os.listdir(path("task1_raw")))
-        clock[0] = time.perf_counter()
-        result_merge.merge_by_poly(path("task1_raw"), path("task1_merged"))
-        stage("merge_s")
-        detpath = path("task1_merged", "Task1_{:s}.txt")
-        annopath = path("val_raw", "labelTxt", "{:s}.txt")
-        mAP, aps = evaluation.eval_dota_task1(detpath, annopath, names,
-                                              classnames=classnames,
-                                              use_07_metric=False)
-        stage("eval_task1_s")
-        mAOE, aoes, mod90, _ = evaluation.eval_maoe(
-            detpath, annopath, names, classnames=classnames, ovthresh=0.7,
-            return_mod90=True)
-        stage("eval_maoe_s")
+    rects = []
+    with plain_inference(rects):
+        results_plain = apis.run_inference(model, ds, tc, **kw)
+    torch.cuda.synchronize()
+    stage("plain_inference_s")
+    same = same_results(results, results_plain)
+    result_merge.write_task1_results(results, DOTA10_CLASSES,
+                                     path("task1_raw"))
+    stage("write_task1_s")
+    result_merge.write_task1_results(results_plain, DOTA10_CLASSES,
+                                     path("task1_plain"))
+    task1_equal = all(
+        open(path("task1_raw", f), "rb").read()
+        == open(path("task1_plain", f), "rb").read()
+        for f in os.listdir(path("task1_raw")))
+    clock[0] = time.perf_counter()
+    result_merge.merge_by_poly(path("task1_raw"), path("task1_merged"))
+    stage("merge_s")
+    detpath = path("task1_merged", "Task1_{:s}.txt")
+    annopath = path("val_raw", "labelTxt", "{:s}.txt")
+    mAP, aps = evaluation.eval_dota_task1(detpath, annopath, names,
+                                          classnames=classnames,
+                                          use_07_metric=False)
+    stage("eval_task1_s")
+    mAOE, aoes, mod90, _ = evaluation.eval_maoe(
+        detpath, annopath, names, classnames=classnames, ovthresh=0.7,
+        return_mod90=True)
+    stage("eval_maoe_s")
 
-        # the oracle: each scene's labels as its detections, score 1, in
-        # float64 (printed as labelTxt prints them)
-        oracle = {n: [np.array([list(o["poly"]) + [1.0] for o in objs
-                                if o["name"] == c], np.float64).reshape(-1, 9)
-                      for c in DOTA10_CLASSES]
-                  for n, objs in scene_gts.items()}
-        result_merge.write_task1_results(oracle, DOTA10_CLASSES,
-                                         path("oracle"))
-        oracle_det = path("oracle", "Task1_{:s}.txt")
-        o_map, o_aps = evaluation.eval_dota_task1(
-            oracle_det, annopath, names, classnames=classnames,
-            use_07_metric=False)
-        o_maoe, _ = evaluation.eval_maoe(oracle_det, annopath, names,
-                                         classnames=classnames, ovthresh=0.7)
-        stage("oracle_s")
-        tile_map, _ = apis.evaluate_results(results, ds)
-        stage("evaluate_results_s")
-        dets_tiles = [sum(len(a) for a in per_class)
-                      for per_class in results.values()]
-        dets_merged = count_lines(path("task1_merged"))
-        per_class = {c: sum(len(r[i]) for r in results.values())
-                     for i, c in enumerate(DOTA10_CLASSES)}
+    # the oracle: each scene's labels as its detections, score 1, in
+    # float64 (printed as labelTxt prints them)
+    oracle = {n: [np.array([list(o["poly"]) + [1.0] for o in objs
+                            if o["name"] == c], np.float64).reshape(-1, 9)
+                  for c in DOTA10_CLASSES]
+              for n, objs in scene_gts.items()}
+    result_merge.write_task1_results(oracle, DOTA10_CLASSES,
+                                     path("oracle"))
+    oracle_det = path("oracle", "Task1_{:s}.txt")
+    o_map, o_aps = evaluation.eval_dota_task1(
+        oracle_det, annopath, names, classnames=classnames,
+        use_07_metric=False)
+    o_maoe, _ = evaluation.eval_maoe(oracle_det, annopath, names,
+                                     classnames=classnames, ovthresh=0.7)
+    stage("oracle_s")
+    tile_map, _ = apis.evaluate_results(results, ds)
+    stage("evaluate_results_s")
+    dets_tiles = [sum(len(a) for a in per_class)
+                  for per_class in results.values()]
+    dets_merged = count_lines(path("task1_merged"))
+    per_class = {c: sum(len(r[i]) for r in results.values())
+                 for i, c in enumerate(DOTA10_CLASSES)}
 
     tiles = len(dets_tiles)
     # the oracle's AP sums its recall steps in float64: 1 within 1e-12
@@ -2846,6 +2955,14 @@ def phase_hard_aug_train(dev, ops_mod, card):
     return ok, launches
 
 
+def cpu_quota() -> str | None:
+    """The cgroup's CPU limit ("quota period", or "max"), if it has one."""
+    with contextlib.suppress(OSError):
+        with open("/sys/fs/cgroup/cpu.max") as f:
+            return f.read().strip()
+    return None
+
+
 def render_dota_scene(rng, h: int, w: int, n_objects: int, specs=None):
     """A scene of h x w: render_scene at the longer side, cropped, with
     the objects that lie wholly inside the crop."""
@@ -2966,20 +3083,19 @@ def phase_dota_input(dev, ops_mod, card):
     the plain DCN forward, over-mask and scan (each min-area-rect call
     checked against its plain version), Task1 files of those tiles byte
     for byte; images/s with the PNG loading, the test pipeline's ms a
-    tile alone, the merged
-    files, and the val scene's labels as detections scoring mAP 1 and
-    mAOE 0; last DOTA_TRAIN_STEPS SGD steps of the config (batch
+    tile alone, the merged files (the test tool's default pool, then one
+    process: byte for byte, both timed), and the val scene's labels as
+    detections scoring mAP 1 and mAOE 0; last DOTA_TRAIN_STEPS SGD steps of the config (batch
     TRAIN_BATCH) on the trainval tiles through its train pipeline and
     loader, every loss finite and each training kernel launched as often
     a step as the step calls it."""
-    import importlib.util
     import logging
 
     from orientedreppoints_tpu_torch import apis
     from orientedreppoints_tpu_torch.data import image_io
     from orientedreppoints_tpu_torch.data.synth import SYNTH_CLASS_SPECS
-    from orientedreppoints_tpu_torch.devkit import (evaluation, hrsc,
-                                                    img_split, prepare,
+    from orientedreppoints_tpu_torch.devkit import (dota_utils, evaluation,
+                                                    hrsc, img_split, prepare,
                                                     result_merge)
     from orientedreppoints_tpu_torch.devkit.dota_utils import (
         DOTA10_CLASSES, parse_dota_poly, write_dota_poly)
@@ -3117,10 +3233,7 @@ def phase_dota_input(dev, ops_mod, card):
             f.write(text)
         sd = perturbed_weights(np.random.default_rng(SEED + 8), CONFIG)
         torch.save(sd, path("w.pt"))
-        spec = importlib.util.spec_from_file_location("test_torch",
-                                                      "tools/test_torch.py")
-        tool = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(tool)
+        tool = load_tool("test_torch")
         log = logging.getLogger("test_torch")
         common = [path("dota_r50.py"), "--checkpoint", path("w.pt"),
                   "--batch_size", str(BATCH), "--device", str(dev)]
@@ -3134,8 +3247,51 @@ def phase_dota_input(dev, ops_mod, card):
         launches = ops_mod.launch_counts()
         serve_peak = torch.cuda.max_memory_allocated()
         clock[0] = time.perf_counter()
-        tool.emit_outputs(args, results, ds, log)
+        pool_s = []  # the test tool's merge (the default pool) alone
+        merge_fn = result_merge.merge_by_poly
+
+        def timed_merge(*a, **kw):
+            t0 = time.perf_counter()
+            merge_fn(*a, **kw)
+            pool_s.append(time.perf_counter() - t0)
+
+        result_merge.merge_by_poly = timed_merge
+        try:
+            tool.emit_outputs(args, results, ds, log)
+        finally:
+            result_merge.merge_by_poly = merge_fn
         stage("write_merge_s")
+        # the same Task1 files merged in this process: byte for byte, each
+        # class file's time (the pool's is at least its largest's)
+        file_s = {}
+        single_fn = result_merge.merge_single
+
+        def timed_single(dst, thresh, fn):
+            t0 = time.perf_counter()
+            single_fn(dst, thresh, fn)
+            file_s[os.path.basename(fn)] = time.perf_counter() - t0
+
+        result_merge.merge_single = timed_single
+        t0 = time.perf_counter()
+        try:
+            result_merge.merge_by_poly(path("task1"), path("merged_1"),
+                                       num_process=1)
+        finally:
+            result_merge.merge_single = single_fn
+        one_s = time.perf_counter() - t0
+        task1_files = sorted(os.listdir(path("task1")))
+        # what the pool's workers cost to start: spawned, each imports the
+        # devkit and this file without torch (tools/test_torch.py: numpy)
+        t0 = time.perf_counter()
+        with multiprocessing.get_context("spawn").Pool(
+                len(task1_files)) as pool:
+            pool.map(dota_utils.basename_noext, task1_files, chunksize=1)
+        pool_start_s = time.perf_counter() - t0
+        merge_equal = sorted(os.listdir(path("merged"))) == sorted(
+            os.listdir(path("merged_1"))) == task1_files and all(
+            open(path("merged", f), "rb").read()
+            == open(path("merged_1", f), "rb").read() for f in task1_files)
+        clock[0] = time.perf_counter()
         # the host's share: the test pipeline alone (PNG decode included)
         t0 = time.perf_counter()
         for i in range(DOTA_PLAIN_IMAGES):
@@ -3241,7 +3397,7 @@ def phase_dota_input(dev, ops_mod, card):
                 and np.isfinite(mAP) and merged_dets > 0)
     ok = (round_trip and bad == 0 and checked == sum(map(len, tiles.values()))
           and labels_equal and hrsc_ok and ok_serve and finite
-          and launches_ok)
+          and launches_ok and merge_equal and len(pool_s) == 1)
     waits, times = run["wait_s"], run["step_s"]
     say("dota_input", config=CONFIG, batch=BATCH,
         dtype=cfg["tpu"]["compute_dtype"],
@@ -3251,6 +3407,14 @@ def phase_dota_input(dev, ops_mod, card):
         plain_serve_s=plain_s, max_memory_allocated_bytes=serve_peak,
         dets_per_tile_min=min(dets), dets_tiles=sum(dets),
         dets_merged=merged_dets, npz_arrays=npz_keys,
+        merge_pool_s=pool_s[0] if pool_s else None,
+        merge_one_process_s=one_s,
+        merge_workers=min(16, len(task1_files)), cpu_count=os.cpu_count(),
+        merge_pool_start_s=pool_start_s,
+        merge_largest_files_s=dict(sorted(
+            file_s.items(), key=lambda kv: -kv[1])[:3]),
+        cpu_affinity=len(os.sched_getaffinity(0)), cpu_quota=cpu_quota(),
+        merge_byte_equal=merge_equal,
         plain_equal_det_for_det=same, task1_byte_equal=task1_equal,
         min_area_rect_calls_checked=len(rects),
         min_area_rect_ties=sum(r["ties"] for r in rects),
@@ -3678,6 +3842,250 @@ def phase_ddp(dev, ops_mod, card, sd, batch):
         launches=totals, card=card, ok=ok and complete)
     return ok and complete, totals
 
+def load_tool(name: str):
+    """tools/<name>.py as a module, its main not run."""
+    spec = importlib.util.spec_from_file_location(name, f"tools/{name}.py")
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    return tool
+
+
+def corruption_probe() -> np.ndarray:
+    """A seeded 512^2 BGR uint8 image: 11-px cells of random colours
+    (edges for the blurs, cells across the JPEG blocks) under +-24 of
+    noise."""
+    rng = np.random.RandomState(CORRUPT_PROBE_SEED)
+    cells = rng.randint(0, 256, (47, 47, 3))
+    img = (np.repeat(np.repeat(cells, 11, 0), 11, 1)[:512, :512]
+           + rng.randint(-24, 25, (512, 512, 3)))
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def corruption_digests(reps: int = 2) -> tuple[dict, dict]:
+    """Every (corruption, severity) of ROBUST_SEVERITIES applied to the
+    probe by corruptions.corrupt with RandomState(CORRUPT_RNG_SEED) ->
+    ({"name@sev": SHA-256 of the output}, {"name@sev": host ms of the
+    last of reps calls})."""
+    from orientedreppoints_tpu_torch.data import corruptions
+
+    img = corruption_probe()
+    digests, host_ms = {}, {}
+    for name in corruptions.CORRUPTIONS:
+        for sev in ROBUST_SEVERITIES:
+            key = f"{name}@{sev}"
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                out = corruptions.corrupt(
+                    img, name, sev, np.random.RandomState(CORRUPT_RNG_SEED))
+                host_ms[key] = (time.perf_counter() - t0) * 1e3
+            digests[key] = hashlib.sha256(
+                np.ascontiguousarray(out)).hexdigest()
+    return digests, host_ms
+
+
+def phase_robustness(dev, ops_mod, card, wd):
+    """tools/test_robustness_torch.py's path in this process, at the full
+    width of EVAL_CONFIG (R-18, bf16, canvas 512^2, batch 4) with the eval
+    phase's seeded weights, on its first ROBUST_IMAGES val tiles (in wd):
+    the clean baseline, then each corruption at ROBUST_SEVERITIES, each
+    setting counted on its own; ROBUST_PLAIN also through the plain
+    versions (det for det); P, mPC, rPC and each setting's mAP (random
+    weights: read, not gated); each corruption's host ms on one 512^2
+    tile alone and the probe's 27 digests against CORRUPT_DIGESTS."""
+    from orientedreppoints_tpu_torch import apis
+    from orientedreppoints_tpu_torch.data.corruptions import CORRUPTIONS
+    from orientedreppoints_tpu_torch.host import load_config
+
+    t_phase = time.perf_counter()
+    digests, host_ms = corruption_digests()
+    differing = sorted(k for k in CORRUPT_DIGESTS
+                       if digests.get(k) != CORRUPT_DIGESTS[k])
+    tool = load_tool("test_robustness_torch")
+    cfg = load_config(EVAL_CONFIG)
+    cfg["data"]["val"].update(ann_file=os.path.join(wd, "test.json"),
+                              img_prefix=os.path.join(wd, "val_split",
+                                                      "images"))
+    model, _ = apis.init_detector(
+        cfg, state_dict=perturbed_weights(np.random.default_rng(SEED + 5),
+                                          EVAL_CONFIG, EVAL_BIAS),
+        compute_dtype=cfg["tpu"]["compute_dtype"], device=dev)
+    settings = [(None, 0)] + [(c, s) for c in CORRUPTIONS
+                              for s in ROBUST_SEVERITIES]
+    maps, launches, secs = {}, {}, {}
+    rects, same = [], None
+    for corr, sev in settings:
+        key = "clean" if corr is None else f"{corr}@{sev}"
+        torch.cuda.synchronize()
+        ops_mod.reset_launch_counts()
+        t0 = time.perf_counter()
+        maps[key], results, ds = tool.eval_setting(
+            model, cfg, corr, sev, ROBUST_IMAGES, EVAL_BATCH)
+        torch.cuda.synchronize()
+        secs[key] = time.perf_counter() - t0
+        launches[key] = ops_mod.launch_counts()
+        say("robustness_setting", setting=key, mAP=maps[key],
+            tiles=len(results), seconds=secs[key], launches=launches[key])
+        if (corr, sev) == ROBUST_PLAIN:
+            t0 = time.perf_counter()
+            with plain_inference(rects):
+                plain = apis.run_inference(
+                    model, ds, cfg["test_cfg"],
+                    canvas=tuple(cfg["tpu"]["canvas_buckets"][-1]),
+                    batch_size=EVAL_BATCH, max_images=ROBUST_IMAGES,
+                    num_fg=len(ds.CLASSES))
+            torch.cuda.synchronize()
+            plain_s = time.perf_counter() - t0
+            same = same_results(results, plain) and len(results) == len(
+                plain) == ROBUST_IMAGES
+    per_setting = {k: round(v, 4) for k, v in maps.items() if k != "clean"}
+    out = tool.summary(maps["clean"], per_setting, ROBUST_IMAGES)
+    total = {k: sum(n[k] for n in launches.values())
+             for k in ops_mod.KERNELS}
+    pass_s = sum(secs.values())
+    ok = (not differing and same is True
+          and all(all(n[k] > 0 for k in SERVING_KERNELS)
+                  for n in launches.values())
+          and len(rects) == -(-ROBUST_IMAGES // EVAL_BATCH)
+          and all(r["ok"] for r in rects)
+          and bool(np.isfinite(list(maps.values())).all()))
+    say("robustness", config=EVAL_CONFIG, batch=EVAL_BATCH,
+        dtype=cfg["tpu"]["compute_dtype"], tiles=ROBUST_IMAGES,
+        settings=len(settings), P=out["P"], mPC=out["mPC"], rPC=out["rPC"],
+        per_setting=out["per_setting"],
+        corruption_host_ms_per_tile=host_ms,
+        tiles_per_s=len(settings) * ROBUST_IMAGES / pass_s, pass_s=pass_s,
+        plain_setting="{}@{}".format(*ROBUST_PLAIN),
+        plain_equal_det_for_det=same, plain_s=plain_s,
+        min_area_rect_calls_checked=len(rects),
+        digests_checked=len(CORRUPT_DIGESTS), digests_differing=differing,
+        launches=total, phase_s=time.perf_counter() - t_phase, card=card,
+        ok=ok)
+    return ok, total
+
+
+def last_json(text: str, prefix: str = "") -> dict | None:
+    """The last line of text that starts with prefix and then holds a JSON
+    object, parsed; None if there is none."""
+    for line in reversed(text.strip().splitlines()):
+        if line.startswith(prefix):
+            with contextlib.suppress(ValueError):
+                return json.loads(line[len(prefix):])
+    return None
+
+
+def phase_chunked(dev, ops_mod, card):
+    """tools/synth_benchmark_torch.py --train on EVAL_CONFIG (R-18, bf16,
+    512^2, batch 8; CHUNKED_TRAIN_SCENES scenes, a step an epoch) to epoch
+    CHUNKED_EPOCHS, as subprocesses (os.execv replaces the process), run
+    side by side: A with --rss_limit_gb 0.001 must re-execute once an
+    epoch while epochs remain (two [chunked] lines), resume with the
+    kernels found built, and exit 3; B and C run uninterrupted
+    (--rss_limit_gb 0).  A's weights at
+    the last epoch must lie within NOISE_FACTOR times B against C of B
+    (the DCN backward's atomics' noise), as the norm of the difference
+    over that of the update.  Then --skip_train on A's work dir must score
+    as a plain scoring of its checkpoint in this process (--state_dict of
+    its weights, counted)."""
+    from orientedreppoints_tpu_torch import apis
+    from orientedreppoints_tpu_torch.host import load_config
+
+    t_phase = time.perf_counter()
+    cfg = load_config(EVAL_CONFIG)
+    with tempfile.TemporaryDirectory() as wd:
+        def tool_argv(run, *flags):
+            return ["--config", EVAL_CONFIG, "--work_dir",
+                    os.path.join(wd, run), "--train_scenes",
+                    str(CHUNKED_TRAIN_SCENES), "--val_scenes",
+                    str(CHUNKED_VAL_SCENES), "--device", str(dev), *flags]
+
+        def tool_runs(*flag_sets):
+            """The tool once per (work dir, flags...), all at once (their
+            start-up is mostly the host's) -> ([CompletedProcess], the
+            seconds until the last ended)."""
+            t0 = time.perf_counter()
+            procs = [subprocess.Popen(
+                [sys.executable, "tools/synth_benchmark_torch.py",
+                 *tool_argv(*flags)], stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True) for flags in flag_sets]
+            done = []
+            try:
+                for flags, p in zip(flag_sets, procs):
+                    out, err = p.communicate(timeout=CHUNKED_TIMEOUT)
+                    done.append(subprocess.CompletedProcess(
+                        flags, p.returncode, out, err))
+            finally:
+                for p in procs:
+                    p.kill()  # a no-op on a process that has ended
+            return done, time.perf_counter() - t0
+
+        train = ["--train", "--stop_epoch", str(CHUNKED_EPOCHS)]
+        (a, b, c), train_s = tool_runs(
+            ("a", *train, "--rss_limit_gb", "0.001"),
+            ("b", *train, "--rss_limit_gb", "0"),
+            ("c", *train, "--rss_limit_gb", "0"))
+        for name, res in (("a", a), ("b", b), ("c", c)):
+            if res.returncode != 3:
+                print(f"chunked {name}: rc {res.returncode}\n{res.stdout}\n"
+                      f"{res.stderr}", file=sys.stderr)
+
+        def weights(run):
+            return torch.load(os.path.join(
+                wd, run, "ckpts", f"epoch_{CHUNKED_EPOCHS}.pt"),
+                map_location="cpu", weights_only=True)["model"]
+
+        start = apis.init_detector(
+            cfg, device="cpu", seed=SEED,
+            compute_dtype=cfg["tpu"]["compute_dtype"])[0].state_dict()
+        sa, sb, sc = weights("a"), weights("b"), weights("c")
+        ab, bc = param_diffs(sa, sb, start), param_diffs(sc, sb, start)
+        reexecs = sum(line.startswith("[chunked]")
+                      for line in a.stdout.splitlines())
+        resumed = [last_json(x.stdout, "training done: ") for x in (a, b)]
+
+        (d,), skip_s = tool_runs(("a", "--skip_train", "--skip_gen"))
+        skip = last_json(d.stdout)
+        torch.save(sa, os.path.join(wd, "a.pt"))
+        bench = load_tool("synth_benchmark_torch")
+        text = io.StringIO()
+        torch.cuda.synchronize()
+        ops_mod.reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(text):
+            bench.main(tool_argv("a", "--skip_gen", "--state_dict",
+                                 os.path.join(wd, "a.pt")))
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        launches = ops_mod.launch_counts()
+        plain = last_json(text.getvalue())
+
+    keys = ("mAP", "mAOE_deg", "per_class_ap", "per_class_aoe",
+            "mAOE_mod90_deg")
+    scores_equal = (skip is not None and plain is not None
+                    and all(skip[k] == plain[k] for k in keys))
+    ratio = ab["update_rel"] / max(bc["update_rel"], 1e-30)
+    ok = (a.returncode == b.returncode == c.returncode == 3
+          and reexecs == CHUNKED_EPOCHS - 1
+          and a.stdout.count("resumed at epoch") == CHUNKED_EPOCHS - 1
+          and None not in resumed and resumed[0]["kernel_build_s"] == 0.0
+          and resumed[0]["epochs"] == [CHUNKED_EPOCHS - 1, CHUNKED_EPOCHS]
+          and all(resumed[0]["launches"][k] > 0 for k in TRAIN_KERNELS)
+          and (ab["update_rel"] <= NOISE_FACTOR * bc["update_rel"])
+          and d.returncode in (0, 1) and scores_equal
+          and all(launches[k] > 0 for k in SERVING_KERNELS))
+    say("chunked", config=EVAL_CONFIG, train_scenes=CHUNKED_TRAIN_SCENES,
+        epochs=CHUNKED_EPOCHS, rcs=[a.returncode, b.returncode, c.returncode,
+                                    d.returncode],
+        reexecs=reexecs, run_s=dict(a_b_c=train_s, skip_train=skip_s,
+                                    plain_scoring=plain_s),
+        resumed_train=resumed[0], uninterrupted_train=resumed[1],
+        noise_factor=NOISE_FACTOR, param_diffs=dict(AB=ab, BC=bc),
+        ab_over_bc=ratio, skip_train_scores={k: skip and skip[k]
+                                             for k in keys},
+        plain_scores={k: plain and plain[k] for k in keys},
+        scores_equal=scores_equal, launches=launches,
+        phase_s=time.perf_counter() - t_phase, card=card, ok=ok)
+    return ok, launches
+
 
 def main() -> int:
     if sys.argv[1:2] == ["--ddp_rank"]:
@@ -3753,7 +4161,11 @@ def main() -> int:
         torch.cuda.empty_cache()
     ok_more.append(phase_weights(dev, rng_resnext, card))
     torch.cuda.empty_cache()
-    ok_eval, launches_eval = phase_eval(dev, ops_mod, card)
+    with tempfile.TemporaryDirectory() as eval_wd:
+        ok_eval, launches_eval = phase_eval(dev, ops_mod, card, eval_wd)
+        torch.cuda.empty_cache()
+        ok_robust, launches_robust = phase_robustness(dev, ops_mod, card,
+                                                      eval_wd)
     torch.cuda.empty_cache()
     ok_hard, launches_hard, launches_hard_tta = phase_hard_eval(dev, ops_mod,
                                                                 card)
@@ -3796,17 +4208,20 @@ def main() -> int:
     torch.cuda.empty_cache()
     ok_dota, launches_dota, launches_dota_train = phase_dota_input(
         dev, ops_mod, card)
+    torch.cuda.empty_cache()
+    ok_chunked, launches_chunked = phase_chunked(dev, ops_mod, card)
 
     # launches: each kernel's count over the counted runs of the paths
     # that run it (serving, training, TTA, the IoU path, eval, Swin,
     # HRNet, SSD-VGG and ResNeXt serving, Swin, HRNet and SSD-VGG
-    # training, the DOTA input's serving and training); the single-image
+    # training, the DOTA input's serving and training, the robustness
+    # settings, the chunked phase's scoring); the single-image
     # over-mask is the TTA run's over-mask count
     runs = (launches, launches_train, launches_tta, launches_iou,
             launches_eval, launches_hard, launches_hard_tta, launches_synth,
             launches_hard_aug, launches_swin, launches_swin_train,
             launches_dota, launches_dota_train, launches_shard, launches_ddp,
-            *launches_more)
+            launches_robust, launches_chunked, *launches_more)
     single = (launches_tta, launches_hard_tta)  # the single-image entry
     counts = {name: sum(r[name] for r in runs) for name in ops_mod.KERNELS}
     counts["quad_over_mask"] = sum(
@@ -3825,7 +4240,8 @@ def main() -> int:
     if not (all(r["ok"] for r in kernels.values()) and ok_entries
             and ok_host and ok_slice and ok_decode and ok_tta and ok_tta_check
             and ok_iou and ok_eval and ok_hard and ok_train and ok_check
-            and ok_synth and ok_hard_aug and ok_dota
+            and ok_synth and ok_hard_aug and ok_dota and ok_robust
+            and ok_chunked
             and ok_swin and ok_swin_decode and ok_swin_train
             and ok_swin_check and ok_shard and ok_ddp and all(ok_more)):
         print("chip_smoke: a phase failed", file=sys.stderr)

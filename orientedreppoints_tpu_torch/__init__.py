@@ -9,15 +9,22 @@ names mirror it so each function has an obvious counterpart:
                training loss: assigners, targets, APAA, losses,
                compute_losses
   data/        synthetic DOTA scenes (cv2's fills in numpy), PNG / BMP
-               files (image_io), DotaDataset and its pipelines
+               files (image_io), DotaDataset and its pipelines, cv2's
+               warps and colour conversions (warp, color), the image
+               corruptions of the robustness benchmark (corruptions, with
+               cv2's filter2D and area / nearest resizes in filter and
+               libjpeg-turbo's lossy round trip in jpeg)
   devkit/      DOTA devkit in numpy: labelTxt, polygon IoU and NMS,
                ImgSplit at any rate, COCO-poly json, the DOTA and HRSC
-               prep, Task1 / mAOE evaluators, merge
+               prep, Task1 / mAOE evaluators, the merge (a spawn pool
+               over the class files)
   ops/         geometry, min-area-rect and hulls, hull-gt IoU, quad IoU
                over-mask, rotated NMS, deformable conv (forward and
                backward); each kernel beside its plain PyTorch version
-  parallel/    the one-device SGD training step
-  utils/       flax -> torch weight conversion
+  parallel/    the SGD / AdamW training step, sharded inference and the
+               data-parallel process group
+  utils/       flax -> torch weight conversion, checkpoints and weight
+               importers, the host-RSS re-exec of long runs (chunked)
   apis.py      init_detector, build_dataset, run_inference(_tta),
                evaluate_results, build_loss_config, build_img_norm
   serving.py   Predictor (one device)

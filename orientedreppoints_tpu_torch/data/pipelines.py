@@ -1,11 +1,12 @@
 """The train and test pipelines on a results dict (counterpart of
 data/pipelines.py, after mmdet/datasets/pipelines/{loading,transforms}.py
 and the reference's poly_transforms.py), in numpy and CPU tensors on the
-host: LoadImageFromFile (with its decoded-image cache), LoadAnnotations,
-CorrectBox, RotateResize, RotateRandomFlip, Normalize, Pad, FilterEmpty,
-the hard-aug transforms HSVAugment, PolyRandomRotate, RandomRotate,
-PolyMosaic, PolyMosaic9 and MixUp with MultiSamplePipeline, and the debug
-stage PolyImgPlot.
+host: LoadImageFromFile (with its decoded-image cache), Corrupt (the
+robustness benchmark's image corruptions, data/corruptions.py),
+LoadAnnotations, CorrectBox, RotateResize, RotateRandomFlip, Normalize,
+Pad, FilterEmpty, the hard-aug transforms HSVAugment, PolyRandomRotate,
+RandomRotate, PolyMosaic, PolyMosaic9 and MixUp with MultiSamplePipeline,
+and the debug stage PolyImgPlot.
 
 Images are read by data/image_io (PNG, BMP or .npy, BGR uint8, as
 cv2.imread gives them).  RotateResize resizes through
@@ -22,7 +23,8 @@ makes the same RandomState calls in the same order as its JAX
 counterpart, the draws whose value goes unused included (PolyMosaic's
 perspective and shear at 0, a fusion group that passes through), so
 equal seeds give equal samples.  A step that must draw raises without an
-rng.
+rng.  Corrupt does not take the loader's rng: as in JAX, it seeds its own
+RandomState from the image's file name.
 """
 
 from __future__ import annotations
@@ -36,7 +38,7 @@ import torch
 
 from .. import host
 from ..core.rbox import poly2rbox, rbox2poly
-from . import color, image_io, rect, synth, warp
+from . import color, corruptions, image_io, rect, synth, warp
 
 PIPELINES = {}
 
@@ -132,6 +134,36 @@ class LoadImageFromFile:
         results["img_shape"] = img.shape
         results["ori_shape"] = img.shape
         results["bbox_fields"] = []
+        return results
+
+
+@register
+class Corrupt:
+    """An image corruption right after the load (the robustness
+    benchmark; tools/test_robustness_torch.py inserts it at index 1 of the
+    test pipeline).  Severity 0 or less passes the results through;
+    otherwise results["img"] (as uint8) goes through
+    corruptions.corrupt with RandomState((hash(filename) ^ seed) &
+    0x7FFFFFFF), so one image always gets the same corruption in one
+    process.  Python salts hash(str) per process: runs repeat only under
+    a fixed PYTHONHASHSEED."""
+
+    def __init__(self, corruption: str, severity: int = 1, seed: int = 0):
+        if corruption not in corruptions.CORRUPTIONS:
+            raise ValueError(f"unknown corruption {corruption!r}; one of "
+                             f"{sorted(corruptions.CORRUPTIONS)}")
+        self.corruption = corruption
+        self.severity = severity
+        self.seed = seed
+
+    def __call__(self, results):
+        if self.severity <= 0:
+            return results
+        rng = np.random.RandomState(
+            (hash(results.get("filename", "")) ^ self.seed) & 0x7FFFFFFF)
+        results["img"] = corruptions.corrupt(
+            results["img"].astype(np.uint8), self.corruption, self.severity,
+            rng=rng)
         return results
 
 

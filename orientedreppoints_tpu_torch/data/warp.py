@@ -9,7 +9,8 @@ tensors for the hard-aug transforms (cv2 is not a dependency of the port).
     3 x 3 cofactor form, for warp_perspective;
   * warp_affine / warp_perspective: INTER_LINEAR with BORDER_CONSTANT on
     an (h, w, 3) uint8 image, as cv2 5.0 computes them (the float32 path
-    of OpenCV 4.11+, not the old INTER_BITS fixed-point tables).
+    of OpenCV 4.11+, not the old INTER_BITS fixed-point tables);
+    warp_affine also of an (h, w) float32 image (motion_blur's kernel).
 
 cv2's arithmetic, found against cv2 5.0 on seeded images and matrices
 (tests/test_torch_aug.py, bit for bit): the inverse matrix is rounded to
@@ -23,7 +24,8 @@ differently:
 (the perspective warp forms X, Y and W so, then sx = X / W, sy = Y / W).
 Then fx = floor(sx), a = sx - fx, and each tap outside the image takes
 the border value; the two lerps along x and one along y are fused,
-v = fma(a, p01 - p00, p00), and the result is rint'ed and saturated.
+v = fma(a, p01 - p00, p00), and the result is rint'ed and saturated (a
+float32 image keeps v as it is).
 
 A fused multiply-add is emulated in float64 (the product of two float32
 values is exact there) and rounded to float32; where the float64 sum sits
@@ -200,17 +202,41 @@ def _check(img: np.ndarray):
                         f"{img.shape}")
 
 
+def _remap_float(img: np.ndarray, sx: torch.Tensor, sy: torch.Tensor,
+                 border_value) -> np.ndarray:
+    """Bilinear samples of an (h, w) float32 image at (sx, sy), taps
+    outside the image set to the border value, unrounded."""
+    h, w = img.shape
+    fx, fy = torch.floor(sx), torch.floor(sy)
+    a, b = sx - fx, sy - fy
+    framed = torch.full((h + 2, w + 2), float(border_value), dtype=_F32)
+    framed[1:-1, 1:-1] = torch.from_numpy(img)
+    flat = framed.view(-1)
+
+    def tap(yy, xx):
+        return flat.take((yy.clamp(-1, h).long() + 1) * (w + 2)
+                         + xx.clamp(-1, w).long() + 1)
+
+    v0 = fma32(a, tap(fy, fx + 1) - tap(fy, fx), tap(fy, fx))
+    v1 = fma32(a, tap(fy + 1, fx + 1) - tap(fy + 1, fx), tap(fy + 1, fx))
+    return fma32(b, v1 - v0, v0).numpy()
+
+
 def warp_affine(img: np.ndarray, M, dsize, border_value=0) -> np.ndarray:
     """cv2.warpAffine(img, M, dsize, flags=INTER_LINEAR,
     borderMode=BORDER_CONSTANT, borderValue=border_value) of an (h, w, 3)
-    uint8 image; dsize is (width, height)."""
-    _check(img)
+    uint8 image or an (h, w) float32 one; dsize is (width, height)."""
+    flt = img.dtype == np.float32 and img.ndim == 2
+    if not flt:
+        _check(img)
     w_out, h_out = (int(v) for v in dsize)
     m = invert_affine(M).astype(np.float32)
     if (np.array_equal(m, np.eye(2, 3, dtype=np.float32))
             and (h_out, w_out) == img.shape[:2]):
         return img.copy()  # every pixel samples itself with weight 0 aside
     sx, sy = _coords(m, w_out, h_out)
+    if flt:
+        return _remap_float(img, sx, sy, border_value)
     return _remap(img, sx, sy, border_value)
 
 

@@ -5,13 +5,21 @@ DOTA_devkit/ResultMerge_multi_process.py):
   * per-class Task1_<cls>.txt lines 'tilename score x0 y0 ... x3 y3';
   * tile names 'name__rate__left___up' (:182-203), polygons mapped back
     as (x + left) / rate (:173-180);
-  * per scene, greedy polygon NMS at 0.1 (py_cpu_nms_poly_fast :60-121).
+  * per scene, greedy polygon NMS at 0.1 (py_cpu_nms_poly_fast :60-121);
+  * the class files merged in parallel (:225-231): merge_by_poly maps
+    merge_single over them in a pool of `num_process` spawned workers
+    (a fork of a process that has started CUDA is unsafe), the largest
+    file first.  The workers import numpy and this package's devkit, not
+    torch; spawn re-imports the caller's __main__ in each of them, so a
+    caller that imports torch at module level pays that import a worker.
 """
 
 from __future__ import annotations
 
+import multiprocessing
 import os
 import os.path as osp
+from functools import partial
 
 import numpy as np
 
@@ -48,13 +56,24 @@ def merge_single(dstpath: str, nms_thresh: float, fullname: str):
                 f.write(f"{imgname} {d[8]} {coords}\n")
 
 
-def merge_by_poly(srcpath: str, dstpath: str, nms_thresh: float = NMS_THRESH):
-    """Merge every per-class file under srcpath into dstpath, in this
-    process: a forked child of a process that has initialised CUDA is
-    unsafe."""
+def merge_by_poly(srcpath: str, dstpath: str, nms_thresh: float = NMS_THRESH,
+                  num_process: int = 16):
+    """Merge every per-class file under srcpath into dstpath: in this
+    process with one worker or fewer, else in a spawn pool of
+    min(num_process, files) workers.  The files are the same either way."""
     os.makedirs(dstpath, exist_ok=True)
-    for fn in util.list_files(srcpath, ".txt"):
-        merge_single(dstpath, nms_thresh, fn)
+    files = util.list_files(srcpath, ".txt")
+    workers = min(num_process, len(files) or 1)
+    if workers <= 1:
+        for fn in files:
+            merge_single(dstpath, nms_thresh, fn)
+        return
+    # the largest first: the pool's time is that of its longest worker
+    files.sort(key=osp.getsize, reverse=True)
+    ctx = multiprocessing.get_context("spawn")
+    with ctx.Pool(workers) as pool:
+        pool.map(partial(merge_single, dstpath, nms_thresh), files,
+                 chunksize=1)
 
 
 def write_task1_results(results_per_image, class_names, out_dir: str):

@@ -95,6 +95,18 @@ def load_eval_variables(path: str, model) -> dict:
     return payload["meta"]
 
 
+def load_weights(model, path: str) -> None:
+    """A checkpoint of tools/train_torch.py (a file, or a directory: its
+    latest) or a bare state dict (tools/export_torch_state_dict.py) into
+    model, strictly."""
+    if not osp.isdir(path):
+        payload = torch.load(path, map_location="cpu", weights_only=True)
+        if set(payload) != set(KEYS):
+            model.load_state_dict(payload, strict=True)
+            return
+    load_eval_variables(path, model)
+
+
 # ---------------------------------------------------------------------------
 # torchvision ResNet / ResNeXt weights (resnet18 .. resnet152,
 # resnext50_32x4d, ...) -> the port's ResNet backbone

@@ -297,6 +297,28 @@ def test_merge_by_poly_byte_equal(tmp_path, thresh):
     assert 100 < assert_same_files(tmp_path / "a", tmp_path / "b") < n
 
 
+@pytest.mark.parametrize("workers", [2, 3])
+def test_merge_by_poly_pool_byte_equal(tmp_path, workers):
+    """The class files merged by a spawn pool of 2 and 3 workers (the
+    largest file first): JAX's one-process merge, byte for byte."""
+    src, n = merge_case(tmp_path)
+    result_merge.merge_by_poly(src, str(tmp_path / "a"),
+                               num_process=workers)
+    merge_ref.merge_by_poly(src, str(tmp_path / "b"), num_process=1)
+    assert 100 < assert_same_files(tmp_path / "a", tmp_path / "b") < n
+
+
+def test_merge_by_poly_signature():
+    """JAX's parameters and defaults: nms_thresh 0.1, 16 processes."""
+    import inspect
+
+    got = inspect.signature(result_merge.merge_by_poly).parameters
+    want = inspect.signature(merge_ref.merge_by_poly).parameters
+    assert [(k, p.default) for k, p in got.items()] == [
+        (k, p.default) for k, p in want.items()]
+    assert got["num_process"].default == 16
+
+
 class StubDataset:
     """The two attributes evaluate_results reads, for three tiles."""
     CLASSES = DOTA_CLASSES

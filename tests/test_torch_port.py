@@ -37,6 +37,8 @@ R50 = os.path.join(REPO, "configs/dota/orientedreppoints_r50_demo.py")
 
 NO_JAX_SCRIPT = textwrap.dedent("""
     import sys
+    for name in ("jax", "flax", "cv2", "orientedreppoints_tpu"):
+        sys.modules[name] = None  # import raises ImportError
     import numpy as np
     from orientedreppoints_tpu_torch.serving import Predictor
     cfg = dict(
@@ -269,9 +271,41 @@ NO_JAX_SCRIPT = textwrap.dedent("""
         assert [t.shape[1] for t in outs["cls_scores"]] == [8, 4, 2, 1, 1]
         assert all(bool(torch.isfinite(t).all())
                    for t in outs["pts_refine"]), bb["type"]
+    # corruption robustness without cv2: the Corrupt stage (all nine
+    # corruptions), the JPEG round trip, and the merge's spawn pool, whose
+    # children import numpy and the devkit, not torch
+    import multiprocessing
+    from orientedreppoints_tpu_torch.data import jpeg
+    from orientedreppoints_tpu_torch.data.corruptions import CORRUPTIONS
+    from orientedreppoints_tpu_torch.data.pipelines import build_pipeline
+    img = np.random.RandomState(0).randint(0, 256, (40, 56, 3)).astype(
+        np.uint8)
+    for name in CORRUPTIONS:
+        out = build_pipeline([dict(type="Corrupt", corruption=name,
+                                   severity=3)])(dict(
+            img=img.copy(), filename="t.png"))["img"]
+        assert out.shape == img.shape and out.dtype == np.uint8, name
+    assert jpeg.round_trip(img, 58).shape == img.shape
+    with tempfile.TemporaryDirectory() as wd:
+        j = lambda *p: os.path.join(wd, *p)
+        quads = np.float32([[0, 0, 10, 0, 10, 10, 0, 10, 0.9],
+                            [1, 1, 11, 1, 11, 11, 1, 11, 0.8]])
+        write_task1_results({"s__1.0__0___0": [quads] + [
+            np.zeros((0, 9), np.float32)] * 14}, DOTA10_CLASSES, j("raw"))
+        merge_by_poly(j("raw"), j("merged"), num_process=2)
+        with open(j("merged", "Task1_plane.txt")) as f:
+            assert f.read().count("\\n") == 1
+    probe = ("[__import__('orientedreppoints_tpu_torch.devkit.result_merge'),"
+             " sorted(m for m in __import__('sys').modules"
+             " if m.split('.')[0] in ('torch', 'jax', 'cv2'))][1]")
+    with multiprocessing.get_context("spawn").Pool(1) as pool:
+        child = pool.apply(eval, (probe,))
+    print("CHILD", child)
+    assert child == [], child
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "flax", "cv2",
-                                           "orientedreppoints_tpu"))
+                                           "orientedreppoints_tpu")
+                    and sys.modules[m] is not None)
     print("LOADED", loaded)
     assert not loaded, loaded
 """)

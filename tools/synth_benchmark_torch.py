@@ -23,6 +23,7 @@ directory.
     python3 tools/synth_benchmark_torch.py --train [--epochs N] \\
         [--stop_epoch N] [--resume --skip_gen] [--device cuda]
     python3 tools/synth_benchmark_torch.py [--state_dict weights.pt]
+    python3 tools/synth_benchmark_torch.py --skip_train --skip_gen
     python3 tools/synth_benchmark_torch.py \\
         --config configs/dota/synth_r18_512_hard.py --hard --train \\
         --flip_tta --ms_tta 0.5,1.0,1.5
@@ -54,8 +55,12 @@ def parse_args(argv=None):
                "random from --seed (which scores mAP near 0).  With --train "
                "a run that stops before the last epoch (--stop_epoch) saves "
                "a checkpoint and exits 3; run again with --resume --skip_gen "
-               "to go on.  Not ported: the host-RSS re-exec "
-               "(--rss_limit_gb, ROADMAP Queue 1 item 8).")
+               "to go on.  With --train, --rss_limit_gb re-executes the "
+               "process with --resume --skip_gen at an epoch boundary "
+               "where its host RSS has passed the limit (after saving "
+               "the epoch), so a long run stays one command.  "
+               "--skip_train scores the latest checkpoint of "
+               "work_dir/ckpts without training.")
     p.add_argument("--config", default="configs/dota/synth_r18_512.py")
     p.add_argument("--work_dir", default="work_dirs/synth_dota_torch")
     p.add_argument("--train", action="store_true",
@@ -101,6 +106,13 @@ def parse_args(argv=None):
                         "loaded strictly (without --train)")
     p.add_argument("--skip_gen", action="store_true",
                    help="reuse the scenes and tiles already in --work_dir")
+    p.add_argument("--skip_train", action="store_true",
+                   help="score the latest checkpoint of work_dir/ckpts "
+                        "instead of training")
+    p.add_argument("--rss_limit_gb", type=float, default=60.0,
+                   help="at an epoch boundary with the host RSS past this "
+                        "many GB, save the epoch and re-exec with --resume "
+                        "--skip_gen (utils/chunked.py); <= 0 disables")
     p.add_argument("--device", default="cuda")
     return p.parse_args(argv)
 
@@ -151,7 +163,9 @@ def train(args, cfg, device):
                                                   build_trainer,
                                                   init_detector,
                                                   train_epochs)
-    from orientedreppoints_tpu_torch.utils import checkpoint
+    from orientedreppoints_tpu_torch import ops
+    from orientedreppoints_tpu_torch.ops import _ext
+    from orientedreppoints_tpu_torch.utils import checkpoint, chunked
 
     model, _ = init_detector(cfg, device=device, seed=args.seed,
                              compute_dtype=compute_dtype(cfg))
@@ -175,12 +189,29 @@ def train(args, cfg, device):
                  else total_epochs)
     print(f"train: {len(dataset)} tiles, {iters_per_epoch} iters/epoch, "
           f"epochs {start_epoch}..{end_epoch} of {total_epochs}", flush=True)
+
+    def log(line):
+        print(f"{line} (rss {chunked.current_rss_gb():.1f}G)", flush=True)
+
+    def epoch_done(reached, it):
+        if reached >= end_epoch or (args.max_steps and it >= args.max_steps):
+            return
+
+        def save():  # train_epochs saves only every ckpt_interval epochs
+            if reached % args.ckpt_interval:
+                checkpoint.save_checkpoint(ckpt_dir, reached, model,
+                                           optimizer, scheduler, it, meta)
+
+        chunked.maybe_reexec(
+            args.rss_limit_gb, save,
+            lambda argv: chunked.argv_with_flags(
+                argv, ensure=["--resume", "--skip_gen"]))
+
     run = train_epochs(model, loader, step, optimizer, scheduler, ckpt_dir,
                        end_epoch, start_epoch=start_epoch, it=it,
                        max_iters=args.max_steps,
-                       ckpt_interval=args.ckpt_interval, meta=meta,
-                       log=lambda line: print(line, flush=True),
-                       log_interval=args.log_interval)
+                       ckpt_interval=args.ckpt_interval, meta=meta, log=log,
+                       log_interval=args.log_interval, on_epoch=epoch_done)
     ms = np.asarray(run["step_s"]) * 1e3
     waits, wall = run["wait_s"], run["wall_s"]
     summary = dict(
@@ -190,7 +221,9 @@ def train(args, cfg, device):
                           float(np.percentile(ms, 90))] if len(ms) else None),
         loader_wait_ms_median=(float(np.median(waits)) * 1e3 if waits
                                else None),
-        loader_wait_share=sum(waits) / wall if wall > 0 else None)
+        loader_wait_share=sum(waits) / wall if wall > 0 else None,
+        # 0 when a re-executed process found the kernels built
+        kernel_build_s=_ext.build_seconds, launches=ops.launch_counts())
     print(f"training done: {json.dumps(summary)}", flush=True)
     if end_epoch < total_epochs:
         print("chunk complete; run again with --resume --skip_gen to go on",
@@ -248,7 +281,7 @@ def evaluate(args, cfg, model, val_names, tta_augs=None, suffix=""):
     raw = osp.join(wd, "task1_raw" + suffix)
     merged = osp.join(wd, "task1_merged" + suffix)
     write_task1_results(results, DOTA10_CLASSES, raw)
-    merge_by_poly(raw, merged)
+    merge_by_poly(raw, merged, num_process=1)
     detpath = osp.join(merged, "Task1_{:s}.txt")
     annopath = osp.join(wd, "val_raw", "labelTxt", "{:s}.txt")
     classnames = class_names(args)
@@ -274,10 +307,14 @@ def main(argv=None):
     args = parse_args(argv)
     if args.train and args.state_dict:
         raise SystemExit("--state_dict and --train exclude each other")
+    if args.skip_train and (args.train or args.state_dict):
+        raise SystemExit("--skip_train scores the work dir's checkpoint: "
+                         "not with --train or --state_dict")
     from orientedreppoints_tpu_torch.apis import (init_detector,
                                                   parse_tta_spec,
                                                   resolve_device)
     from orientedreppoints_tpu_torch.host import load_config
+    from orientedreppoints_tpu_torch.utils import checkpoint
 
     device = resolve_device(args.device)
     os.makedirs(args.work_dir, exist_ok=True)
@@ -301,6 +338,15 @@ def main(argv=None):
     if args.train:
         model, summary = train(args, cfg, device)
         weights = f"trained here, epochs {summary['epochs']}"
+    elif args.skip_train:
+        ckpt = checkpoint.latest_checkpoint(osp.join(args.work_dir, "ckpts"))
+        if ckpt is None:
+            raise SystemExit(f"--skip_train: no checkpoint in "
+                             f"{osp.join(args.work_dir, 'ckpts')}")
+        model, _ = init_detector(cfg, device=device, seed=args.seed,
+                                 compute_dtype=compute_dtype(cfg))
+        epoch = checkpoint.load_eval_variables(ckpt, model)["epoch"]
+        weights = f"{ckpt}, epoch {epoch}"
     else:
         sd = (torch.load(args.state_dict, map_location="cpu",
                          weights_only=True) if args.state_dict else None)

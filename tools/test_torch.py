@@ -60,17 +60,10 @@ def parse_args(argv=None):
 
 def load_weights(model, path: str) -> None:
     """A checkpoint of tools/train_torch.py (file or directory) or a bare
-    state dict into model, strictly."""
-    import torch
-
+    state dict into model, strictly (utils/checkpoint.load_weights)."""
     from orientedreppoints_tpu_torch.utils import checkpoint
 
-    if not osp.isdir(path):
-        payload = torch.load(path, map_location="cpu", weights_only=True)
-        if set(payload) != set(checkpoint.KEYS):
-            model.load_state_dict(payload, strict=True)
-            return
-    checkpoint.load_eval_variables(path, model)
+    checkpoint.load_weights(model, path)
 
 
 def log_sharding(apis, model, batch_size: int, log) -> None:

@@ -18,7 +18,10 @@ model, optimizer, scheduler and step and goes on from the saved epoch;
 ResNet / ResNeXt backbone from a torchvision .pth before training
 (utils/checkpoint.load_pretrained_backbone).  --validate scores the val split
 after every epoch (apis.run_inference + apis.evaluate_results).  Logs go
-to stdout and work_dir/train.log.
+to stdout and work_dir/train.log.  --rss_limit_gb (default 60): at an
+epoch boundary with epochs left and the host's resident set past the
+limit, the process re-executes itself with --resume_from work_dir/ckpts
+(utils/chunked.py), so a run whose host memory grows stays one command.
 
 Data-parallel: with ORP_COORDINATOR_ADDRESS set (tools/dist_train_torch.sh
 and tools/slurm_train_torch.sh set it, with ORP_NUM_PROCESSES,
@@ -27,7 +30,8 @@ ORP_PROCESS_ID and ORP_LOCAL_RANK), each process joins the group
 of every global batch (the config's tpu.global_batch_size), and the step
 is the one-process step of that global batch.  Rank 0 alone logs, writes
 the checkpoints and runs --validate on its own card; every rank resumes
-from the same file.
+from the same file.  A group does not re-execute: --rss_limit_gb is off there,
+and refused when given.
 """
 
 from __future__ import annotations
@@ -43,12 +47,11 @@ sys.path.insert(0, osp.dirname(osp.dirname(osp.abspath(__file__))))
 
 import numpy as np  # noqa: E402
 
+RSS_LIMIT_GB = 60.0  # tools/train.py's default
+
 
 def parse_args(argv=None):
-    p = argparse.ArgumentParser(
-        description=__doc__.split("\n\n")[0],
-        epilog="Not ported yet: the host-RSS re-exec --rss_limit_gb "
-               "(ROADMAP Queue 1 item 8).")
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("config")
     p.add_argument("--work_dir")
     p.add_argument("--resume_from",
@@ -67,6 +70,11 @@ def parse_args(argv=None):
     p.add_argument("--validate", action="store_true",
                    help="score the val split after every epoch")
     p.add_argument("--val_max_images", type=int, default=500)
+    p.add_argument("--rss_limit_gb", type=float,
+                   help="at an epoch boundary with the host RSS past this "
+                   "many GB, checkpoint and re-exec with --resume_from "
+                   f"(default {RSS_LIMIT_GB:g}; <= 0 disables; off, and "
+                   "refused, in a data-parallel group)")
     p.add_argument("--device", default="cuda",
                    help="cuda, cuda:N or cpu; a data-parallel process "
                    "takes cuda:{ORP_LOCAL_RANK}")
@@ -86,13 +94,22 @@ def main(argv=None):
                                                   train_epochs)
     from orientedreppoints_tpu_torch.host import load_config
     from orientedreppoints_tpu_torch.parallel import dist
-    from orientedreppoints_tpu_torch.utils import checkpoint
+    from orientedreppoints_tpu_torch.utils import checkpoint, chunked
 
     device = resolve_device(args.device)
     if device.type == "cuda" and os.environ.get("ORP_COORDINATOR_ADDRESS"):
         device = resolve_device(f"cuda:{dist.local_rank()}")
     group = dist.init_from_env(device)
     rank = dist.rank(group)
+    rss_limit_gb = RSS_LIMIT_GB if args.rss_limit_gb is None \
+        else args.rss_limit_gb
+    if group is not None:
+        # one rank re-executing alone would leave the others waiting
+        if args.rss_limit_gb is not None and args.rss_limit_gb > 0:
+            dist.destroy(group)
+            raise SystemExit("--rss_limit_gb re-executes one process: a "
+                             "data-parallel group cannot use it")
+        rss_limit_gb = 0.0
     cfg = load_config(args.config)
     work_dir = args.work_dir or cfg.get("work_dir", "work_dirs/default")
     os.makedirs(work_dir, exist_ok=True)
@@ -141,11 +158,22 @@ def main(argv=None):
     with open(args.config) as f:
         meta = dict(config=f.read(), classes=list(dataset.CLASSES))
     canvas = tuple(tpu.get("canvas_buckets", [(1344, 1344)])[-1])
+    ckpt_dir = osp.join(work_dir, "ckpts")
 
     def epoch_done(reached, it):
         log.info("epoch %d done at iter %d", reached - 1, it)
-        if not args.validate:
-            return
+        if args.validate:
+            validate(reached)
+        if reached < total_epochs and not (args.max_iters
+                                           and it >= args.max_iters):
+            # the epoch's checkpoint is saved: nothing more to save
+            chunked.maybe_reexec(
+                rss_limit_gb, lambda: None,
+                lambda argv: chunked.argv_with_flags(
+                    argv, ensure_kv={"--resume_from": ckpt_dir}),
+                log=log.info)
+
+    def validate(reached):
         if rank == 0:  # on its own card: the others are the ranks'
             val_ds = build_dataset({**cfg["data"]["val"], "test_mode": True})
             results = run_inference(
@@ -160,7 +188,7 @@ def main(argv=None):
 
     try:
         it = train_epochs(model, loader, step, optimizer, scheduler,
-                          osp.join(work_dir, "ckpts"), total_epochs,
+                          ckpt_dir, total_epochs,
                           start_epoch=start_epoch, it=it,
                           max_iters=args.max_iters, meta=meta, log=log.info,
                           log_interval=args.log_interval,
