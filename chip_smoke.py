@@ -1,12 +1,14 @@
-"""Drive the PyTorch port's serving path, training step, TTA test path,
-evaluation path (easy and hard scenes, HRSC scoring), Swin-T, HRNet-W32
+"""Drive the PyTorch port's serving path (eager and exported), training
+step, TTA test path, evaluation path (easy and hard scenes, HRSC
+scoring), Swin-T, HRNet-W32
 and SSD-VGG16 serving and training, ResNeXt-50 serving, a torchvision
 backbone file loaded, the synthetic benchmark's training, plain and
 with the hard-aug recipe, real DOTA input (PNG scenes, the
 multi-scale prep, the test tool and training on the tiles), and data
 parallelism (serving sharded over two replicas, the training step as
-one- and two-process groups), corruption robustness, and a long run that
-re-executes itself, on one NVIDIA GPU.
+one- and two-process groups), corruption robustness, a long run that
+re-executes itself, horizontal-box NMS, the FLOP counter, the overfit
+sanity check and the profiler, on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -29,6 +31,11 @@ Phases, each printing one line or more (a failed phase exits non-zero):
      (grid_sample for the DCN kernels);
   2b. host: host.imrescale (cv2's uint8 resize) on the card equals the
      same call on the CPU at sizes that resize;
+  2c. hbb_nms: ops/nms.py's nms_hbb over 4096 seeded horizontal boxes
+     (clustered, scores tied in steps of 1/64, every tenth row invalid),
+     counted: the scan kernel keeps exactly what the plain scan keeps on
+     the card and the plain route on the CPU; soft_nms_hbb (linear and
+     gaussian) on the card as on the CPU; ms of each;
   3. slice: Predictor on configs/dota/orientedreppoints_r50_demo.py (R-50,
      canvas 1344^2, bf16, batch 4) over 8 seeded 1024^2 images, with seeded
      random weights perturbed so that the decode has thousands of
@@ -48,6 +55,16 @@ Phases, each printing one line or more (a failed phase exits non-zero):
      min-area tie, rect_check), and both NMS kernels checked and timed
      on that decode's own candidates (the top 4096 class-offset boxes an
      image);
+  4a. export: tools/export_model_torch.py's path on the slice phase's
+     model (its canvas, bf16, batch 4): torch.export through the four
+     serving kernels' custom ops, saved, loaded, and the slice phase's 8
+     images through ExportedProgram.module(), counted: det for det equal
+     to the eager module (the decode rule), the four kernels launched;
+     export, save and load seconds, the file's MB, images/s of both;
+  4b. profile: utils/collect_env's report; utils/profiling.trace around
+     one slice batch with annotate ranges around the forward and the
+     decode, both in the written trace; whether the ctypes-launched
+     kernels show among its CUDA events (read, not gated);
   5. tta: run_inference_tta with the multi-scale x flip recipe TTA_AUGS
      (scales 0.5, 1.0, 1.5, each on its own /32 canvas, x flip; R-50 bf16,
      batch 2) over 4 seeded 1024^2 images resized to fill the canvas: per
@@ -83,6 +100,13 @@ Phases, each printing one line or more (a failed phase exits non-zero):
      utils/checkpoint.load_pretrained_backbone; every backbone tensor equal
      to its source under torchvision's names, the neck and head untouched,
      one finite forward;
+  7h. flops: tools/get_flops_torch.py's count (FlopCounterMode) for the
+     R-50 demo and Swin-T configs at 1024^2 and 1344^2: params, forward
+     GFLOPs, the counter's seconds;
+  7i. sanity: tools/sanity_overfit_torch.py --backbone r18 at its
+     defaults (300 SGD steps on 4 seeded 256^2 scenes, then decode),
+     counted: SANITY PASS (the last loss below 0.7 x the first, recall@0.5
+     at least 0.5); the losses, recall and seconds;
   8. eval: tools/synth_benchmark.py's evaluation path without training:
      12 val scenes of 768^2 rendered and cut into 48 tiles of 512^2, the
      COCO-poly json, the dataset with configs/dota/synth_r18_512.py's test
@@ -204,7 +228,8 @@ Phases, each printing one line or more (a failed phase exits non-zero):
 Each counted run (slice, shard_infer, tta, iou_path, swin, hrnet,
 ssd_vgg, resnext, eval, robustness's settings, hard_eval's two, train,
 ddp's ranks, swin_train, hrnet_train, ssd_vgg_train, synth_train,
-hard_aug_train, dota_input's two, chunked's scoring) sets the launch
+hard_aug_train, dota_input's two, chunked's scoring, hbb_nms, export,
+sanity) sets the launch
 counts to 0 just before and reads them just after; it fails if a kernel
 of its path was not launched.  Then one JSON line
 with every kernel's numbers, the card's line from nvidia-smi, and
@@ -2060,6 +2085,7 @@ def phase_slice(dev, rng, ops_mod, card, config=CONFIG, phase="slice"):
         for t in ts)
     ok = (min(cand) >= 1000 and all(launches[k] > 0 for k in SERVING_KERNELS)
           and finite and min(kept) > 0 and len(out) == N_IMAGES)
+    pred.images = images  # for the export and profile phases
     ips = [N_IMAGES / t for t in times]
     say(phase, config=config if isinstance(config, str)
         else config["model"]["backbone"], batch=BATCH, images=N_IMAGES,
@@ -2097,21 +2123,9 @@ def phase_decode(pred, outs, phase="decode"):
             dets, labels, valid = decode_detections(outs, **kw)
         with plain_decode():
             dets_p, labels_p, valid_p = decode_detections(outs, **kw)
-    same_valid = bool(torch.equal(valid, valid_p))
-    same_labels = same_valid and bool(torch.equal(labels[valid],
-                                                  labels_p[valid]))
-    err_pts = err_poly = err_score = float("inf")
-    ties, ties_ok = -1, False
-    if same_valid:
-        d, p = dets[valid], dets_p[valid]
-        err_pts = float((d[:, :18] - p[:, :18]).abs().max())
-        # a box the two rects of its (equal) points give differently must
-        # be a min-area tie (rect_check, as the kernel phases hold them)
-        err_poly, ties, ties_ok = rect_check(d[:, 18:26], p[:, 18:26],
-                                             d[:, :18])
-        err_score = float((d[:, 26] - p[:, 26]).abs().max())
-    ok = (same_labels and err_pts == 0.0 and err_score == 0.0 and ties_ok
-          and err_poly <= RECT_TOL and len(overs) == len(scans) == 1)
+    agree = decode_agreement((dets, labels, valid), (dets_p, labels_p,
+                                                     valid_p))
+    ok = agree["ok"] and len(overs) == len(scans) == 1
     # both NMS kernels on this batch's own candidates (the top 4096
     # class-offset boxes an image), bit for bit and timed
     (q, thr, nv), _, _ = overs[0]
@@ -2125,11 +2139,34 @@ def phase_decode(pred, outs, phase="decode"):
         say("kernel_shape", name=name, shape=f"{phase}_candidates",
             batch=int(q.shape[0]), n=int(q.shape[1]),
             num_valid=nv.tolist(), **line)
-    say(phase, dets=int(valid.sum()), same_valid=same_valid,
-        same_labels=same_labels, max_err_reppoints=err_pts,
-        max_err_poly_px=err_poly, rect_ties=ties, max_err_score=err_score,
-        ok=ok)
+    agree.pop("ok")
+    say(phase, dets=int(valid.sum()), **agree, ok=ok)
     return ok
+
+
+def decode_agreement(got, want) -> dict:
+    """Two decode_detections results det for det: the same valid slots and
+    labels, reppoints and scores exactly, and a box that differs only as a
+    min-area tie of its (equal) points (rect_check, as the kernel phases
+    hold them)."""
+    dets, labels, valid = got
+    dets_p, labels_p, valid_p = want
+    same_valid = bool(torch.equal(valid, valid_p))
+    same_labels = same_valid and bool(torch.equal(labels[valid],
+                                                  labels_p[valid]))
+    err_pts = err_poly = err_score = float("inf")
+    ties, ties_ok = -1, False
+    if same_valid:
+        d, p = dets[valid], dets_p[valid]
+        err_pts = float((d[:, :18] - p[:, :18]).abs().max())
+        err_poly, ties, ties_ok = rect_check(d[:, 18:26], p[:, 18:26],
+                                             d[:, :18])
+        err_score = float((d[:, 26] - p[:, 26]).abs().max())
+    ok = (same_labels and err_pts == 0.0 and err_score == 0.0 and ties_ok
+          and err_poly <= RECT_TOL)
+    return dict(same_valid=same_valid, same_labels=same_labels,
+                max_err_reppoints=err_pts, max_err_poly_px=err_poly,
+                rect_ties=ties, max_err_score=err_score, ok=ok)
 
 
 def phase_dcn(pred, rng, phase):
@@ -4087,6 +4124,247 @@ def phase_chunked(dev, ops_mod, card):
     return ok, launches
 
 
+# ---------------------------------------------------------------------------
+# hbb_nms, export, profile, flops, sanity
+# ---------------------------------------------------------------------------
+
+HBB_N = 4096  # horizontal boxes of the hbb_nms phase
+HBB_THR = 0.5
+HBB_REPS = 5
+EXPORT_BATCH = BATCH  # the slice phase's batch and canvas
+EXPORT_REPS = 3
+FLOPS_CASES = ((CONFIG, (1024, 1024)), (CONFIG, (1344, 1344)),
+               (SWIN_CONFIG, (1024, 1024)), (SWIN_CONFIG, (1344, 1344)))
+# the four serving kernels' __global__ functions (csrc/*.cu), looked for
+# among the trace's CUDA events
+TRACE_KERNELS = {"min_area_rect": "mar_kernel",
+                 "quad_over_mask": "quad_over_kernel",
+                 "nms_scan": "nms_scan_kernel",
+                 "deform_sample_pair": "deform_sample_pair_kernel"}
+TRACE_RANGES = ("orp_forward", "orp_decode")
+
+
+def hbb_boxes(rng, n):
+    """n seeded x1y1x2y2 boxes in clusters (so that many overlap), scores
+    in steps of 1/64 (so that many tie), every tenth row invalid."""
+    centres = rng.uniform(0, 1024, (n // 16, 2)).repeat(16, 0)[:n]
+    xy = centres + rng.normal(0, 12, (n, 2))
+    wh = rng.uniform(8, 96, (n, 2))
+    boxes = np.concatenate([xy - wh / 2, xy + wh / 2], 1).astype(np.float32)
+    scores = (rng.integers(1, 64, n) / 64.0).astype(np.float32)
+    valid = np.arange(n) % 10 != 9
+    return boxes, scores, valid
+
+
+def host_ms(fn, reps: int) -> list:
+    """Host-clock ms of each of reps calls, each ended by a synchronize."""
+    out = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def phase_hbb_nms(dev, rng, ops_mod):
+    """nms_hbb over HBB_N seeded boxes with tied scores and invalid rows,
+    counted: its scan on the card keeps exactly what the plain scan keeps
+    on the card, and what the whole plain route keeps on the CPU;
+    soft_nms_hbb, linear and gaussian, on the card as on the CPU (linear's
+    scores exactly, gaussian's within 1e-6: the card's exp); the ms of
+    each."""
+    from orientedreppoints_tpu_torch.ops import nms
+
+    boxes, scores, valid = hbb_boxes(rng, HBB_N)
+    cpu = [torch.from_numpy(a) for a in (boxes, scores, valid)]
+    b, s, v = (t.to(dev) for t in cpu)
+    nms.nms_hbb(b, s, HBB_THR, v)  # warm-up
+    torch.cuda.synchronize()
+    ops_mod.reset_launch_counts()
+    keep = nms.nms_hbb(b, s, HBB_THR, v)
+    torch.cuda.synchronize()
+    launches = ops_mod.launch_counts()
+    with swapped([(nms, "greedy_scan", nms.greedy_scan_plain)]):
+        keep_plain = nms.nms_hbb(b, s, HBB_THR, v)
+    keep_cpu = nms.nms_hbb(*cpu[:2], HBB_THR, cpu[2])
+    ms = host_ms(lambda: nms.nms_hbb(b, s, HBB_THR, v), HBB_REPS)
+    ok = (launches["nms_scan"] == 1 and torch.equal(keep, keep_plain)
+          and torch.equal(keep.cpu(), keep_cpu)
+          and not bool(keep[~v].any()) and 0 < int(keep.sum()) < int(v.sum()))
+    soft = {}
+    for method, tol in (("linear", 0.0), ("gaussian", 1e-6)):
+        got_s, got_k = nms.soft_nms_hbb(b, s, method=method, valid=v)
+        want_s, want_k = nms.soft_nms_hbb(*cpu[:2], method=method,
+                                          valid=cpu[2])
+        err = float((got_s.cpu() - want_s).abs().max())
+        same = torch.equal(got_k.cpu(), want_k) and err <= tol
+        ok &= same
+        soft[method] = dict(kept=int(got_k.sum()), max_err_score=err,
+                            equal=same, ms=host_ms(lambda: nms.soft_nms_hbb(
+                                b, s, method=method, valid=v), 1)[0])
+    say("hbb_nms", n=HBB_N, valid=int(v.sum()), iou_thr=HBB_THR,
+        kept=int(keep.sum()), same_as_plain_scan=torch.equal(keep,
+                                                             keep_plain),
+        same_as_cpu=torch.equal(keep.cpu(), keep_cpu),
+        launches=launches, ms_median=statistics.median(ms), ms=ms,
+        soft_nms_hbb=soft, ok=ok)
+    return ok, launches
+
+
+def canvases(pred, images):
+    """The Predictor's (canvases, scale factors) of each batch of images."""
+    return [pred.prepare(images[lo:lo + pred.batch_size])
+            for lo in range(0, len(images), pred.batch_size)]
+
+
+def phase_export(pred, images, ops_mod, card):
+    """tools/export_model_torch.py's path on the slice phase's model (R-50
+    demo, bf16) at its canvas and batch: export, save, load, then the slice
+    phase's images through ExportedProgram.module(), counted; det for det
+    equal to the eager module (decode_agreement), the four serving kernels
+    launched by the exported program; export seconds, the file's MB and
+    images/s of both."""
+    tool = load_tool("export_model_torch")
+    module = tool.inference_module(pred.model, pred.test_cfg)
+    canvas = tuple(pred.cfg["tpu"]["canvas_buckets"][-1])
+    t0 = time.perf_counter()
+    program = tool.export(module, EXPORT_BATCH, canvas, pred.device)
+    export_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as wd:
+        path = os.path.join(wd, "r50_demo.pt2")
+        t0 = time.perf_counter()
+        size = tool.save(program, path)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded = torch.export.load(path).module()
+        load_s = time.perf_counter() - t0
+    batches = [imgs for imgs, _ in canvases(pred, images)]
+    with torch.no_grad():
+        loaded(batches[0])  # warm-up
+        torch.cuda.synchronize()
+        ops_mod.reset_launch_counts()
+        got = [loaded(x) for x in batches]
+        torch.cuda.synchronize()
+        launches = ops_mod.launch_counts()
+        want = [module(x) for x in batches]
+        agree = [decode_agreement(g, w) for g, w in zip(got, want)]
+        ips = {}
+        for name, fn in (("exported", loaded), ("eager", module)):
+            ips[name] = [len(images) / (t / 1e3) for t in host_ms(
+                lambda: [fn(x) for x in batches], EXPORT_REPS)]
+    ok = (all(a["ok"] for a in agree)
+          and all(launches[k] > 0 for k in SERVING_KERNELS))
+    say("export", config=CONFIG, batch=EXPORT_BATCH, canvas=list(canvas),
+        dtype=str(pred.model.dtype), export_s=export_s, save_s=save_s,
+        load_s=load_s,
+        file_mb=size / 1e6, dets=[int(g[2].sum()) for g in got],
+        agreement=agree,
+        launches=launches,
+        images_per_s_exported_median=statistics.median(ips["exported"]),
+        images_per_s_eager_median=statistics.median(ips["eager"]),
+        images_per_s=ips, card=card, ok=ok)
+    return ok, launches
+
+
+def trace_reading(path: str) -> tuple[set, dict]:
+    """(the TRACE_RANGES named in the trace, {kernel: CUDA kernel events
+    named after its __global__ function})."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    ranges = {e.get("name") for e in events} & set(TRACE_RANGES)
+    kernels = {k: sum(1 for e in events if e.get("cat") == "kernel"
+                      and fn in e.get("name", ""))
+               for k, fn in TRACE_KERNELS.items()}
+    return ranges, kernels
+
+
+def phase_profile(pred, images):
+    """utils/collect_env's report, then utils/profiling.trace around one
+    slice batch with annotate ranges around the forward and the decode:
+    the written trace must hold both ranges; whether each serving kernel's
+    launches (ctypes, the library's own CUDA runtime) show among its CUDA
+    events is read, not gated; profile_time's line."""
+    import logging
+
+    from orientedreppoints_tpu_torch.models.detector import decode_detections
+    from orientedreppoints_tpu_torch.utils import profiling
+    from orientedreppoints_tpu_torch.utils.collect_env import collect_env
+
+    say("collect_env", **{k: str(v) for k, v in collect_env().items()})
+    tc = pred.test_cfg
+    imgs, sf = canvases(pred, images[:pred.batch_size])[0]
+    lines = []
+    handler = logging.Handler()
+    handler.emit = lambda record: lines.append(record.getMessage())
+    logger = logging.getLogger("chip_smoke.profile")
+    logger.addHandler(handler)
+    logger.setLevel(logging.INFO)
+    with tempfile.TemporaryDirectory() as wd, torch.inference_mode():
+        with profiling.trace(wd):
+            with profiling.profile_time("slice_batch", logger=logger):
+                with profiling.annotate(TRACE_RANGES[0]):
+                    outs = pred.model(imgs)
+                with profiling.annotate(TRACE_RANGES[1]):
+                    dets = decode_detections(
+                        outs, nms_pre=tc["nms_pre"],
+                        score_thr=tc["score_thr"],
+                        iou_thr=tc["nms"]["iou_thr"],
+                        max_per_img=tc["max_per_img"],
+                        pre_nms_cap=tc.get("pre_nms_cap", 4096),
+                        scale_factor=sf[:, None, None])
+            torch.cuda.synchronize()
+        ranges, kernels = trace_reading(os.path.join(wd, "trace.json"))
+    with torch.inference_mode(), profiling.profile_time(
+            "slice_batch_synced", stream=dets, logger=logger):
+        pred.model(imgs)
+    logger.removeHandler(handler)
+    ok = ranges == set(TRACE_RANGES) and len(lines) == 2
+    say("profile", ranges=sorted(ranges),
+        kernel_events_in_trace=kernels, profile_time_lines=lines, ok=ok)
+    return ok
+
+
+def phase_flops(dev, card):
+    """tools/get_flops_torch.py's count for the R-50 demo and Swin-T at
+    1024^2 and 1344^2 on the card: params, forward GFLOPs, the counted
+    forward's seconds."""
+    tool = load_tool("get_flops_torch")
+    ok, rows = True, []
+    for config, shape in FLOPS_CASES:
+        n_params, flops, secs = tool.count(config, shape, dev)
+        ok &= n_params > 0 and flops > 0
+        rows.append(dict(config=config, shape=list(shape),
+                         params_m=n_params / 1e6, gflops=flops / 1e9,
+                         counter_s=secs))
+        torch.cuda.empty_cache()
+    # the same model counts the same params at any shape, more FLOPs at more
+    # pixels
+    for a, b in zip(rows[0::2], rows[1::2]):
+        ok &= a["params_m"] == b["params_m"] and b["gflops"] > a["gflops"]
+    say("flops", cases=rows, card=card, ok=ok)
+    return ok
+
+
+def phase_sanity(dev, ops_mod, card):
+    """tools/sanity_overfit_torch.py --backbone r18 at its defaults (300
+    steps, 256^2, batch 4) on the card, counted: SANITY PASS; the first
+    and final loss, recall@0.5 and seconds."""
+    tool = load_tool("sanity_overfit_torch")
+    lines = []
+    ops_mod.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = tool.overfit(backbone="r18", device=dev, log=lines.append)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops_mod.launch_counts()
+    ok = bool(res.pop("ok")) and "SANITY PASS" in lines and all(
+        launches[k] > 0 for k in TRAIN_KERNELS + SERVING_KERNELS)
+    say("sanity", **res, wall_s=wall, lines=lines, launches=launches,
+        card=card, ok=ok)
+    return ok, launches
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--ddp_rank"]:
         return ddp_rank(sys.argv[2])
@@ -4127,9 +4405,15 @@ def main() -> int:
     quad_res, ok_entries = phase_quad_kernels(dev, rng_quad)
     kernels.update(quad_res)
     ok_host = phase_host(dev, rng_host)
+    ok_hbb, launches_hbb = phase_hbb_nms(dev, np.random.default_rng(SEED + 9),
+                                         ops_mod)
     ok_slice, launches, pred, outs = phase_slice(dev, rng, ops_mod, card)
     ok_decode = phase_decode(pred, outs)
     del outs
+    ok_export, launches_export = phase_export(pred, pred.images, ops_mod,
+                                              card)
+    ok_profile = phase_profile(pred, pred.images)
+    torch.cuda.empty_cache()
     ok_shard, launches_shard = phase_shard_infer(
         dev, np.random.default_rng(SEED + 8), ops_mod, card,
         pred.model.state_dict())
@@ -4160,6 +4444,9 @@ def main() -> int:
         del pred, outs
         torch.cuda.empty_cache()
     ok_more.append(phase_weights(dev, rng_resnext, card))
+    torch.cuda.empty_cache()
+    ok_flops = phase_flops(dev, card)
+    ok_sanity, launches_sanity = phase_sanity(dev, ops_mod, card)
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as eval_wd:
         ok_eval, launches_eval = phase_eval(dev, ops_mod, card, eval_wd)
@@ -4215,13 +4502,15 @@ def main() -> int:
     # that run it (serving, training, TTA, the IoU path, eval, Swin,
     # HRNet, SSD-VGG and ResNeXt serving, Swin, HRNet and SSD-VGG
     # training, the DOTA input's serving and training, the robustness
-    # settings, the chunked phase's scoring); the single-image
-    # over-mask is the TTA run's over-mask count
+    # settings, the chunked phase's scoring, nms_hbb's scan, the exported
+    # program, the sanity run); the single-image over-mask is the TTA
+    # run's over-mask count
     runs = (launches, launches_train, launches_tta, launches_iou,
             launches_eval, launches_hard, launches_hard_tta, launches_synth,
             launches_hard_aug, launches_swin, launches_swin_train,
             launches_dota, launches_dota_train, launches_shard, launches_ddp,
-            launches_robust, launches_chunked, *launches_more)
+            launches_robust, launches_chunked, launches_hbb, launches_export,
+            launches_sanity, *launches_more)
     single = (launches_tta, launches_hard_tta)  # the single-image entry
     counts = {name: sum(r[name] for r in runs) for name in ops_mod.KERNELS}
     counts["quad_over_mask"] = sum(
@@ -4241,7 +4530,8 @@ def main() -> int:
             and ok_host and ok_slice and ok_decode and ok_tta and ok_tta_check
             and ok_iou and ok_eval and ok_hard and ok_train and ok_check
             and ok_synth and ok_hard_aug and ok_dota and ok_robust
-            and ok_chunked
+            and ok_chunked and ok_hbb and ok_export and ok_profile
+            and ok_flops and ok_sanity
             and ok_swin and ok_swin_decode and ok_swin_train
             and ok_swin_check and ok_shard and ok_ddp and all(ok_more)):
         print("chip_smoke: a phase failed", file=sys.stderr)

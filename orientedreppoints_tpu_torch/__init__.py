@@ -16,15 +16,18 @@ names mirror it so each function has an obvious counterpart:
                libjpeg-turbo's lossy round trip in jpeg)
   devkit/      DOTA devkit in numpy: labelTxt, polygon IoU and NMS,
                ImgSplit at any rate, COCO-poly json, the DOTA and HRSC
-               prep, Task1 / mAOE evaluators, the merge (a spawn pool
-               over the class files)
+               prep, Task1 / Task2 / mAOE / UCAS-AOD evaluators, soft
+               polygon NMS, the merge (a spawn pool over the class
+               files)
   ops/         geometry, min-area-rect and hulls, hull-gt IoU, quad IoU
-               over-mask, rotated NMS, deformable conv (forward and
-               backward); each kernel beside its plain PyTorch version
+               over-mask, rotated and horizontal NMS, deformable conv
+               (forward and backward); each kernel beside its plain
+               PyTorch version, the serving ones as torch.library ops
   parallel/    the SGD / AdamW training step, sharded inference and the
                data-parallel process group
   utils/       flax -> torch weight conversion, checkpoints and weight
-               importers, the host-RSS re-exec of long runs (chunked)
+               importers, the host-RSS re-exec of long runs (chunked),
+               the environment report and profiling
   apis.py      init_detector, build_dataset, run_inference(_tta),
                evaluate_results, build_loss_config, build_img_norm
   serving.py   Predictor (one device)

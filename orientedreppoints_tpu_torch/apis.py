@@ -390,7 +390,8 @@ def train_epochs(model, loader, step, optimizer, scheduler, ckpt_dir: str,
     checkpoint ckpt_dir/epoch_N.pt (step count `it`, meta) after every
     ckpt_interval-th epoch and after the last epoch run.  log(line) every
     log_interval steps (the losses, LR, seconds so far and the loader's
-    share of them); on_step(epoch, losses, stats, batch) after each
+    share of them) and 'epoch E done in Xs' at each epoch's end, before its
+    checkpoint; on_step(epoch, losses, stats, batch) after each
     step, with stats as compute_losses fills them; on_epoch(epoch_reached,
     it) after each epoch's checkpoint.  With a data-parallel group only
     rank 0 logs and writes the checkpoints, and every rank waits at a
@@ -406,6 +407,7 @@ def train_epochs(model, loader, step, optimizer, scheduler, ckpt_dir: str,
     reached = start_epoch
     loader.epoch = start_epoch
     for epoch in range(start_epoch, stop_epoch):
+        t_ep = time.perf_counter()
         batches = iter(loader)
         try:
             while not (max_iters and it >= max_iters):
@@ -433,6 +435,8 @@ def train_epochs(model, loader, step, optimizer, scheduler, ckpt_dir: str,
                     on_step(epoch, losses, stats, batch)
         finally:
             batches.close()
+        if log:  # the JAX tool's line, which tools/analyze_logs reads
+            log(f"epoch {epoch} done in {time.perf_counter() - t_ep:.1f}s")
         reached = epoch + 1
         last = reached == stop_epoch or bool(max_iters and it >= max_iters)
         if reached % ckpt_interval == 0 or last:

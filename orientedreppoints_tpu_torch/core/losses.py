@@ -1,8 +1,9 @@
 """Training losses (counterpart of core/losses.py): sigmoid focal, convex
-GIoU with the reference's gradient filter, and the spatial-border penalty.
+GIoU with the reference's gradient filter, the spatial-border penalty and
+the plain convex IoU loss.
 
 All are masked and fixed-shape: rows of weight 0 are inert, and divisors
-are passed explicitly.  ``iou_loss`` is not ported yet (ROADMAP Queue 1).
+are passed explicitly.
 """
 
 from __future__ import annotations
@@ -10,7 +11,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ..ops.geometry import convex_giou, points_in_polygon
+from ..ops.geometry import convex_giou, convex_iou_aligned, points_in_polygon
 
 
 def sigmoid_focal_loss_elementwise(logits: torch.Tensor, labels: torch.Tensor,
@@ -97,3 +98,18 @@ def spatial_border_loss(pts, gt_quads, weight, loss_weight: float = 1.0,
     out_term = torch.where(outside, 0.2 * d, 0.0).sum() / torch.clamp(
         n_out, min=1)
     return loss_weight * out_term / (n_pos.to(pts.dtype) + 1e-6)
+
+
+def iou_loss(pred_pts, target_quads, weight, divisor,
+             loss_weight: float = 1.0, eps: float = 1e-6):
+    """-log(convex IoU) of each point set's hull with its gt quad, masked
+    mean (the reference IoULoss, iou_loss.py:14-62, of the original
+    RepPoints recipe; no config uses it): pred (M, 18), targets (M, 8),
+    weight (M,) -> loss_weight * sum(-log(max(iou, eps)) * weight) /
+    max(divisor, 1e-6), with plain autograd."""
+    ious = convex_iou_aligned(pred_pts, target_quads)
+    loss = -torch.log(torch.clamp(ious, min=eps))
+    divisor = torch.as_tensor(divisor, dtype=loss.dtype,
+                              device=loss.device)
+    return loss_weight * (loss * weight).sum() / torch.clamp(divisor,
+                                                             min=1e-6)

@@ -1,10 +1,11 @@
-"""Offline evaluators on DOTA files: Task1 oriented mAP and mAOE
-(counterpart of devkit/evaluation.py).
+"""Offline evaluators on DOTA files: Task1 oriented mAP, Task2
+horizontal mAP, mAOE and UCAS-AOD (counterpart of devkit/evaluation.py).
 
   * Task1 (DOTA_devkit/dota_evaluation_task1.py): VOC AP per class at IoU
     0.5 with the exact polygon IoU behind an axis-aligned prefilter,
     difficult gts ('1' or '2') out of npos and neither TP nor FP, greedy
     matching in confidence order;
+  * Task2 (dota_evaluation_task2.py): the same with the axis-aligned IoU;
   * mAOE (mAOE_evaluation.py:48-171): for every detection whose best gt
     IoU exceeds the threshold, |theta_det - theta_gt| * 57.32 degrees in
     the square-aware v3 angle convention, averaged per class, then over
@@ -100,8 +101,11 @@ def _hbb_iou_prefilter(gt_polys, det_poly):
 
 
 def voc_eval_poly(detpath: str, annopath: str, imagenames, classname: str,
-                  ovthresh: float = 0.5, use_07_metric: bool = False):
-    """Per-class oriented VOC evaluation -> (rec, prec, ap).
+                  ovthresh: float = 0.5, use_07_metric: bool = False,
+                  hbb: bool = False):
+    """Per-class oriented VOC evaluation -> (rec, prec, ap); with hbb the
+    overlap is the axis-aligned IoU of the polygons' boxes (+1 pixel
+    convention) with every gt, the DOTA Task2 evaluator's.
 
     detpath: format string with {:s} for the class name; annopath: format
     string with {:s} for the image name.
@@ -128,10 +132,15 @@ def voc_eval_poly(detpath: str, annopath: str, imagenames, classname: str,
         ovmax, jmax = -np.inf, -1
         gts = R["bbox"]
         if gts.size > 0:
-            cand = np.where(_hbb_iou_prefilter(gts, bb) > 0)[0]
-            overlaps = np.array(
-                [poly_iou(gts[j], bb) for j in cand], np.float64
-            )
+            hbb_ovr = _hbb_iou_prefilter(gts, bb)
+            if hbb:
+                overlaps = hbb_ovr
+                cand = np.arange(len(gts))
+            else:
+                cand = np.where(hbb_ovr > 0)[0]
+                overlaps = np.array(
+                    [poly_iou(gts[j], bb) for j in cand], np.float64
+                )
             if len(cand) > 0 and overlaps.size > 0:
                 k = int(np.argmax(overlaps))
                 ovmax = overlaps[k]
@@ -163,6 +172,19 @@ def eval_dota_task1(detpath: str, annopath: str, imagesetfile_or_names,
         _, _, ap = voc_eval_poly(
             detpath, annopath, imagenames, c, ovthresh, use_07_metric
         )
+        aps[c] = ap
+    return float(np.mean(list(aps.values()))), aps
+
+
+def eval_dota_task2(detpath: str, annopath: str, imagesetfile_or_names,
+                    classnames=util.DOTA10_CLASSES, ovthresh: float = 0.5,
+                    use_07_metric: bool = True):
+    """DOTA Task2 mAP over horizontal boxes -> (mAP, {class: ap})."""
+    imagenames = _imagenames(imagesetfile_or_names)
+    aps = {}
+    for c in classnames:
+        _, _, ap = voc_eval_poly(detpath, annopath, imagenames, c, ovthresh,
+                                 use_07_metric, hbb=True)
         aps[c] = ap
     return float(np.mean(list(aps.values()))), aps
 
@@ -227,6 +249,19 @@ def eval_hrsc2016_map(detpath: str, annopath: str, imagesetfile_or_names,
     _, _, ap = voc_eval_poly(detpath, annopath, names, "ship", ovthresh,
                              use_07_metric)
     return ap
+
+
+UCAS_AOD_CLASSES = ("car", "airplane")
+
+
+def eval_ucasaod(detpath: str, annopath: str, imagesetfile_or_names,
+                 ovthresh: float = 0.7, use_07_metric: bool = True):
+    """UCAS-AOD oriented mAP -> (mAP, {class: ap}): the Task1 evaluator
+    with the classes car and airplane, IoU 0.7 and the VOC-07 11-point
+    metric (ucasaod_evaluation.py:268-291)."""
+    return eval_dota_task1(detpath, annopath, imagesetfile_or_names,
+                           classnames=UCAS_AOD_CLASSES, ovthresh=ovthresh,
+                           use_07_metric=use_07_metric)
 
 
 def _imagenames(src):

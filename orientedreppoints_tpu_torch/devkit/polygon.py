@@ -1,6 +1,7 @@
 """Exact polygon geometry on the host in numpy (counterpart of
 devkit/polygon.py's numpy path, which replaces DOTA_devkit's polyiou and
-shapely): Sutherland-Hodgman clips, areas, IoU and greedy polygon NMS."""
+shapely): Sutherland-Hodgman clips, areas, IoU, and greedy and soft
+polygon NMS."""
 
 from __future__ import annotations
 
@@ -152,3 +153,39 @@ def poly_nms(dets: np.ndarray, thresh: float) -> list[int]:
             hbb_ovr[j] = poly_iou(obbs[i], obbs[rest[j]])
         order = rest[np.where(hbb_ovr <= thresh)[0]]
     return keep
+
+
+def soft_poly_nms(dets: np.ndarray, iou_thr: float, method: str = "linear",
+                  sigma: float = 0.5, min_score: float = 1e-3):
+    """Soft rotated NMS on the host (the reference CPU soft_rnms,
+    nms_wrapper.py:120-175): take the best live score, then decay every
+    other live score by its exact IoU with that box -- linear: s *= 1 - iou
+    where iou > iou_thr; gaussian: s *= exp(-iou^2 / sigma); any other
+    method ('original'): s = 0 where iou > iou_thr -- and drop the boxes
+    that fall below min_score.
+
+    dets: (n, 9) [poly(8), score] -> (kept dets (k, 9) with their decayed
+    scores, in pick order; their indices (k,))."""
+    dets = np.asarray(dets, np.float64).copy()
+    n = len(dets)
+    keep_dets, keep_inds = [], []
+    scores = dets[:, 8].copy()
+    alive = np.ones(n, bool)
+    while alive.any():
+        live = np.where(alive)[0]
+        i = live[np.argmax(scores[live])]
+        keep_dets.append(np.concatenate([dets[i, :8], [scores[i]]]))
+        keep_inds.append(int(i))
+        alive[i] = False
+        for j in np.where(alive)[0]:
+            iou = poly_iou(dets[i, :8], dets[j, :8])
+            if method == "linear":
+                if iou > iou_thr:
+                    scores[j] *= 1.0 - iou
+            elif method == "gaussian":
+                scores[j] *= np.exp(-(iou * iou) / sigma)
+            elif iou > iou_thr:
+                scores[j] = 0.0
+            if scores[j] < min_score:
+                alive[j] = False
+    return np.asarray(keep_dets).reshape(-1, 9), np.asarray(keep_inds)

@@ -64,15 +64,26 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+def _lib_path() -> Path:
+    """Where the library of this hash of sources, headers and flags lives."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh")):
+        h.update(src.name.encode() + src.read_bytes())
+    return BUILD_ROOT / h.hexdigest()[:16] / "liborp_kernels.so"
+
+
+def built_path() -> Path | None:
+    """The built library of the current sources, or None; builds nothing."""
+    path = _lib_path()
+    return path if path.exists() else None
+
+
 def build() -> tuple[Path, float]:
     """Compile csrc/*.cu unless this hash of sources, headers and flags is
     built.  Returns (library path, seconds spent compiling)."""
     sources = sorted(CSRC.glob("*.cu"))
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources + sorted(CSRC.glob("*.cuh")):
-        h.update(src.name.encode() + src.read_bytes())
-    out_dir = BUILD_ROOT / h.hexdigest()[:16]
-    lib_path = out_dir / "liborp_kernels.so"
+    lib_path = _lib_path()
+    out_dir = lib_path.parent
     if lib_path.exists():
         return lib_path, 0.0
     out_dir.mkdir(parents=True, exist_ok=True)

@@ -9,10 +9,11 @@ its (K*C, Cout) weight.  Offsets are (dy, dx) pairs per kernel position,
 relative to the base grid; coordinates are f32 whatever the table dtype,
 and corners outside the map read zero.
 
-``deform_sample_pair`` runs the CUDA kernel (csrc/deform_sample.cu: one
-warp a row, 16-byte chunks of channels, or a scalar loop where C does not
-split into them; the same bits as the plain version) for CUDA tensors and
-the plain PyTorch gather + lerp for CPU tensors; its
+``deform_sample_pair`` (the custom op orp::deform_sample_pair) runs the
+CUDA kernel (csrc/deform_sample.cu: one warp a row, 16-byte chunks of
+channels, or a scalar loop where C does not split into them; the same bits
+as the plain version) for CUDA tensors and the plain PyTorch gather + lerp
+for CPU tensors; its
 backward ``deform_sample_pair_backward`` likewise runs
 csrc/deform_sample_bwd.cu or the plain scatter.  ``DeformSamplePair`` is the
 whole paired DCN as one autograd node over (table_a, table_b, offsets,
@@ -112,12 +113,38 @@ def deform_sample_pair_plain(table_a, table_b, offsets, shapes,
 def deform_sample_pair(table_a: torch.Tensor, table_b: torch.Tensor,
                        offsets: torch.Tensor, shapes, kernel_size: int = 3):
     """(rows, C) tables + (rows, 2K) offsets -> two (rows, K*C) im2col
-    buffers in the table dtype.  shapes: per-level (B, H, W)."""
-    if table_a.device.type == "cpu":
-        return deform_sample_pair_plain(table_a, table_b, offsets, shapes,
-                                        kernel_size)
-    return deform_sample_pair_kernel(table_a, table_b, offsets, shapes,
-                                     kernel_size)
+    buffers in the table dtype.  shapes: per-level (B, H, W).  The custom
+    op orp::deform_sample_pair, which takes the shapes flat."""
+    flat = [int(v) for shape in shapes for v in shape]
+    return _deform_sample_pair_op(table_a, table_b, offsets, flat,
+                                  kernel_size)
+
+
+def _levels(flat):
+    return [tuple(flat[i:i + 3]) for i in range(0, len(flat), 3)]
+
+
+@torch.library.custom_op("orp::deform_sample_pair", mutates_args=(),
+                         device_types="cpu")
+def _deform_sample_pair_op(table_a: torch.Tensor, table_b: torch.Tensor,
+                           offsets: torch.Tensor, shapes: list[int],
+                           kernel_size: int) -> tuple[torch.Tensor,
+                                                      torch.Tensor]:
+    return deform_sample_pair_plain(table_a, table_b, offsets,
+                                    _levels(shapes), kernel_size)
+
+
+@_deform_sample_pair_op.register_kernel("cuda")
+def _(table_a, table_b, offsets, shapes, kernel_size):
+    return deform_sample_pair_kernel(table_a, table_b, offsets,
+                                     _levels(shapes), kernel_size)
+
+
+@_deform_sample_pair_op.register_fake
+def _(table_a, table_b, offsets, shapes, kernel_size):
+    k = kernel_size * kernel_size
+    out = (table_a.shape[0], k * table_a.shape[1])
+    return table_a.new_empty(out), table_b.new_empty(out)
 
 
 def deform_sample_pair_kernel(table_a, table_b, offsets, shapes,

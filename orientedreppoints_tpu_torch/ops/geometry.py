@@ -220,10 +220,9 @@ def clip_convex_by_quad(verts, count, quad, out_cap: int | None = None):
     return verts, count
 
 
-def convex_giou(points: torch.Tensor, gt_quads: torch.Tensor):
-    """Aligned GIoU of the hull of each point set with its gt quad:
-    points (n, 18), gt_quads (n, 8) -> (n,).  GIoU = IoU - (C - U) / C with
-    C the area of the hull of all 13 points; differentiable in points."""
+def _aligned_overlap(points: torch.Tensor, gt_quads: torch.Tensor):
+    """(points, quads) shifted by each quad's mean, the intersection of
+    each point set's hull with its quad, and their union."""
     pts = points.reshape(points.shape[0], -1, 2).to(torch.float32)
     quad = gt_quads.reshape(-1, 4, 2).to(torch.float32)
     shift = quad.mean(1, keepdim=True)
@@ -234,7 +233,22 @@ def convex_giou(points: torch.Tensor, gt_quads: torch.Tensor):
     area_q = polygon_area(quad)
     clipped, ccount = clip_convex_by_quad(hull, hcount, quad)
     inter = polygon_area(clipped, ccount)
-    union = area_p + area_q - inter
+    return pts, quad, inter, area_p + area_q - inter
+
+
+def convex_iou_aligned(points: torch.Tensor, gt_quads: torch.Tensor):
+    """Aligned IoU of the hull of each point set with its gt quad: points
+    (n, 18), gt_quads (n, 8) -> (n,); differentiable in points (the JAX
+    package's vmapped convex_iou_single)."""
+    _, _, inter, union = _aligned_overlap(points, gt_quads)
+    return inter / torch.clamp(union, min=_EPS)
+
+
+def convex_giou(points: torch.Tensor, gt_quads: torch.Tensor):
+    """Aligned GIoU of the hull of each point set with its gt quad:
+    points (n, 18), gt_quads (n, 8) -> (n,).  GIoU = IoU - (C - U) / C with
+    C the area of the hull of all 13 points; differentiable in points."""
+    pts, quad, inter, union = _aligned_overlap(points, gt_quads)
     ehull, _, ecount = convex_hull(torch.cat([pts, quad], 1))
     c_area = polygon_area(ehull, ecount)
     iou = inter / torch.clamp(union, min=_EPS)

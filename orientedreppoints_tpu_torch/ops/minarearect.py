@@ -2,12 +2,14 @@
 ops/pallas_minarearect.py: ``min_area_rect_pallas`` and
 ``convex_hull_pallas``, two outputs of one kernel).
 
-``min_area_rect`` and ``convex_hull_entry`` run the CUDA kernel
+``min_area_rect`` and ``convex_hull_entry`` call the custom ops
+``orp::min_area_rect`` and ``orp::convex_hull``: the CUDA kernel
 (csrc/minarearect.cu) for CUDA tensors and a plain PyTorch version for CPU
-tensors: geometry.min_area_rect for the rects, convex_hull_plain for the
-hulls.  The hull feeds the assigner's IoU, which is compared for exact
-equality, so convex_hull_plain rounds as the kernel does: the centroid is
-summed point by point, and every hull vertex is written as (p - c) + c.
+tensors (geometry.min_area_rect for the rects, convex_hull_plain for the
+hulls), chosen by the dispatcher from the tensor's device.  The hull feeds
+the assigner's IoU, which is compared for exact equality, so
+convex_hull_plain rounds as the kernel does: the centroid is summed point
+by point, and every hull vertex is written as (p - c) + c.
 """
 
 from __future__ import annotations
@@ -20,11 +22,21 @@ from .geometry import min_area_rect as min_area_rect_plain
 K = 9
 
 
+@torch.library.custom_op("orp::min_area_rect", mutates_args=(),
+                         device_types="cpu")
 def min_area_rect(points: torch.Tensor) -> torch.Tensor:
     """(n, 18) float32 point sets -> (n, 8) rect corners."""
-    if points.device.type == "cpu":
-        return min_area_rect_plain(points)
+    return min_area_rect_plain(points)
+
+
+@min_area_rect.register_kernel("cuda")
+def _(points):
     return min_area_rect_kernel(points)[0]
+
+
+@min_area_rect.register_fake
+def _(points):
+    return points.new_empty((points.shape[0], 8), dtype=torch.float32)
 
 
 def min_area_rect_kernel(points: torch.Tensor):
@@ -43,13 +55,26 @@ def min_area_rect_kernel(points: torch.Tensor):
 min_area_rect_kernel.launches = 0
 
 
-def convex_hull_entry(points: torch.Tensor):
+@torch.library.custom_op("orp::convex_hull", mutates_args=(),
+                         device_types="cpu")
+def convex_hull_entry(points: torch.Tensor) -> tuple[torch.Tensor,
+                                                    torch.Tensor]:
     """(n, 18) float32 point sets -> (hull (n, 9, 2), count (n,) int32),
     the hull in gift-wrapping order from the min-x point, padded by
     repeating vertex 0."""
-    if points.device.type == "cpu":
-        return convex_hull_plain(points)
+    return convex_hull_plain(points)
+
+
+@convex_hull_entry.register_kernel("cuda")
+def _(points):
     return min_area_rect_kernel(points)[1:]
+
+
+@convex_hull_entry.register_fake
+def _(points):
+    n = points.shape[0]
+    return (points.new_empty((n, K, 2), dtype=torch.float32),
+            points.new_empty((n,), dtype=torch.int32))
 
 
 def convex_hull_plain(points: torch.Tensor):

@@ -1,5 +1,5 @@
-"""Rotated NMS: batched and single-image multiclass, greedy and soft
-(counterpart of ops/nms.py).
+"""Rotated NMS: batched and single-image multiclass, greedy and soft, and
+horizontal-box greedy and soft NMS (counterpart of ops/nms.py).
 
 The JAX package's TPU workarounds are not carried over: the blocked,
 unrolled fori_loop scan becomes one CUDA kernel over the bitmask
@@ -13,7 +13,8 @@ from __future__ import annotations
 import torch
 
 from . import _ext
-from .quad_iou import quad_iou_matrix, quad_over_mask, quad_over_matrix
+from .quad_iou import (_live, pack_bits, quad_iou_matrix, quad_over_mask,
+                       quad_over_matrix)
 
 _NEG = -1e9
 
@@ -41,6 +42,8 @@ def greedy_scan_plain(mask: torch.Tensor, valid: torch.Tensor,
     return valid & (bits == 0)
 
 
+@torch.library.custom_op("orp::greedy_scan", mutates_args=(),
+                         device_types="cpu")
 def greedy_scan(mask: torch.Tensor, valid: torch.Tensor,
                 num_valid: torch.Tensor) -> torch.Tensor:
     """Greedy suppression over score-sorted rows.
@@ -48,11 +51,20 @@ def greedy_scan(mask: torch.Tensor, valid: torch.Tensor,
     mask: (B, N, W) int64 bitmask from quad_over_mask (row i suppresses
     column j > i where its bit is set; bits at j <= i are 0, which the
     kernel relies on); valid: (B, N) bool;
-    num_valid: (B,) int32 valid-prefix lengths.  Returns keep (B, N) bool.
+    num_valid: (B,) int32 valid-prefix lengths.  Returns keep (B, N) bool:
+    the custom op orp::greedy_scan.
     """
-    if mask.device.type == "cpu":
-        return greedy_scan_plain(mask, valid, num_valid)
+    return greedy_scan_plain(mask, valid, num_valid)
+
+
+@greedy_scan.register_kernel("cuda")
+def _(mask, valid, num_valid):
     return greedy_scan_kernel(mask, valid, num_valid)
+
+
+@greedy_scan.register_fake
+def _(mask, valid, num_valid):
+    return valid.new_empty(valid.shape, dtype=torch.bool)
 
 
 def greedy_scan_kernel(mask, valid, num_valid):
@@ -223,5 +235,74 @@ def soft_rnms(quads: torch.Tensor, scores: torch.Tensor, iou_thr: float = 0.3,
                            device=quads.device)
     q = quads.to(torch.float32).contiguous()
     iou = quad_iou_matrix(q, q)
+    return _soft_suppress(iou, scores, valid, method, sigma, iou_thr,
+                          min_score, max_keep)
+
+
+def hbb_iou_matrix(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Pairwise IoU of horizontal boxes: a (N, 4), b (M, 4) x1y1x2y2 ->
+    (N, M) float32."""
+    return _hbb_iou(a, b, 0.0)
+
+
+def hbb_iou_matrix_legacy(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """hbb_iou_matrix in the reference CPU kernels' integer-pixel
+    convention: widths, heights and areas with +1 (nms_cpu.cpp:19,52-53).
+    Only nms_hbb and soft_nms_hbb use it."""
+    return _hbb_iou(a, b, 1.0)
+
+
+def _hbb_iou(a, b, one: float):
+    a, b = a.to(torch.float32), b.to(torch.float32)
+    lt = torch.maximum(a[:, None, :2], b[None, :, :2])
+    rb = torch.minimum(a[:, None, 2:], b[None, :, 2:])
+    wh = torch.clamp(rb - lt + one, min=0.0)  # + 0.0 is exact
+    inter = wh[..., 0] * wh[..., 1]
+    area_a = (a[:, 2] - a[:, 0] + one) * (a[:, 3] - a[:, 1] + one)
+    area_b = (b[:, 2] - b[:, 0] + one) * (b[:, 3] - b[:, 1] + one)
+    union = area_a[:, None] + area_b[None, :] - inter
+    return inter / torch.clamp(union, min=1e-9)
+
+
+def nms_hbb(boxes: torch.Tensor, scores: torch.Tensor, iou_thr: float,
+            valid: torch.Tensor | None = None) -> torch.Tensor:
+    """Greedy horizontal NMS (the reference nms_cpu.cpp): (N, 4) x1y1x2y2
+    boxes by descending (N,) score, the legacy +1-pixel IoU, suppression
+    at IoU >= iou_thr; invalid rows are never kept.  Returns keep (N,) bool
+    in the original order.
+
+    Equal scores are taken in descending index order, as the JAX package's
+    reversed ascending argsort takes them.  The IoU matrix and its packed
+    upper-triangle bits are plain PyTorch (XLA work in the JAX package);
+    the suppression is the scan's custom op (csrc/nms_scan.cu on CUDA)."""
+    n = boxes.shape[0]
+    if valid is None:
+        valid = torch.ones(n, dtype=torch.bool, device=boxes.device)
+    order = torch.argsort(torch.where(valid, scores, _NEG),
+                          stable=True).flip(0)
+    sboxes = boxes[order]
+    svalid = valid[order]
+    nv = svalid.sum(dtype=torch.int32).reshape(1)
+    rows = torch.arange(n, device=boxes.device)
+    over = (hbb_iou_matrix_legacy(sboxes, sboxes) >= iou_thr) & _live(
+        rows[:, None], rows[None, :], nv)
+    keep_sorted = greedy_scan(pack_bits(over)[None], svalid[None], nv)[0]
+    keep = torch.zeros(n, dtype=torch.bool, device=boxes.device)
+    keep[order] = keep_sorted
+    return keep
+
+
+def soft_nms_hbb(boxes: torch.Tensor, scores: torch.Tensor,
+                 iou_thr: float = 0.3, sigma: float = 0.5,
+                 min_score: float = 1e-3, method: str = "linear",
+                 valid: torch.Tensor | None = None,
+                 max_keep: int | None = None):
+    """Horizontal soft-NMS (the reference soft_nms entry, nms_cpu.cpp's
+    soft_nms kernel and its defaults) over the legacy +1-pixel IoU.
+    Returns (decayed scores (N,), keep (N,) bool) in the original order."""
+    if valid is None:
+        valid = torch.ones(boxes.shape[0], dtype=torch.bool,
+                           device=boxes.device)
+    iou = hbb_iou_matrix_legacy(boxes, boxes)
     return _soft_suppress(iou, scores, valid, method, sigma, iou_thr,
                           min_score, max_keep)

@@ -24,7 +24,8 @@ the same bits:
     single-image entry, a batch-1 launch.
 
 Each entry runs its CUDA kernel for CUDA tensors and the plain PyTorch
-version for CPU tensors.
+version for CPU tensors; the over-mask does so as the custom op
+orp::quad_over_mask, which torch.export keeps whole.
 """
 
 from __future__ import annotations
@@ -171,13 +172,25 @@ def quad_over_mask_plain(quads: torch.Tensor, iou_thr: float,
     return out
 
 
+@torch.library.custom_op("orp::quad_over_mask", mutates_args=(),
+                         device_types="cpu")
 def quad_over_mask(quads: torch.Tensor, iou_thr: float,
                    num_valid: torch.Tensor) -> torch.Tensor:
     """(B, N, 8) float32 score-sorted quads, (B,) int32 prefix lengths ->
-    (B, N, ceil(N/64)) int64 suppression bitmask."""
-    if quads.device.type == "cpu":
-        return quad_over_mask_plain(quads, iou_thr, num_valid)
+    (B, N, ceil(N/64)) int64 suppression bitmask: the custom op
+    orp::quad_over_mask."""
+    return quad_over_mask_plain(quads, iou_thr, num_valid)
+
+
+@quad_over_mask.register_kernel("cuda")
+def _(quads, iou_thr, num_valid):
     return quad_over_mask_kernel(quads, iou_thr, num_valid)
+
+
+@quad_over_mask.register_fake
+def _(quads, iou_thr, num_valid):
+    b, n = quads.shape[:2]
+    return quads.new_empty((b, n, (n + 63) // 64), dtype=torch.int64)
 
 
 def quad_over_matrix(quads: torch.Tensor, iou_thr: float, num_valid=None):

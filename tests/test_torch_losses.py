@@ -277,6 +277,28 @@ class TestGIoULoss:
         assert torch.equal(g1, g7)
 
 
+@pytest.mark.parametrize("seed, eps", [(10, 1e-6), (11, 1e-6), (12, 0.05)])
+def test_iou_loss_value_and_grad(seed, eps):
+    """-log(clip(convex IoU, eps)), plain autograd, at giou_loss's
+    tolerances; the disjoint rows sit at the clip (zero grad), and eps 0.05
+    clips some overlapping rows too."""
+    pts, quads, w = giou_case(seed)
+    div = int((w > 0).sum())
+    fn = lambda p: losses_ref.iou_loss(  # noqa: E731
+        p, jnp.asarray(quads), jnp.asarray(w), div, loss_weight=0.375,
+        eps=eps)
+    ref, ref_grad = jax.jit(jax.value_and_grad(fn))(pts)
+    p = torch.from_numpy(pts).requires_grad_(True)
+    loss = losses.iou_loss(p, torch.from_numpy(quads), torch.from_numpy(w),
+                           div, loss_weight=0.375, eps=eps)
+    loss.backward()
+    np.testing.assert_allclose(float(loss.detach()), float(ref), rtol=1e-5)
+    ref_grad = np.asarray(ref_grad)
+    assert np.all(ref_grad[4:8] == 0)  # disjoint: clipped
+    np.testing.assert_allclose(p.grad.numpy(), ref_grad, rtol=1e-3,
+                               atol=1e-6)
+
+
 def test_focal_loss_value_and_grad():
     rng = np.random.default_rng(12)
     logits = rng.normal(0, 2, (2, 50, 15)).astype(np.float32)

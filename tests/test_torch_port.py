@@ -3,7 +3,9 @@ a train step, TTA, soft-NMS, the evaluation path, the training data
 path: train pipeline, loader and checkpoint, Swin serving and an AdamW
 step, the hard and ship-only scenes, the HRSC labels, dataset and
 evaluators, the benchmark tool's modes, a batch of the hard-aug train
-pipeline, and a forward of HRNet, SSD-VGG and ResNeXt detectors); the
+pipeline, a forward of HRNet, SSD-VGG and ResNeXt detectors, horizontal
+NMS, the Task2 / UCAS-AOD evaluators, the IoU loss, collect_env,
+profiling, and every tools/*_torch.py imported); the
 train pipelines of every config with hard-aug
 steps build; the R-50 demo model's flax tree converts completely;
 CUDA-only entries raise without a GPU; CPU tensors never reach a
@@ -295,6 +297,44 @@ NO_JAX_SCRIPT = textwrap.dedent("""
         merge_by_poly(j("raw"), j("merged"), num_process=2)
         with open(j("merged", "Task1_plane.txt")) as f:
             assert f.read().count("\\n") == 1
+    # horizontal NMS, the extra evaluators, soft polygon NMS, DOTA2JSON,
+    # the IoU loss, collect_env, profiling, and every tools/*_torch.py
+    import importlib.util, glob
+    from orientedreppoints_tpu_torch.core.losses import iou_loss
+    from orientedreppoints_tpu_torch.devkit.dota2coco import (
+        generate_json_labels)
+    from orientedreppoints_tpu_torch.devkit.evaluation import (
+        eval_dota_task2, eval_ucasaod)
+    from orientedreppoints_tpu_torch.devkit.polygon import soft_poly_nms
+    from orientedreppoints_tpu_torch.ops.nms import nms_hbb, soft_nms_hbb
+    from orientedreppoints_tpu_torch.utils import profiling
+    from orientedreppoints_tpu_torch.utils.collect_env import env_info_str
+    hbb = torch.tensor([[0., 0, 9, 9], [1, 1, 10, 10], [30, 30, 40, 40]])
+    assert nms_hbb(hbb, torch.tensor([0.9, 0.8, 0.7]), 0.5).tolist() == [
+        True, False, True]
+    assert soft_nms_hbb(hbb, torch.tensor([0.9, 0.8, 0.7]))[1].all()
+    assert len(soft_poly_nms(quads, 0.3)[1]) == 2
+    assert float(iou_loss(torch.tensor([[0., 0] * 9]),
+                          torch.tensor([[0., 0, 4, 0, 4, 4, 0, 4]]),
+                          torch.ones(1), 1)) > 0
+    assert "PyTorch:" in env_info_str()
+    with tempfile.TemporaryDirectory() as wd, profiling.trace(wd):
+        with profiling.annotate("r"), profiling.profile_time("t"):
+            torch.ones(2).sum()
+    with tempfile.TemporaryDirectory() as wd:
+        j = lambda *p: os.path.join(wd, *p)
+        names = generate_synth_dota(j("raw"), 1, size=128, n_objects=3,
+                                    seed=4)
+        generate_json_labels(j("raw"), j("labels.json"))
+        det = j("Task1_{:s}.txt")
+        write_task1_results({names[0]: [quads] * 15}, DOTA10_CLASSES, wd)
+        anno = j("raw", "labelTxt", "{:s}.txt")
+        assert 0 <= eval_dota_task2(det, anno, names)[0] <= 1
+        assert eval_ucasaod(det, anno, names)[0] == 0
+    for path in sorted(glob.glob("tools/*_torch.py")):
+        spec = importlib.util.spec_from_file_location(
+            os.path.basename(path)[:-3], path)
+        spec.loader.exec_module(importlib.util.module_from_spec(spec))
     probe = ("[__import__('orientedreppoints_tpu_torch.devkit.result_merge'),"
              " sorted(m for m in __import__('sys').modules"
              " if m.split('.')[0] in ('torch', 'jax', 'cv2'))][1]")

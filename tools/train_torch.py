@@ -121,6 +121,9 @@ def main(argv=None):
             if rank == 0 else []),
         force=True)
     log = logging.getLogger("train")
+    from orientedreppoints_tpu_torch.utils.collect_env import env_info_str
+
+    log.info("Environment info:\n%s", env_info_str())
     if group is not None:
         log.info("data-parallel: %d processes, %s backend",
                  dist.world_size(group), "nccl" if device.type == "cuda"
