@@ -8,12 +8,14 @@ multi-scale prep, the test tool and training on the tiles), and data
 parallelism (serving sharded over two replicas, the training step as
 one- and two-process groups), corruption robustness, a long run that
 re-executes itself, horizontal-box NMS, the FLOP counter, the overfit
-sanity check and the profiler, on one NVIDIA GPU.
+sanity check, the profiler and the two visualisation tools, on one
+NVIDIA GPU.
 
     python3 chip_smoke.py
 
 Phases, each printing one line or more (a failed phase exits non-zero):
-  1. device: the card, its power limit, and the build of the CUDA kernels;
+  1. device: the card, its power limit, the build of the CUDA kernels and
+     of the host library of polygon IoUs (devkit/native.py, g++);
   2. kernels: each kernel against its plain PyTorch version on the card, at
      the shapes of the R-50 1344^2 batch-4 serving path (min-area rect with
      its hull output, also timed at the training step's three calls;
@@ -119,6 +121,9 @@ Phases, each printing one line or more (a failed phase exits non-zero):
      Task1 mAP (area) and mAOE (IoU 0.7) with each stage's seconds (random
      weights score near 0; not gated); the scene labels as detections
      score mAP 1 and mAOE 0; apis.evaluate_results gives a finite mAP;
+     the Task1 and mAOE scoring and evaluate_results again with their
+     polygon IoUs through the numpy poly_iou (the plain version) instead
+     of the host library: the same scores, both timed;
   8a. robustness: tools/test_robustness_torch.py's path in this process
      on the eval phase's first 24 tiles with its weights: the clean
      baseline, then the nine corruptions at severities 1, 3 and 5, each
@@ -128,6 +133,11 @@ Phases, each printing one line or more (a failed phase exits non-zero):
      det; a seeded 512^2 probe through the 27 settings with
      RandomState(7), each output's SHA-256 equal to CORRUPT_DIGESTS (the
      JAX package's cv2 bytes), each corruption's host ms on that tile;
+  8c. visual: tools/browse_dataset_torch.py (the train pipeline, seed
+     SEED) and tools/show_points_and_boxes_torch.py (on the card, counted)
+     on the eval phase's tiles and weights, VISUAL_IMAGES images each:
+     each PNG read back through data/image_io, gts and dets drawn, the
+     four serving kernels launched;
   8b. hard_eval: the hard benchmark (tools/synth_benchmark.py --hard) on
      4 val scenes (16 tiles) with configs/dota/synth_r18_512_hard.py's test
      pipeline and seeded weights: run_inference counted, and through the
@@ -161,9 +171,12 @@ Phases, each printing one line or more (a failed phase exits non-zero):
      peak memory and the launches a step (hull 1, rect 2, hull IoU 1, DCN
      forward and backward 1 each);
   10b. swin_train: the train phase on the Swin-T config: AdamW with its
-     no-decay set, nothing frozen, DropPath 0.2 drawing its masks from
-     (SEED, step) (22 masks a step, each one's dropped samples recorded
-     and the share reported), on the same batch;
+     no-decay set, nothing frozen, DropPath 0.2 drawing JAX's masks under
+     dropout_key(SEED, step) (22 masks a step, each one's dropped samples
+     recorded, the share and the masks that drop a sample a step
+     reported), on the same batch; the model's masks at three (seed,
+     step) pairs equal DROP_PATH_TABLE (computed with jax.random and
+     flax);
   10c. swin_train_check: the train_check phase on the Swin-T config: the
      same DropPath masks in both runs, then the same checks;
   10d. hrnet_train, hrnet_train_check, ssd_vgg_train, ssd_vgg_train_check:
@@ -216,7 +229,9 @@ Phases, each printing one line or more (a failed phase exits non-zero):
      loader (batch 2): finite losses, the loader's wait share, launches a
      step.  The test tool's Task1 files are merged twice, by the default
      pool (15 class files, 15 spawned workers) and in one process: byte
-     for byte, both timed;
+     for byte, both timed, their IoUs through the host library; poly_nms
+     on the largest class file's first scene (its first DOTA_NMS_CHECK
+     dets) keeps what the numpy IoU's loop keeps, both timed;
   14. chunked: tools/synth_benchmark_torch.py --train (R-18 of
      synth_r18_512.py, 2 scenes, a step an epoch) to epoch 3 as
      subprocesses: with --rss_limit_gb 0.001 two re-executions (the
@@ -229,7 +244,7 @@ Each counted run (slice, shard_infer, tta, iou_path, swin, hrnet,
 ssd_vgg, resnext, eval, robustness's settings, hard_eval's two, train,
 ddp's ranks, swin_train, hrnet_train, ssd_vgg_train, synth_train,
 hard_aug_train, dota_input's two, chunked's scoring, hbb_nms, export,
-sanity) sets the launch
+sanity, visual's show_points_and_boxes) sets the launch
 counts to 0 just before and reads them just after; it fails if a kernel
 of its path was not launched.  Then one JSON line
 with every kernel's numbers, the card's line from nvidia-smi, and
@@ -494,6 +509,37 @@ CORRUPT_DIGESTS = {
     "pixelate@5":
         "b9ed7dd6f0dbb583811d2bb656c79ea6887f06fb1ceabf2d9fbe131cc1e27748",
 }
+# phase dota_input: poly_nms through the host library against the numpy
+# loop on the largest class file's first scene, cut to this many dets
+DOTA_NMS_CHECK = 3000
+# phase swin_train: Swin-T's DropPath keep masks (SWIN_CONFIG, rate 0.2)
+# of a global batch of 8 under the JAX step's key fold_in(key(seed), step),
+# computed with jax.random.bernoulli on flax's make_rng keys
+# (flax.core.scope._fold_in_static of ("backbone", block, n)): per (seed,
+# step) one group of 8 samples (1 kept) a draw, in
+# SwinTransformer.drawing order (stage0_block1 attention, then MLP, ...)
+DROP_PATH_BATCH = 8
+DROP_PATH_TABLE = {
+    (0, 0): (
+        "11111111 11011111 11111111 11111101 10111111 10111111 "
+        "11111110 11111011 11110111 11011110 10111111 10111101 "
+        "11111011 11111111 11111101 11111111 10111110 10011101 "
+        "10101101 11111110 10111011 11111111"),
+    (0, 3): (
+        "11110111 11111111 11111111 11111111 11101111 11111111 "
+        "11011111 11111101 11111111 11110011 11111110 00111011 "
+        "00111111 11111111 11001011 10111111 11111111 11110111 "
+        "11111110 11111111 00011011 01111110"),
+    (7, 250): (
+        "11111111 11111111 11111111 11101111 11111111 11111111 "
+        "11111111 11111111 11111111 10110110 11111111 10111111 "
+        "11101111 11111111 11111111 01101111 01111110 10111111 "
+        "01111011 01110111 11111101 00111111"),
+}
+# phase visual: each tool's images, and show_points_and_boxes' threshold
+# (the eval weights' scores reach ~0.12: EVAL_BIAS)
+VISUAL_IMAGES = 4
+VISUAL_SCORE_THR = 0.05
 # phase chunked: tools/synth_benchmark_torch.py --train on EVAL_CONFIG, 2
 # train scenes (8 tiles: a step an epoch), to epoch 3, as subprocesses
 CHUNKED_TRAIN_SCENES = 2
@@ -1432,6 +1478,31 @@ def plain_merge():
     return swapped(merge_swaps())
 
 
+def numpy_iou():
+    """Route the host library's polygon IoUs (poly_nms, soft_poly_nms, the
+    Task1 / mAOE evaluators, evaluate_results) through the numpy
+    poly_iou, a pair at a time: the plain version."""
+    from orientedreppoints_tpu_torch import apis
+    from orientedreppoints_tpu_torch.devkit import evaluation, native, polygon
+
+    def quads(p):
+        return np.asarray(p, np.float64).reshape(-1, 8)
+
+    def pairs(p1, p2):
+        p1 = quads(p1)
+        p2 = np.broadcast_to(quads(p2), p1.shape)
+        return np.array([polygon.poly_iou(a, b) for a, b in zip(p1, p2)],
+                        np.float64)
+
+    def one_many(q, polys):
+        return np.array([polygon.poly_iou(q, b) for b in quads(polys)],
+                        np.float64)
+
+    return swapped([(native, "poly_iou_one_many", one_many),
+                    (evaluation, "poly_iou_pairs", pairs),
+                    (apis, "poly_iou_pairs", pairs)])
+
+
 def same_dets(a, b) -> tuple[bool, float, float]:
     """(labels equal, max poly error px, max score error) of two
     (dets, labels, valid) triples."""
@@ -1694,6 +1765,19 @@ def phase_eval(dev, ops_mod, card, wd):
         detpath, annopath, names, classnames=classnames, ovthresh=0.7,
         return_mod90=True)
     stage("eval_maoe_s")
+    # the same scoring through the numpy IoU, a pair at a time (before
+    # the host library): the same scores
+    with numpy_iou():
+        np_task1 = evaluation.eval_dota_task1(
+            detpath, annopath, names, classnames=classnames,
+            use_07_metric=False)
+        stage("eval_task1_numpy_s")
+        np_maoe = evaluation.eval_maoe(
+            detpath, annopath, names, classnames=classnames, ovthresh=0.7,
+            return_mod90=True)
+        stage("eval_maoe_numpy_s")
+    scores_equal = (same_scores(np_task1, (mAP, aps))
+                    and same_scores(np_maoe[:3], (mAOE, aoes, mod90)))
 
     # the oracle: each scene's labels as its detections, score 1, in
     # float64 (printed as labelTxt prints them)
@@ -1712,6 +1796,10 @@ def phase_eval(dev, ops_mod, card, wd):
     stage("oracle_s")
     tile_map, _ = apis.evaluate_results(results, ds)
     stage("evaluate_results_s")
+    with numpy_iou():
+        scores_equal &= same_scores(apis.evaluate_results(results, ds)[0],
+                                    tile_map)
+    stage("evaluate_results_numpy_s")
     dets_tiles = [sum(len(a) for a in per_class)
                   for per_class in results.values()]
     dets_merged = count_lines(path("task1_merged"))
@@ -1724,7 +1812,7 @@ def phase_eval(dev, ops_mod, card, wd):
     ok = (all(launches[k] > 0 for k in SERVING_KERNELS)
           and min(dets_tiles) > 0 and tiles == len(ds) and same
           and task1_equal and len(rects) == launches["min_area_rect"]
-          and all(r["ok"] for r in rects) and ok_oracle
+          and all(r["ok"] for r in rects) and ok_oracle and scores_equal
           and bool(np.isfinite([mAP, mAOE, mod90, tile_map]).all()))
     say("eval", config=EVAL_CONFIG, batch=EVAL_BATCH,
         dtype=cfg["tpu"]["compute_dtype"],
@@ -1741,10 +1829,82 @@ def phase_eval(dev, ops_mod, card, wd):
         min_area_rect_ties=sum(r["ties"] for r in rects),
         mAP=mAP, per_class_ap=aps, mAOE_deg=mAOE, per_class_aoe=aoes,
         mAOE_mod90_deg=mod90, oracle_mAP=o_map, oracle_mAOE_deg=o_maoe,
-        oracle_per_class_ap=o_aps, evaluate_results_mAP=tile_map, **secs,
-        card=card, ok=ok)
+        oracle_per_class_ap=o_aps, evaluate_results_mAP=tile_map,
+        scores_equal_numpy_iou=scores_equal, **secs, card=card, ok=ok)
     return ok, launches
 
+
+def same_scores(a, b) -> bool:
+    """Equal floats, NaN equal to NaN, through tuples and dicts."""
+    if isinstance(a, dict):
+        return isinstance(b, dict) and a.keys() == b.keys() and all(
+            same_scores(a[k], b[k]) for k in a)
+    if isinstance(a, tuple):
+        return len(a) == len(b) and all(map(same_scores, a, b))
+    return a == b or (np.isnan(a) and np.isnan(b))
+
+
+
+def phase_visual(dev, ops_mod, card, wd):
+    """tools/browse_dataset_torch.py and tools/show_points_and_boxes_torch
+    .py in this process on the eval phase's tiles (in wd) with EVAL_CONFIG
+    (R-18, bf16, canvas 512^2) and the eval phase's seeded weights from a
+    state dict file, VISUAL_IMAGES images each: the tiles through the
+    config's train pipeline (seed SEED) with their gts drawn, and the
+    test split through the model on the card at VISUAL_SCORE_THR,
+    counted; each PNG read back through data/image_io."""
+    from orientedreppoints_tpu_torch.data import image_io
+    from orientedreppoints_tpu_torch.utils import visualize
+
+    t_phase = time.perf_counter()
+    with open(EVAL_CONFIG) as f:
+        text = f.read()
+    for split in ("train", "test"):
+        text += (f"\ndata[{split!r}].update(ann_file="
+                 f"{os.path.join(wd, 'test.json')!r}, img_prefix="
+                 f"{os.path.join(wd, 'val_split', 'images')!r})\n")
+    config = os.path.join(wd, "visual.py")
+    with open(config, "w") as f:
+        f.write(text)
+    weights = os.path.join(wd, "visual_w.pt")
+    torch.save(perturbed_weights(np.random.default_rng(SEED + 5),
+                                 EVAL_CONFIG, EVAL_BIAS), weights)
+    out = {t: os.path.join(wd, t) for t in ("browse", "show")}
+    gts, dets, secs = [], [], {}
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()), wrapping(
+            visualize, "draw_gts", lambda a, kw, r: gts.append(len(a[1]))):
+        rc_browse = load_tool("browse_dataset_torch").main(
+            [config, "--split", "train", "--output-dir", out["browse"],
+             "--num", str(VISUAL_IMAGES), "--seed", str(SEED)])
+    secs["browse_s"] = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    ops_mod.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()), wrapping(
+            visualize, "draw_dets", lambda a, kw, r: dets.append(r)):
+        rc_show = load_tool("show_points_and_boxes_torch").main(
+            [config, "--checkpoint", weights, "--split", "test",
+             "--output-dir", out["show"], "--num", str(VISUAL_IMAGES),
+             "--score-thr", str(VISUAL_SCORE_THR), "--device", str(dev)])
+    torch.cuda.synchronize()
+    secs["show_s"] = time.perf_counter() - t0
+    launches = ops_mod.launch_counts()
+    files = {t: sorted(os.listdir(d)) for t, d in out.items()}
+    shapes = {t: [list(image_io.imread(os.path.join(out[t], f)).shape)
+                  for f in names] for t, names in files.items()}
+    ok = (rc_browse == rc_show == 0
+          and all(len(v) == VISUAL_IMAGES for v in files.values())
+          and all(len(sh) == 3 and sh[2] == 3 for v in shapes.values()
+                  for sh in v)
+          and len(gts) == len(dets) == VISUAL_IMAGES
+          and sum(gts) > 0 and sum(dets) > 0
+          and all(launches[k] > 0 for k in SERVING_KERNELS))
+    say("visual", config=EVAL_CONFIG, images=VISUAL_IMAGES,
+        score_thr=VISUAL_SCORE_THR, files=files, shapes=shapes,
+        gts_drawn=gts, dets_drawn=dets, launches=launches, **secs,
+        phase_s=time.perf_counter() - t_phase, card=card, ok=ok)
+    return ok, launches
 
 
 def hard_val_set(wd, n, hard, specs=None):
@@ -2312,10 +2472,24 @@ def counting_drop_path(draws: list):
     from orientedreppoints_tpu_torch.models import swin
 
     def on_call(args, kwargs, out):
-        y, rate, gen = args
-        if gen is not None and rate > 0:
+        y, rate, mask = args
+        if mask is not None and rate > 0:
             draws.append((out.reshape(out.shape[0], -1) == 0).all(1))
     return wrapping(swin, "drop_path", on_call)
+
+
+def drop_path_table(model) -> dict:
+    """The model's DropPath masks under dropout_key(seed, step) against
+    DROP_PATH_TABLE (JAX's): {"seed,step": equal}."""
+    from orientedreppoints_tpu_torch.parallel.train import dropout_key
+
+    out = {}
+    for (seed, step), want in DROP_PATH_TABLE.items():
+        got = model.backbone.drop_masks(dropout_key(seed, step),
+                                        DROP_PATH_BATCH)
+        out[f"{seed},{step}"] = " ".join(
+            "".join("1" if v else "0" for v in row) for row in got) == want
+    return out
 
 
 def dropped_share(draws: list) -> float:
@@ -2377,9 +2551,14 @@ def phase_train(dev, ops_mod, card, sd, batch, config=CONFIG,
     finite = all(np.isfinite(v) for r in records for k, v in r.items()
                  if not isinstance(v, list))
     # Swin: DropPath fires (Swin-T drops ~10% of samples on average: the
-    # mean of its rates); nothing is frozen
+    # mean of its rates) with JAX's masks; nothing is frozen
+    table = drop_path_table(model) if swin else {}
     fired = (len(draws) == TRAIN_STEPS * masks_per_step(model) > 0
-             and dropped_share(draws) > 0) if swin else not draws
+             and dropped_share(draws) > 0
+             and all(table.values())) if swin else not draws
+    per = masks_per_step(model)
+    dropping = [sum(bool(d.any()) for d in draws[i * per:(i + 1) * per])
+                for i in range(TRAIN_STEPS)] if swin else []
     ok = (finite and min(r["num_pos"] for r in records) > 0
           and max(max(r["refine_pos_per_image"]) for r in records) < n
           and min(min(r["iou_gt_0p1_share"]) for r in records) > 0
@@ -2396,6 +2575,8 @@ def phase_train(dev, ops_mod, card, sd, batch, config=CONFIG,
                            for k in TRAIN_KERNELS},
         drop_path_masks=len(draws),
         drop_path_dropped_share=dropped_share(draws),
+        drop_path_masks_dropping_per_step=dropping,
+        drop_path_table_equal_jax=table,
         frozen_tensors=n_frozen, frozen_unchanged=frozen_same,
         trainable_tensors=trainable, trainable_unchanged=unchanged,
         unchanged_zero_without_grad=unreached, finite=finite, card=card,
@@ -3121,7 +3302,10 @@ def phase_dota_input(dev, ops_mod, card):
     checked against its plain version), Task1 files of those tiles byte
     for byte; images/s with the PNG loading, the test pipeline's ms a
     tile alone, the merged files (the test tool's default pool, then one
-    process: byte for byte, both timed), and the val scene's labels as
+    process: byte for byte, both timed; their polygon IoUs through the
+    host library), poly_nms on the largest class file's first scene (its
+    first DOTA_NMS_CHECK dets) keeping exactly what the numpy IoU's loop
+    keeps, both timed, and the val scene's labels as
     detections scoring mAP 1 and mAOE 0; last DOTA_TRAIN_STEPS SGD steps of the config (batch
     TRAIN_BATCH) on the trainval tiles through its train pipeline and
     loader, every loss finite and each training kernel launched as often
@@ -3132,7 +3316,8 @@ def phase_dota_input(dev, ops_mod, card):
     from orientedreppoints_tpu_torch.data import image_io
     from orientedreppoints_tpu_torch.data.synth import SYNTH_CLASS_SPECS
     from orientedreppoints_tpu_torch.devkit import (dota_utils, evaluation,
-                                                    hrsc, img_split, prepare,
+                                                    hrsc, img_split, native,
+                                                    polygon, prepare,
                                                     result_merge)
     from orientedreppoints_tpu_torch.devkit.dota_utils import (
         DOTA10_CLASSES, parse_dota_poly, write_dota_poly)
@@ -3328,6 +3513,17 @@ def phase_dota_input(dev, ops_mod, card):
             os.listdir(path("merged_1"))) == task1_files and all(
             open(path("merged", f), "rb").read()
             == open(path("merged_1", f), "rb").read() for f in task1_files)
+        largest = max(task1_files, key=lambda f: os.path.getsize(
+            path("task1", f)))
+        nms_dets = first_scene_dets(path("task1", largest))[:DOTA_NMS_CHECK]
+        t0 = time.perf_counter()
+        keep_lib = polygon.poly_nms(nms_dets, result_merge.NMS_THRESH)
+        nms_lib_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        with numpy_iou():
+            keep_np = polygon.poly_nms(nms_dets, result_merge.NMS_THRESH)
+        nms_numpy_s = time.perf_counter() - t0
+        nms_equal = keep_lib == keep_np and 0 < len(keep_lib) < len(nms_dets)
         clock[0] = time.perf_counter()
         # the host's share: the test pipeline alone (PNG decode included)
         t0 = time.perf_counter()
@@ -3434,7 +3630,8 @@ def phase_dota_input(dev, ops_mod, card):
                 and np.isfinite(mAP) and merged_dets > 0)
     ok = (round_trip and bad == 0 and checked == sum(map(len, tiles.values()))
           and labels_equal and hrsc_ok and ok_serve and finite
-          and launches_ok and merge_equal and len(pool_s) == 1)
+          and launches_ok and merge_equal and len(pool_s) == 1
+          and nms_equal)
     waits, times = run["wait_s"], run["step_s"]
     say("dota_input", config=CONFIG, batch=BATCH,
         dtype=cfg["tpu"]["compute_dtype"],
@@ -3452,6 +3649,10 @@ def phase_dota_input(dev, ops_mod, card):
             file_s.items(), key=lambda kv: -kv[1])[:3]),
         cpu_affinity=len(os.sched_getaffinity(0)), cpu_quota=cpu_quota(),
         merge_byte_equal=merge_equal,
+        host_lib_build_s=native.build_seconds, nms_check_file=largest,
+        nms_check_dets=len(nms_dets), nms_check_kept=len(keep_lib),
+        nms_lib_s=nms_lib_s, nms_numpy_s=nms_numpy_s,
+        nms_equal_numpy=nms_equal,
         plain_equal_det_for_det=same, task1_byte_equal=task1_equal,
         min_area_rect_calls_checked=len(rects),
         min_area_rect_ties=sum(r["ties"] for r in rects),
@@ -3465,6 +3666,28 @@ def phase_dota_input(dev, ops_mod, card):
         min_area_rect_entry_calls_per_step=calls, finite=finite,
         phase_s=time.perf_counter() - t_phase, **secs, card=card, ok=ok)
     return ok, launches, train_launches
+
+
+def first_scene_dets(fn: str) -> np.ndarray:
+    """The (n, 9) dets of a Task1 file of tiles that belong to its first
+    line's scene, mapped into the scene as merge_single maps them."""
+    from orientedreppoints_tpu_torch.devkit import dota_utils
+
+    dets, scene = [], None
+    with open(fn) as f:
+        for line in f:
+            parts = line.split()
+            name, rate, left, up = dota_utils.parse_tile_name(parts[0])
+            scene = scene or name
+            if name != scene:
+                continue
+            poly = np.array([float(v) for v in parts[2:10]], np.float64)
+            row = np.empty(9, np.float64)
+            row[0:8:2] = (poly[0::2] + left) / rate
+            row[1:8:2] = (poly[1::2] + up) / rate
+            row[8] = float(parts[1])
+            dets.append(row)
+    return np.stack(dets)
 
 
 SHARD_BATCH = 4  # the sharded Predictor's batch: 2 a replica
@@ -4382,11 +4605,18 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
+    from orientedreppoints_tpu_torch.devkit import native
+
     t0 = time.perf_counter()
     _ext.lib()
+    load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    native.lib()
     say("device", name=torch.cuda.get_device_name(0), card=card,
         torch=torch.__version__, cuda=torch.version.cuda,
-        build_s=_ext.build_seconds, load_s=time.perf_counter() - t0)
+        build_s=_ext.build_seconds, load_s=load_s,
+        host_lib_build_s=native.build_seconds,
+        host_lib_load_s=time.perf_counter() - t0)
 
     torch.manual_seed(SEED)
     rng = np.random.default_rng(SEED)
@@ -4453,6 +4683,9 @@ def main() -> int:
         torch.cuda.empty_cache()
         ok_robust, launches_robust = phase_robustness(dev, ops_mod, card,
                                                       eval_wd)
+        torch.cuda.empty_cache()
+        ok_visual, launches_visual = phase_visual(dev, ops_mod, card,
+                                                  eval_wd)
     torch.cuda.empty_cache()
     ok_hard, launches_hard, launches_hard_tta = phase_hard_eval(dev, ops_mod,
                                                                 card)
@@ -4503,14 +4736,15 @@ def main() -> int:
     # HRNet, SSD-VGG and ResNeXt serving, Swin, HRNet and SSD-VGG
     # training, the DOTA input's serving and training, the robustness
     # settings, the chunked phase's scoring, nms_hbb's scan, the exported
-    # program, the sanity run); the single-image over-mask is the TTA
+    # program, the sanity run, show_points_and_boxes); the single-image
+    # over-mask is the TTA
     # run's over-mask count
     runs = (launches, launches_train, launches_tta, launches_iou,
             launches_eval, launches_hard, launches_hard_tta, launches_synth,
             launches_hard_aug, launches_swin, launches_swin_train,
             launches_dota, launches_dota_train, launches_shard, launches_ddp,
             launches_robust, launches_chunked, launches_hbb, launches_export,
-            launches_sanity, *launches_more)
+            launches_sanity, launches_visual, *launches_more)
     single = (launches_tta, launches_hard_tta)  # the single-image entry
     counts = {name: sum(r[name] for r in runs) for name in ops_mod.KERNELS}
     counts["quad_over_mask"] = sum(
@@ -4531,7 +4765,7 @@ def main() -> int:
             and ok_iou and ok_eval and ok_hard and ok_train and ok_check
             and ok_synth and ok_hard_aug and ok_dota and ok_robust
             and ok_chunked and ok_hbb and ok_export and ok_profile
-            and ok_flops and ok_sanity
+            and ok_flops and ok_sanity and ok_visual
             and ok_swin and ok_swin_decode and ok_swin_train
             and ok_swin_check and ok_shard and ok_ddp and all(ok_more)):
         print("chip_smoke: a phase failed", file=sys.stderr)

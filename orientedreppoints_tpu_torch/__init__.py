@@ -13,12 +13,14 @@ names mirror it so each function has an obvious counterpart:
                warps and colour conversions (warp, color), the image
                corruptions of the robustness benchmark (corruptions, with
                cv2's filter2D and area / nearest resizes in filter and
-               libjpeg-turbo's lossy round trip in jpeg)
+               libjpeg-turbo's lossy round trip in jpeg), numeric labels
+               inside cv2's text box (text)
   devkit/      DOTA devkit in numpy: labelTxt, polygon IoU and NMS,
                ImgSplit at any rate, COCO-poly json, the DOTA and HRSC
                prep, Task1 / Task2 / mAOE / UCAS-AOD evaluators, soft
                polygon NMS, the merge (a spawn pool over the class
-               files)
+               files); the IoUs of many quads through a host library
+               (csrc/polyiou.cpp, built by g++ at first use: native)
   ops/         geometry, min-area-rect and hulls, hull-gt IoU, quad IoU
                over-mask, rotated and horizontal NMS, deformable conv
                (forward and backward); each kernel beside its plain
@@ -27,7 +29,9 @@ names mirror it so each function has an obvious counterpart:
                data-parallel process group
   utils/       flax -> torch weight conversion, checkpoints and weight
                importers, the host-RSS re-exec of long runs (chunked),
-               the environment report and profiling
+               the environment report and profiling, jax.random's
+               threefry and flax's make_rng for DropPath's masks
+               (jax_random), the visualisation tools' drawing
   apis.py      init_detector, build_dataset, run_inference(_tta),
                evaluate_results, build_loss_config, build_img_norm
   serving.py   Predictor (one device)

@@ -29,7 +29,7 @@ from .data.dota import DotaDataset, HrscDataset
 from .data.loader import DataLoader
 from .data.pipelines import build_pipeline
 from .devkit.evaluation import _hbb_iou_prefilter, voc_ap
-from .devkit.polygon import poly_iou
+from .devkit.native import poly_iou_pairs
 from .host import ceil32, load_config, rbbox2result, resize_linear
 from .models.detector import (OrientedRepPointsDetector, decode_detections,
                               decode_no_nms, merge_aug_and_nms)
@@ -505,9 +505,7 @@ def evaluate_results(results: dict, dataset, iou_thr: float = 0.5,
                     _hbb_iou_prefilter(gts.astype(np.float64),
                                        poly.astype(np.float64)) > 0
                 )[0]
-                overlaps = np.array(
-                    [poly_iou(gts[j], poly) for j in cand], np.float64
-                )
+                overlaps = poly_iou_pairs(gts[cand], poly)
                 if overlaps.size > 0:
                     k = int(np.argmax(overlaps))
                     ovmax, jmax = overlaps[k], int(cand[k])

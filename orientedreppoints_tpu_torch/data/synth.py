@@ -28,7 +28,9 @@ end points included:
     to a whole degree, ellipse2Poly's outline from cv2's table of sines
     (7 decimals) at a step set by the larger axis, filled as a convex
     polygon;
-  * cv2.polylines(..., closed): draw_line of each edge.
+  * cv2.polylines(..., closed): draw_line of each edge;
+  * cv2.circle(..., -1) (fill_circle): cv2's Circle fill, each row of the
+    midpoint walk filled between its ends.
 
 The random stream is drawn in the reference's order, so polygons, names
 and labels are the reference's exactly.  generate_synth_dota writes the
@@ -416,6 +418,15 @@ def fill_ellipse(img: np.ndarray, center, axes, angle: float, color) -> None:
     if len(v) == 1:
         v = [(cx, cy)] * 2
     _fill_convex(img, v, col)
+
+
+def fill_circle(img: np.ndarray, center, radius: int, color) -> None:
+    """cv2.circle(img, center, radius, color, -1) of an integer centre and
+    radius anywhere, line type 8, bit for bit: cv2's Circle with fill (the
+    midpoint walk of _fill_circle), not the ellipse polygon that thicker
+    or antialiased circles take."""
+    _fill_circle(img, int(center[0]), int(center[1]), int(radius),
+                 _colour(img, color))
 
 
 def polylines(img: np.ndarray, pts: np.ndarray, color,

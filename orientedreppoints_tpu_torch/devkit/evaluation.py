@@ -2,7 +2,8 @@
 horizontal mAP, mAOE and UCAS-AOD (counterpart of devkit/evaluation.py).
 
   * Task1 (DOTA_devkit/dota_evaluation_task1.py): VOC AP per class at IoU
-    0.5 with the exact polygon IoU behind an axis-aligned prefilter,
+    0.5 with the exact polygon IoU (devkit/native.py's host library)
+    behind an axis-aligned prefilter,
     difficult gts ('1' or '2') out of npos and neither TP nor FP, greedy
     matching in confidence order;
   * Task2 (dota_evaluation_task2.py): the same with the axis-aligned IoU;
@@ -22,7 +23,7 @@ import numpy as np
 
 from ..core.rbox import poly2rbox_v3
 from . import dota_utils as util
-from .polygon import poly_iou
+from .native import poly_iou_pairs
 
 
 def voc_ap(rec, prec, use_07_metric=False):
@@ -138,9 +139,7 @@ def voc_eval_poly(detpath: str, annopath: str, imagenames, classname: str,
                 cand = np.arange(len(gts))
             else:
                 cand = np.where(hbb_ovr > 0)[0]
-                overlaps = np.array(
-                    [poly_iou(gts[j], bb) for j in cand], np.float64
-                )
+                overlaps = poly_iou_pairs(gts[cand], bb)
             if len(cand) > 0 and overlaps.size > 0:
                 k = int(np.argmax(overlaps))
                 ovmax = overlaps[k]
@@ -222,7 +221,7 @@ def eval_maoe(detpath: str, annopath: str, imagesetfile_or_names,
             cand = np.where(_hbb_iou_prefilter(R["bbox"], bb) > 0)[0]
             if len(cand) == 0:
                 continue
-            overlaps = np.array([poly_iou(R["bbox"][j], bb) for j in cand])
+            overlaps = poly_iou_pairs(R["bbox"][cand], bb)
             k = int(np.argmax(overlaps))
             if overlaps[k] > ovthresh:
                 th_d = poly2rbox_v3(bb[None])[0, 4]

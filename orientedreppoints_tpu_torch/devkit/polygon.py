@@ -1,11 +1,17 @@
-"""Exact polygon geometry on the host in numpy (counterpart of
-devkit/polygon.py's numpy path, which replaces DOTA_devkit's polyiou and
-shapely): Sutherland-Hodgman clips, areas, IoU, and greedy and soft
-polygon NMS."""
+"""Exact polygon geometry on the host (counterpart of devkit/polygon.py,
+which replaces DOTA_devkit's polyiou and shapely): Sutherland-Hodgman
+clips, areas, IoU, and greedy and soft polygon NMS.
+
+poly_iou is numpy, the plain version of one pair.  The IoUs of many
+quads (poly_iou_matrix, and one call a pick in poly_nms and
+soft_poly_nms) go through the host library of devkit/native.py, whose
+every IoU is poly_iou's bit for bit."""
 
 from __future__ import annotations
 
 import numpy as np
+
+from . import native
 
 
 def clip_polygon(subject: np.ndarray, clip_rect) -> np.ndarray:
@@ -113,17 +119,17 @@ def poly_iou(poly1, poly2) -> float:
 
 
 def poly_iou_matrix(polys1: np.ndarray, polys2: np.ndarray) -> np.ndarray:
-    """(n, m) exact IoU between two (k, 8) polygon arrays."""
-    p1 = np.asarray(polys1, np.float64).reshape(-1, 8)
-    p2 = np.asarray(polys2, np.float64).reshape(-1, 8)
-    return np.array([[poly_iou(a, b) for b in p2] for a in p1], np.float64)
+    """(n, m) exact IoU between two (k, 8) polygon arrays (the host
+    library)."""
+    return native.poly_iou_matrix(polys1, polys2)
 
 
 def poly_nms(dets: np.ndarray, thresh: float) -> list[int]:
     """Greedy polygon NMS of (n, 9) [poly(8), score] -> kept indices, best
     first (py_cpu_nms_poly_fast, ResultMerge_multi_process.py:60-121): the
     exact IoU only for pairs whose axis-aligned boxes overlap (the +1 pixel
-    convention); suppression where IoU > thresh."""
+    convention), one call of the host library a pick; suppression where
+    IoU > thresh (a NaN suppresses)."""
     dets = np.asarray(dets, np.float64)
     if len(dets) == 0:
         return []
@@ -149,8 +155,9 @@ def poly_nms(dets: np.ndarray, thresh: float) -> list[int]:
         hbb_inter = w * h
         hbb_ovr = hbb_inter / (areas[i] + areas[rest] - hbb_inter)
         cand = np.where(hbb_ovr > 0)[0]
-        for j in cand:
-            hbb_ovr[j] = poly_iou(obbs[i], obbs[rest[j]])
+        if len(cand):
+            hbb_ovr[cand] = native.poly_iou_one_many(obbs[i],
+                                                     obbs[rest[cand]])
         order = rest[np.where(hbb_ovr <= thresh)[0]]
     return keep
 
@@ -162,7 +169,9 @@ def soft_poly_nms(dets: np.ndarray, iou_thr: float, method: str = "linear",
     other live score by its exact IoU with that box -- linear: s *= 1 - iou
     where iou > iou_thr; gaussian: s *= exp(-iou^2 / sigma); any other
     method ('original'): s = 0 where iou > iou_thr -- and drop the boxes
-    that fall below min_score.
+    that fall below min_score.  A pick's IoUs over the live boxes are one
+    call of the host library, the decay the scalar loop's float64
+    operations over them at once.
 
     dets: (n, 9) [poly(8), score] -> (kept dets (k, 9) with their decayed
     scores, in pick order; their indices (k,))."""
@@ -177,15 +186,14 @@ def soft_poly_nms(dets: np.ndarray, iou_thr: float, method: str = "linear",
         keep_dets.append(np.concatenate([dets[i, :8], [scores[i]]]))
         keep_inds.append(int(i))
         alive[i] = False
-        for j in np.where(alive)[0]:
-            iou = poly_iou(dets[i, :8], dets[j, :8])
-            if method == "linear":
-                if iou > iou_thr:
-                    scores[j] *= 1.0 - iou
-            elif method == "gaussian":
-                scores[j] *= np.exp(-(iou * iou) / sigma)
-            elif iou > iou_thr:
-                scores[j] = 0.0
-            if scores[j] < min_score:
-                alive[j] = False
+        rest = np.where(alive)[0]
+        iou = native.poly_iou_one_many(dets[i, :8], dets[rest, :8])
+        if method == "linear":
+            over = iou > iou_thr
+            scores[rest[over]] *= 1.0 - iou[over]
+        elif method == "gaussian":
+            scores[rest] *= np.exp(-(iou * iou) / sigma)
+        else:
+            scores[rest[iou > iou_thr]] = 0.0
+        alive[rest[scores[rest] < min_score]] = False
     return np.asarray(keep_dets).reshape(-1, 9), np.asarray(keep_inds)

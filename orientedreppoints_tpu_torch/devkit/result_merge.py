@@ -12,6 +12,8 @@ DOTA_devkit/ResultMerge_multi_process.py):
     file first.  The workers import numpy and this package's devkit, not
     torch; spawn re-imports the caller's __main__ in each of them, so a
     caller that imports torch at module level pays that import a worker.
+    The polygon IoUs go through devkit/native.py's host library, built
+    (if need be) in the caller before the pool starts.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from functools import partial
 import numpy as np
 
 from . import dota_utils as util
+from . import native
 from .polygon import poly_nms
 
 NMS_THRESH = 0.1
@@ -62,6 +65,7 @@ def merge_by_poly(srcpath: str, dstpath: str, nms_thresh: float = NMS_THRESH,
     process with one worker or fewer, else in a spawn pool of
     min(num_process, files) workers.  The files are the same either way."""
     os.makedirs(dstpath, exist_ok=True)
+    native.lib()  # built once here, loaded by each worker
     files = util.list_files(srcpath, ".txt")
     workers = min(num_process, len(files) or 1)
     if workers <= 1:

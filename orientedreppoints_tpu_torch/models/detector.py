@@ -41,8 +41,8 @@ class OrientedRepPointsDetector(nn.Module):
     convs, Swin start_level 0 with max-pool extra levels, SSD-VGG
     start_level 0 over its first num_levels maps (max_outs) with no extra
     level; fpn_start_level / fpn_add_extra_convs override it when given.
-    gen is the DropPath generator a train-mode Swin draws from (the other
-    backbones have no stochastic layer and ignore it).
+    key is the step's DropPath key a train-mode Swin draws its masks
+    under (the other backbones have no stochastic layer and ignore it).
     """
 
     def __init__(self, backbone_type: str = "resnet", depth: int = 50,
@@ -60,7 +60,8 @@ class OrientedRepPointsDetector(nn.Module):
             self.backbone = ResNet(depth=depth, **kw)
             start, extra = 1, True
         elif backbone_type == "swin":
-            self.backbone = SwinTransformer(**kw)
+            # flax names the backbone "backbone": its DropPath keys' path
+            self.backbone = SwinTransformer(rng_path=("backbone",), **kw)
             start, extra = 0, False
         elif backbone_type == "ssd_vgg":
             self.backbone = SSDVGG(max_outs=num_levels, **kw)
@@ -85,10 +86,9 @@ class OrientedRepPointsDetector(nn.Module):
         self.neck.init_weights(gen)
         self.bbox_head.init_weights(gen)
 
-    def forward(self, images: torch.Tensor,
-                gen: torch.Generator | None = None) -> dict:
+    def forward(self, images: torch.Tensor, key=None) -> dict:
         if self.backbone_type == "swin":
-            feats = self.backbone(images.to(self.dtype), gen)
+            feats = self.backbone(images.to(self.dtype), key)
         else:
             x = images.permute(0, 3, 1, 2).to(self.dtype)
             feats = self.backbone(

@@ -20,12 +20,15 @@ defaults differ:
     window covers the whole (padded) map;
   * the map is padded to window multiples after norm1, and cropped after
     the reverse roll;
-  * DropPath draws one keep mask per sample from the torch.Generator the
-    caller passes (the train step derives it from its seed and step
-    count); the model draws nothing in eval mode.  A rank of a
-    data-parallel group passes BatchRows: it draws the global batch's
-    masks and keeps its own rows, so that the group draws the masks of
-    one process stepping the global batch.
+  * DropPath keeps a sample where jax.random.bernoulli(k, keep) is true,
+    k flax's make_rng("dropout") key of the block's n-th draw (n = 1
+    after the attention, 2 after the MLP) under the step's key the caller
+    passes (parallel/train.dropout_key); utils/jax_random.py draws them
+    on the host, every block's before the forward, and the masks go to
+    the device in one copy.  The model draws nothing in eval mode.  A
+    rank of a data-parallel group passes BatchRows: it draws the global
+    batch's masks and keeps its own rows, so that the group draws the
+    masks of one process stepping the global batch.
 
 The window attention, LayerNorm, GELU and PatchMerging are XLA code in
 the JAX package, not Pallas kernels; here they are plain PyTorch, and the
@@ -45,6 +48,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..utils import jax_random
 from .layers import Conv2d
 
 LN_EPS = 1e-6  # flax nn.LayerNorm's default (torch's is 1e-5)
@@ -105,33 +109,23 @@ def window_reverse(windows: torch.Tensor, ws: int, h: int,
 
 @dataclasses.dataclass(frozen=True)
 class BatchRows:
-    """DropPath's generator for one rank of a data-parallel group: the
-    rank holds the rows [offset, offset + b) of the global batch of
-    `total` rows (the ranks' shares may differ in size)."""
-    gen: torch.Generator
+    """DropPath's key for one rank of a data-parallel group: the rank
+    holds the rows [offset, offset + b) of the global batch of `total`
+    rows (the ranks' shares may differ in size)."""
+    key: np.ndarray
     offset: int
     total: int
 
 
 def drop_path(y: torch.Tensor, rate: float,
-              gen: torch.Generator | BatchRows | None) -> torch.Tensor:
-    """Stochastic depth: y times a per-sample keep mask (B, 1, 1, 1) drawn
-    from gen, over keep = 1 - rate.  Identity without gen or at rate 0.
-    With BatchRows the mask of the global batch is drawn, and rows
-    [offset, offset + b) of it kept."""
-    if gen is None or rate == 0.0:
+              mask: torch.Tensor | None) -> torch.Tensor:
+    """Stochastic depth: y times a per-sample keep mask (B,) (bool, on y's
+    device), over keep = 1 - rate.  Identity without a mask or at rate
+    0."""
+    if mask is None or rate == 0.0:
         return y
-    b = y.shape[0]
-    offset, total = 0, b
-    if isinstance(gen, BatchRows):
-        gen, offset, total = gen.gen, gen.offset, gen.total
-        if offset + b > total:
-            raise ValueError(f"drop_path: rows [{offset}, {offset + b}) "
-                             f"of a batch of {total}")
     keep = 1.0 - rate
-    shape = (total,) + (1,) * (y.dim() - 1)
-    mask = torch.rand(shape, generator=gen, device=y.device)
-    mask = mask[offset:offset + b] < keep
+    mask = mask.reshape((-1,) + (1,) * (y.dim() - 1))
     return y * mask.to(y.dtype) / keep
 
 
@@ -212,9 +206,10 @@ class SwinBlock(nn.Module):
                 hp, wp, self.window_size, self.shift)).to(device)
         return self._masks[key]
 
-    def forward(self, x: torch.Tensor,
-                gen: torch.Generator | None = None) -> torch.Tensor:
-        """x: (B, H, W, C) in the compute dtype."""
+    def forward(self, x: torch.Tensor, masks=None) -> torch.Tensor:
+        """x: (B, H, W, C) in the compute dtype; masks: DropPath's keep
+        masks (B,) after the attention and after the MLP, or None."""
+        m_attn, m_mlp = masks if masks is not None else (None, None)
         b, h, w, c = x.shape
         ws = self.window_size
         y = self.norm1(x).to(x.dtype)
@@ -228,10 +223,10 @@ class SwinBlock(nn.Module):
                            hp, wp)
         if self.shift:
             y = torch.roll(y, (self.shift, self.shift), (1, 2))
-        x = x + drop_path(y[:, :h, :w], self.drop_path, gen)
+        x = x + drop_path(y[:, :h, :w], self.drop_path, m_attn)
         y = self.mlp_fc1(self.norm2(x).to(x.dtype))
         y = self.mlp_fc2(F.gelu(y, approximate="tanh"))
-        return x + drop_path(y, self.drop_path, gen)
+        return x + drop_path(y, self.drop_path, m_mlp)
 
 
 class PatchMerging(nn.Module):
@@ -257,8 +252,12 @@ def _same_pad(size: int, k: int, s: int) -> tuple[int, int]:
 
 
 class SwinTransformer(nn.Module):
-    """forward((B, H, W, 3) images in the compute dtype, gen) -> the
-    out_indices stages as NCHW views of NHWC tensors (channels last)."""
+    """forward((B, H, W, 3) images in the compute dtype, key) -> the
+    out_indices stages as NCHW views of NHWC tensors (channels last).
+
+    rng_path: the flax module path of this backbone under the root that
+    flax applies (("backbone",) in the detector), which names each
+    block's DropPath keys."""
 
     def __init__(self, embed_dim: int = 96,
                  depths: Sequence[int] = (2, 2, 6, 2),
@@ -266,7 +265,7 @@ class SwinTransformer(nn.Module):
                  window_size: int = 7, mlp_ratio: float = 4.0,
                  drop_path_rate: float = 0.2,
                  out_indices: Sequence[int] = (1, 2, 3),
-                 patch_norm: bool = True):
+                 patch_norm: bool = True, rng_path: Sequence[str] = ()):
         super().__init__()
         self.out_indices = tuple(out_indices)
         self.patch_embed = Conv2d(3, embed_dim, 4, 4)
@@ -291,6 +290,32 @@ class SwinTransformer(nn.Module):
                 dim *= 2
             self.stages.append(names)
         self.out_channels = [embed_dim * 2 ** s for s in self.out_indices]
+        # the blocks that draw, and flax's digest of each draw's path
+        self.drawing = [n for s in self.stages for n in s
+                        if getattr(self, n).drop_path]
+        self._hashes = np.array(
+            [jax_random.static_hash((*rng_path, n, c))
+             for n in self.drawing for c in (1, 2)], np.uint32)
+        self._keeps = np.array(
+            [1.0 - getattr(self, n).drop_path for n in self.drawing
+             for _ in (1, 2)], np.float32)[:, None]
+
+    def drop_masks(self, key, b: int) -> np.ndarray:
+        """The keep masks of one forward of b rows, (2 x drawing blocks, b)
+        bool, in block order (after the attention, then the MLP): flax's
+        make_rng("dropout") keys under the step's key, each block's rate
+        as jax.random.bernoulli draws it.  key: a (2,) uint32 key, or
+        BatchRows (the global batch's masks drawn, rows [offset, offset +
+        b) kept)."""
+        offset, total = 0, b
+        if isinstance(key, BatchRows):
+            key, offset, total = key.key, key.offset, key.total
+            if offset + b > total:
+                raise ValueError(f"drop_masks: rows [{offset}, {offset + b})"
+                                 f" of a batch of {total}")
+        keys = jax_random.fold_in(key, self._hashes)
+        masks = jax_random.uniform(keys, (total,)) < self._keeps
+        return masks[:, offset:offset + b]
 
     def init_weights(self, gen: torch.Generator):
         """flax's init: truncated normal (0.02) Dense, conv and bias-table
@@ -307,13 +332,19 @@ class SwinTransformer(nn.Module):
                     m.weight.fill_(1.0)
                     m.bias.zero_()
 
-    def forward(self, x: torch.Tensor,
-                gen: torch.Generator | BatchRows | None = None) -> tuple:
-        if self.training and gen is None and any(
-                getattr(self, n).drop_path for s in self.stages for n in s):
-            raise ValueError("SwinTransformer in train mode needs the "
-                             "DropPath generator (gen)")
-        gen = gen if self.training else None
+    def forward(self, x: torch.Tensor, key=None) -> tuple:
+        """key: the step's DropPath key (parallel/train.dropout_key) or
+        BatchRows; needed in train mode where a block drops, unused in
+        eval mode."""
+        masks = {}
+        if self.training and self.drawing:
+            if key is None:
+                raise ValueError("SwinTransformer in train mode needs the "
+                                 "DropPath key")
+            drawn = torch.from_numpy(self.drop_masks(key, x.shape[0]))
+            drawn = drawn.to(x.device)  # one copy
+            masks = {n: (drawn[2 * i], drawn[2 * i + 1])
+                     for i, n in enumerate(self.drawing)}
         h, w = x.shape[1], x.shape[2]
         ph, pw = _same_pad(h, 4, 4), _same_pad(w, 4, 4)
         x = F.pad(x, (0, 0) + pw + ph).permute(0, 3, 1, 2)
@@ -323,7 +354,7 @@ class SwinTransformer(nn.Module):
         outs = []
         for stage, names in enumerate(self.stages):
             for name in names:
-                x = getattr(self, name)(x, gen)
+                x = getattr(self, name)(x, masks.get(name))
             if stage in self.out_indices:
                 y = getattr(self, f"out_norm{stage}")(x).to(x.dtype)
                 outs.append(y.permute(0, 3, 1, 2))

@@ -23,9 +23,11 @@ configs/dota/orientedreppoints_swin_tiny_demo.py):
     count, computed in f32 as the JAX schedule is (LambdaLR over lr 1.0).
 
 The step runs the model in train mode (and restores its mode after), so
-a Swin backbone's DropPath fires.  Its masks come from a torch.Generator
-on the model's device seeded from (seed, step count), as the JAX step
-folds its step count into one base key: a resumed run draws the masks of
+a Swin backbone's DropPath fires.  Its masks are the JAX step's: the
+step's key is jax.random.fold_in(jax.random.key(seed), step count)
+(dropout_key, the JAX step's dropout_rng folded with state.step), under
+which the model draws flax's keys and jax.random's masks on the host
+(models/swin.py, utils/jax_random.py).  A resumed run draws the masks of
 an uninterrupted one without saving any generator state.
 
 Data parallelism computes what the JAX mesh step computes: one step of
@@ -52,10 +54,12 @@ from __future__ import annotations
 
 from typing import Callable, Sequence
 
+import numpy as np
 import torch
 
 from ..core.loss_head import LossConfig, compute_losses
 from ..models.swin import BatchRows
+from ..utils import jax_random
 from . import dist
 
 BATCH_KEYS = ("images", "gt_polys", "gt_labels", "gt_valid", "img_hw")
@@ -166,18 +170,11 @@ def to_device(batch: dict, device) -> dict:
     return {k: torch.as_tensor(batch[k], device=device) for k in BATCH_KEYS}
 
 
-def step_generator(seed: int, step: int, device) -> torch.Generator:
-    """The DropPath generator of one step, seeded from (seed, step) alone
-    (jax.random.fold_in(key(seed), step) in the JAX step).  The pair is
-    mixed by splitmix64's finalizer, so that every bit of the seed depends
-    on both: the CPU generator keeps only the low 32 bits."""
-    z = ((seed & 0xFFFFFFFF) << 32 | (step & 0xFFFFFFFF)) + 0x9E3779B97F4A7C15
-    z &= (1 << 64) - 1
-    z = (z ^ (z >> 30)) * 0xBF58476D1CE4E5B9 & (1 << 64) - 1
-    z = (z ^ (z >> 27)) * 0x94D049BB133111EB & (1 << 64) - 1
-    gen = torch.Generator(device=device)
-    gen.manual_seed(z ^ (z >> 31))
-    return gen
+def dropout_key(seed: int, step: int) -> np.ndarray:
+    """The DropPath key of one step, from (seed, step) alone: the JAX
+    step's jax.random.fold_in(jax.random.key(seed), step) as its (2,)
+    uint32 data (the JAX step's key without a dropout_rng is key(0))."""
+    return jax_random.fold_in(jax_random.key(seed), step)
 
 
 def all_reduce_grads_(grads: Sequence[torch.Tensor], group) -> None:
@@ -195,8 +192,8 @@ def make_train_step(model: torch.nn.Module, loss_cfg: LossConfig, optimizer,
                     img_norm: dict | None = None, seed: int = 0,
                     group=None):
     """A step(batch) -> loss dict (with loss_total) that updates the model
-    in place.  The forward runs in train mode with step_generator(seed,
-    the scheduler's step count) for DropPath.
+    in place.  The forward runs in train mode with dropout_key(seed, the
+    scheduler's step count) for DropPath.
 
     batch: the collated dict (data/loader.py layout): images (B, H, W, 3),
     uint8 when img_norm is given (normalized on the device), else
@@ -223,12 +220,12 @@ def make_train_step(model: torch.nn.Module, loss_cfg: LossConfig, optimizer,
             imgs = device_normalize(imgs, batch["img_hw"], **img_norm)
         was_training = model.training
         model.train()
-        gen = step_generator(seed, scheduler.last_epoch, device)
+        key = dropout_key(seed, scheduler.last_epoch)
         if group is not None:  # the ranks' shares may differ (the loader)
             counts = dist.row_counts(len(imgs), group, device)
-            gen = BatchRows(gen, sum(counts[:rank]), sum(counts))
+            key = BatchRows(key, sum(counts[:rank]), sum(counts))
         try:
-            outs = model(imgs, gen)
+            outs = model(imgs, key)
         finally:
             model.train(was_training)
         losses = compute_losses(outs, batch["gt_polys"], batch["gt_labels"],

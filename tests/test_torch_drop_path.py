@@ -1,13 +1,15 @@
-"""DropPath's drop rate on the CPU: the masks that step_generator(seed,
-step) draws, block by block, over many (seed, step) pairs.
+"""DropPath's drop rate on the CPU: the masks drawn under dropout_key(seed,
+step), block by block, over many (seed, step) pairs.
 
 A Swin forward in train mode draws two masks a block (attention and MLP
-branches), in block order, from the step's generator, and none where the
+branches), in block order, under the step's key, and none where the
 block's rate is 0; test_forward_draws_in_block_order ties the draws made
-here to that forward.  Each Swin-T block's drop share (configs/dota/
-synth_swin_512.py: depths 2, 2, 6, 2, drop_path_rate 0.2, batch 8) must
-lie within Z_BLOCK binomial standard deviations of its rate dpr, and the
-share over all blocks within Z_ALL of the mean rate.
+here (SwinTransformer.drop_masks) to that forward; that each mask is
+flax's bit for bit is tests/test_torch_drop_path_keys.py's.  Each Swin-T
+block's drop share (configs/dota/synth_swin_512.py: depths 2, 2, 6, 2,
+drop_path_rate 0.2, batch 8) must lie within Z_BLOCK binomial standard
+deviations of its rate dpr, and the share over all blocks within Z_ALL
+of the mean rate.
 """
 
 import numpy as np
@@ -16,7 +18,7 @@ import torch
 
 from orientedreppoints_tpu_torch.host import load_config
 from orientedreppoints_tpu_torch.models import swin
-from orientedreppoints_tpu_torch.parallel.train import step_generator
+from orientedreppoints_tpu_torch.parallel.train import dropout_key
 
 SEEDS = (0, 1, 7, 12345)
 STEPS = 250  # steps 0..249 of each seed: 1,000 pairs
@@ -40,25 +42,26 @@ def swin_t():
     return model, rates, cfg["tpu"]["global_batch_size"]
 
 
-def draws(rates, gen, batch):
+def draws(model, rates, key, batch):
     """The keep masks of one step, two a block with a rate above 0:
     [(block, mask (batch,))]."""
-    ones = torch.ones(batch, 1, 1, 1)
-    return [(b, swin.drop_path(ones, r, gen).reshape(-1) != 0)
-            for b, r in enumerate(rates) if r for _ in range(2)]
+    masks = model.drop_masks(key, batch)
+    blocks = [b for b, r in enumerate(rates) if r for _ in range(2)]
+    assert len(blocks) == len(masks)
+    return list(zip(blocks, masks))
 
 
 def test_forward_draws_in_block_order(swin_t, monkeypatch):
-    """A train-mode forward calls drop_path twice a block with the step's
-    generator: its masks are those of draws() from the same generator."""
+    """A train-mode forward calls drop_path twice a block with the masks
+    drawn under the step's key: those of draws() under the same key."""
     model, rates, _ = swin_t
-    want = draws(rates, step_generator(5, 17, "cpu"), 3)
+    want = draws(model, rates, dropout_key(5, 17), 3)
     seen = []
     orig = swin.drop_path
 
-    def recorded(y, rate, gen):
-        out = orig(y, rate, gen)
-        if gen is not None and rate:
+    def recorded(y, rate, mask):
+        out = orig(y, rate, mask)
+        if mask is not None and rate:
             seen.append((rate, (out.flatten(1) != 0).any(1)))
         return out
 
@@ -66,20 +69,20 @@ def test_forward_draws_in_block_order(swin_t, monkeypatch):
     model.train()
     x = torch.randn(3, 64, 64, 3, generator=torch.Generator().manual_seed(0))
     with torch.no_grad():
-        model(x, step_generator(5, 17, "cpu"))
+        model(x, dropout_key(5, 17))
     assert len(seen) == len(want) == 2 * sum(r > 0 for r in rates) == 22
     for (rate, got), (b, mask) in zip(seen, want):
         assert rate == rates[b]
-        assert torch.equal(got, mask)
+        assert np.array_equal(got.numpy(), mask)
 
 
 def test_drop_share_matches_each_blocks_rate(swin_t):
-    _, rates, batch = swin_t
+    model, rates, batch = swin_t
     dropped = np.zeros(len(rates))
     samples = np.zeros(len(rates))
     for seed in SEEDS:
         for step in range(STEPS):
-            for b, keep in draws(rates, step_generator(seed, step, "cpu"),
+            for b, keep in draws(model, rates, dropout_key(seed, step),
                                  batch):
                 dropped[b] += int((~keep).sum())
                 samples[b] += batch

@@ -105,9 +105,9 @@ def run_steps(spec: dict, group) -> dict:
     batches = step_batches(spec, group)
     drops, real = [], swin.drop_path
 
-    def counting(y, rate, gen):
-        out = real(y, rate, gen)
-        if gen is not None and rate > 0:
+    def counting(y, rate, mask):
+        out = real(y, rate, mask)
+        if mask is not None and rate > 0:
             drops.append((out.reshape(out.shape[0], -1) == 0).all(1))
         return out
 

@@ -6,7 +6,7 @@ JAX initial weights (through flax_to_torch) and seeded batch, DropPath
 0.5, two SGD steps (test_torch_train's recipe: AdamW would step the grads
 at rounding noise, the out-norms' biases here, at full size, and hide
 the comparison in that noise).  Each rank draws the global batch's masks
-from step_generator(seed, step) and keeps its rows (models/swin.
+under dropout_key(seed, step) and keeps its rows (models/swin.
 BatchRows), so the ranks' masks stacked are the one-process masks; the
 grads the ranks reduce equal the one-process grads at f32 rounding.
 The same on the data-parallel loader's uneven shares (2 + 1 rows of a
@@ -151,20 +151,20 @@ def test_uneven_w2_step_equals_the_w1_step(uneven, step):
 
 
 def test_batch_rows_draw_the_global_mask():
-    """drop_path with BatchRows: a rank's output is its rows [offset,
-    offset + b) of the output one process gets over the whole batch from
-    the same generator state, for even and uneven shares; over the whole
-    batch it is the plain generator's; rows past the batch are refused."""
-    y = torch.arange(1.0, 13.0).reshape(6, 2)
-    gen = lambda: train.step_generator(3, 7, "cpu")  # noqa: E731
-    whole = swin.drop_path(y, 0.5, gen())
-    assert torch.equal(swin.drop_path(y, 0.5, swin.BatchRows(gen(), 0, 6)),
-                       whole)
+    """drop_masks with BatchRows: a rank's masks are its rows [offset,
+    offset + b) of the masks one process draws over the whole batch under
+    the same key, for even and uneven shares; over the whole batch they
+    are the plain key's; rows past the batch are refused."""
+    model = swin.SwinTransformer(embed_dim=8, depths=(2, 2), num_heads=(1, 1),
+                                 out_indices=(1,), drop_path_rate=RATE)
+    key = train.dropout_key(3, 7)
+    whole = model.drop_masks(key, 6)
+    assert np.array_equal(model.drop_masks(swin.BatchRows(key, 0, 6), 6),
+                          whole)
     for bounds in ((0, 2, 4, 6), (0, 3, 4, 6)):
-        parts = [swin.drop_path(y[lo:hi], 0.5,
-                                swin.BatchRows(gen(), lo, 6))
+        parts = [model.drop_masks(swin.BatchRows(key, lo, 6), hi - lo)
                  for lo, hi in zip(bounds, bounds[1:])]
-        assert torch.equal(torch.cat(parts), whole)
-    assert (whole == 0).any() and (whole != 0).any()
+        assert np.array_equal(np.concatenate(parts, 1), whole)
+    assert whole.shape == (6, 6) and whole.any() and not whole.all()
     with pytest.raises(ValueError, match="rows"):
-        swin.drop_path(y[:2], 0.5, swin.BatchRows(gen(), 5, 6))
+        model.drop_masks(swin.BatchRows(key, 5, 6), 2)

@@ -1,11 +1,13 @@
-"""The PyTorch port's boundaries: it runs without JAX, flax or cv2 (serving,
+"""The PyTorch port's boundaries: it runs without JAX, flax, cv2 or PIL
+(serving,
 a train step, TTA, soft-NMS, the evaluation path, the training data
 path: train pipeline, loader and checkpoint, Swin serving and an AdamW
 step, the hard and ship-only scenes, the HRSC labels, dataset and
 evaluators, the benchmark tool's modes, a batch of the hard-aug train
 pipeline, a forward of HRNet, SSD-VGG and ResNeXt detectors, horizontal
 NMS, the Task2 / UCAS-AOD evaluators, the IoU loss, collect_env,
-profiling, and every tools/*_torch.py imported); the
+profiling, the visual tools' drawing, the host polygon IoU, DropPath's
+keys, and every tools/*_torch.py imported); the
 train pipelines of every config with hard-aug
 steps build; the R-50 demo model's flax tree converts completely;
 CUDA-only entries raise without a GPU; CPU tensors never reach a
@@ -39,7 +41,7 @@ R50 = os.path.join(REPO, "configs/dota/orientedreppoints_r50_demo.py")
 
 NO_JAX_SCRIPT = textwrap.dedent("""
     import sys
-    for name in ("jax", "flax", "cv2", "orientedreppoints_tpu"):
+    for name in ("jax", "flax", "cv2", "PIL", "orientedreppoints_tpu"):
         sys.modules[name] = None  # import raises ImportError
     import numpy as np
     from orientedreppoints_tpu_torch.serving import Predictor
@@ -335,6 +337,16 @@ NO_JAX_SCRIPT = textwrap.dedent("""
         spec = importlib.util.spec_from_file_location(
             os.path.basename(path)[:-3], path)
         spec.loader.exec_module(importlib.util.module_from_spec(spec))
+    # the visual tools' drawing, the host polygon IoU, DropPath's keys
+    from orientedreppoints_tpu_torch.devkit import native
+    from orientedreppoints_tpu_torch.utils import jax_random, visualize
+    sq = np.array([5.0, 5, 40, 5, 40, 30, 5, 30])
+    vis = np.zeros((48, 48, 3), np.uint8)
+    visualize.draw_gts(vis, [sq], [3])
+    det = np.concatenate([np.full(18, 20.0), sq, [0.9]])
+    assert visualize.draw_dets(vis, [det], [2], [True], 0.3) == 1
+    assert native.poly_iou_pairs([sq], [sq])[0] == 1.0
+    assert jax_random.bernoulli(jax_random.key(0), 0.5, (8,)).shape == (8,)
     probe = ("[__import__('orientedreppoints_tpu_torch.devkit.result_merge'),"
              " sorted(m for m in __import__('sys').modules"
              " if m.split('.')[0] in ('torch', 'jax', 'cv2'))][1]")

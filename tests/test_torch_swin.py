@@ -641,21 +641,23 @@ def test_adamw_steps_match_jax(train_setup, three_steps, i):
 
 def test_drop_path_masks():
     """One keep mask per sample, (B, 1, 1, 1), values 0 or 1 / keep; none
-    without a generator or at rate 0."""
+    without a mask or at rate 0."""
     y = torch.ones(64, 3, 5, 2)
-    out = swin.drop_path(y, 0.25, torch.Generator().manual_seed(0))
+    mask = torch.from_numpy(np.random.default_rng(0).uniform(size=64) < 0.75)
+    out = swin.drop_path(y, 0.25, mask)
     per_sample = out.reshape(64, -1)
     assert bool((per_sample == per_sample[:, :1]).all())
     vals = set(per_sample[:, 0].tolist())
     assert vals == {0.0, float(np.float32(1 / 0.75))}
+    assert torch.equal(per_sample[:, 0] != 0, mask)
     assert torch.equal(swin.drop_path(y, 0.25, None), y)
-    assert torch.equal(swin.drop_path(y, 0.0, torch.Generator()), y)
+    assert torch.equal(swin.drop_path(y, 0.0, mask), y)
 
 
 def test_drop_path_train_and_eval():
-    """Eval mode draws nothing (a generator changes nothing); train mode
-    without a generator raises; the same (seed, step) gives the same
-    masks, another step or seed other ones."""
+    """Eval mode draws nothing (a key changes nothing); train mode
+    without a key raises; the same (seed, step) gives the same masks,
+    another step or seed other ones."""
     model = swin.SwinTransformer(drop_path_rate=0.9, **SWIN_KW)
     model.init_weights(torch.Generator().manual_seed(0))
     x = torch.from_numpy(np.random.default_rng(6).normal(
@@ -667,15 +669,15 @@ def test_drop_path_train_and_eval():
 
     model.eval()
     base = run()
-    assert torch.equal(run(train.step_generator(0, 3, "cpu")), base)
+    assert torch.equal(run(train.dropout_key(0, 3)), base)
     model.train()
-    with pytest.raises(ValueError, match="generator"):
+    with pytest.raises(ValueError, match="key"):
         run()
-    a = run(train.step_generator(0, 3, "cpu"))
-    assert torch.equal(a, run(train.step_generator(0, 3, "cpu")))
+    a = run(train.dropout_key(0, 3))
+    assert torch.equal(a, run(train.dropout_key(0, 3)))
     assert not torch.equal(a, base)
-    assert not torch.equal(a, run(train.step_generator(0, 4, "cpu")))
-    assert not torch.equal(a, run(train.step_generator(1, 3, "cpu")))
+    assert not torch.equal(a, run(train.dropout_key(0, 4)))
+    assert not torch.equal(a, run(train.dropout_key(1, 3)))
 
 
 def cpu_trainer(cfg, seed=0):

@@ -55,7 +55,7 @@ def stage_times(model, cfg, batch, seed):
                                   **build_img_norm(cfg))
     t0 = mark("normalize_ms", t0)
     model.train()
-    outs = model(imgs, train.step_generator(seed, 0, imgs.device))
+    outs = model(imgs, train.dropout_key(seed, 0))
     model.eval()
     t0 = mark("forward_ms", t0)
     losses = compute_losses(outs, batch["gt_polys"], batch["gt_labels"],
