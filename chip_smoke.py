@@ -1,7 +1,9 @@
 """Drive the PyTorch port's serving path (eager and exported), training
 step, TTA test path, evaluation path (easy and hard scenes, HRSC
-scoring), Swin-T, HRNet-W32
-and SSD-VGG16 serving and training, ResNeXt-50 serving, a torchvision
+scoring), Swin-T, HRNet-W32, SSD-VGG16
+and R-101 serving and training, ResNeXt-50 serving, the seven
+configs that had no other phase (trained a step and scored), the
+single DCNv1, a torchvision
 backbone file loaded, the synthetic benchmark's training, plain and
 with the hard-aug recipe, real DOTA input (PNG scenes, the
 multi-scale prep, the test tool and training on the tiles), and data
@@ -30,7 +32,15 @@ Phases, each printing one line or more (a failed phase exits non-zero):
      and the scan at batch 1, the over-mask against the triangle,
      soft_rnms and box_iou_rotated), with times, each kernel's bound and,
      where one PyTorch call computes the same function, that call's time
-     (grid_sample for the DCN kernels);
+     (grid_sample for the DCN kernels); the single DCNv1's two kernels
+     (the DCN kernels at one table) the same way: the forward bit for bit
+     at the serving pyramid (f32 and bf16), the backward at the training
+     step's shape;
+  2a. dcn_single: ops/deform_conv.py's deform_conv2d_pyramid forward and
+     backward at the training step's pyramid (bf16, C 256 -> 256),
+     counted (each single-table kernel once), against the same through
+     their plain versions (outputs and the weight's grad bit for bit, the
+     other grads within the atomics' tolerance);
   2b. host: host.imrescale (cv2's uint8 resize) on the card equals the
      same call on the CPU at sizes that resize;
   2c. hbb_nms: ops/nms.py's nms_hbb over 4096 seeded horizontal boxes
@@ -65,8 +75,8 @@ Phases, each printing one line or more (a failed phase exits non-zero):
      export, save and load seconds, the file's MB, images/s of both;
   4b. profile: utils/collect_env's report; utils/profiling.trace around
      one slice batch with annotate ranges around the forward and the
-     decode, both in the written trace; whether the ctypes-launched
-     kernels show among its CUDA events (read, not gated);
+     decode, both in the written trace, and a CUDA event of each of the
+     four ctypes-launched serving kernels (by __global__ name);
   5. tta: run_inference_tta with the multi-scale x flip recipe TTA_AUGS
      (scales 0.5, 1.0, 1.5, each on its own /32 canvas, x flip; R-50 bf16,
      batch 2) over 4 seeded 1024^2 images resized to fill the canvas: per
@@ -97,6 +107,9 @@ Phases, each printing one line or more (a failed phase exits non-zero):
      FPN without extra levels);
   7f. resnext, resnext_decode, resnext_dcn: the same on the R-50 demo
      config with its backbone a ResNeXt-50 32x4d (RESNEXT_BACKBONE);
+     r101, r101_decode, r101_dcn: the same on R101_CONFIG (R-101 at full
+     width); a line r101_vs_r50 sets its images/s, backbone ms and step
+     ms beside R-50's;
   7g. weights: a torchvision-named resnext50_32x4d state dict made from a
      seed, written to a .pth and loaded on the card through
      utils/checkpoint.load_pretrained_backbone; every backbone tensor equal
@@ -104,7 +117,9 @@ Phases, each printing one line or more (a failed phase exits non-zero):
      one finite forward;
   7h. flops: tools/get_flops_torch.py's count (FlopCounterMode) for the
      R-50 demo and Swin-T configs at 1024^2 and 1344^2: params, forward
-     GFLOPs, the counter's seconds;
+     GFLOPs, the counter's seconds; parallel/train.step_cost_analysis of
+     each one's train step (1344^2, batch 2): its GFLOPs, the model
+     unchanged after;
   7i. sanity: tools/sanity_overfit_torch.py --backbone r18 at its
      defaults (300 SGD steps on 4 seeded 256^2 scenes, then decode),
      counted: SANITY PASS (the last loss below 0.7 x the first, recall@0.5
@@ -179,8 +194,9 @@ Phases, each printing one line or more (a failed phase exits non-zero):
      flax);
   10c. swin_train_check: the train_check phase on the Swin-T config: the
      same DropPath masks in both runs, then the same checks;
-  10d. hrnet_train, hrnet_train_check, ssd_vgg_train, ssd_vgg_train_check:
-     the two phases on HRNET_CONFIG and SSD_VGG_CONFIG (SGD; their
+  10d. hrnet_train, hrnet_train_check, ssd_vgg_train, ssd_vgg_train_check,
+     r101_train, r101_train_check: the two phases on HRNET_CONFIG,
+     SSD_VGG_CONFIG and R101_CONFIG (SGD; HRNet's and SSD-VGG's
      frozen_stages 1 freezes nothing, as in JAX: neither has ResNet's stem
      or layer1_* names);
   11. synth_train: tools/synth_benchmark_torch.py --train's path at the
@@ -213,6 +229,19 @@ Phases, each printing one line or more (a failed phase exits non-zero):
      refine positives, step ms, the loader's wait share, launches); one
      more step with each training kernel's entry held against its plain
      version, and each kernel timed at those inputs;
+  12a. configs: CONFIGS_PHASE, the seven configs no other phase runs
+     (R-18, Swin-T, R-101 and R-50 1024^2 hard-aug, R-18 with max_pos
+     1024, R-18 HRSC-aug, the R-50 mosaic demo), each at its own widths,
+     batch, canvas, max_gt, max_pos, optimizer, schedule and pipelines,
+     on CONFIGS_SCENES hard scenes cut into 512^2 tiles (ship-only scenes
+     for the HRSC config) that each pipeline resizes: the seeded initial
+     weights (Swin's biases drawn as perturbed_weights draws them), a
+     warm-up step and a counted one through the loader and
+     apis.train_epochs (step ms, the loader's wait share, peak memory),
+     one step with each training kernel's entry against its plain
+     version, run_inference over a val scene's tiles with the config's
+     test pipeline and canvas (counted), Task1 files, merge, Task1 mAP /
+     mAOE and evaluate_results (random weights: read, not gated);
   13. dota_input: DOTA_SCENES (2048 x 1536 and 1600 x 2400) rendered and
      written as PNG (data/image_io) in raw/{train,val,test}, read back
      equal, the decoder's ms a megapixel; devkit/prepare.py's
@@ -241,10 +270,11 @@ Phases, each printing one line or more (a failed phase exits non-zero):
      its work dir scoring as its checkpoint's weights scored in this
      process (counted).
 Each counted run (slice, shard_infer, tta, iou_path, swin, hrnet,
-ssd_vgg, resnext, eval, robustness's settings, hard_eval's two, train,
-ddp's ranks, swin_train, hrnet_train, ssd_vgg_train, synth_train,
-hard_aug_train, dota_input's two, chunked's scoring, hbb_nms, export,
-sanity, visual's show_points_and_boxes) sets the launch
+ssd_vgg, resnext, r101, eval, robustness's settings, hard_eval's two,
+train, ddp's ranks, swin_train, hrnet_train, ssd_vgg_train, r101_train,
+synth_train, hard_aug_train, configs' steps and eval passes,
+dota_input's two, chunked's scoring, hbb_nms, export, sanity, visual's
+show_points_and_boxes, dcn_single) sets the launch
 counts to 0 just before and reads them just after; it fails if a kernel
 of its path was not launched.  Then one JSON line
 with every kernel's numbers, the card's line from nvidia-smi, and
@@ -294,6 +324,7 @@ CONFIG = "configs/dota/orientedreppoints_r50_demo.py"
 SWIN_CONFIG = "configs/dota/orientedreppoints_swin_tiny_demo.py"
 HRNET_CONFIG = "configs/dota/orientedreppoints_hrnet_w32_demo.py"
 SSD_VGG_CONFIG = "configs/dota/orientedreppoints_ssd_vgg16_demo.py"
+R101_CONFIG = "configs/dota/orientedreppoints_r101_demo.py"
 # the R-50 demo config with this backbone: ResNeXt-50 32x4d
 RESNEXT_BACKBONE = dict(type="ResNeXt", depth=50, groups=32, base_width=4,
                         frozen_stages=1)
@@ -369,6 +400,12 @@ SOURCES = {
     "quad_over_mask_single": (
         "orientedreppoints_tpu_torch/csrc/quad_over.cu",
         "orientedreppoints_tpu/ops/pallas_quad_iou.py:253"),
+    # the single DCNv1: the sampling of bilinear_gather and its autodiff
+    "deform_sample": ("orientedreppoints_tpu_torch/csrc/deform_sample.cu",
+                      "orientedreppoints_tpu/ops/deform_conv.py:94"),
+    "deform_sample_backward": (
+        "orientedreppoints_tpu_torch/csrc/deform_sample_bwd.cu",
+        "orientedreppoints_tpu/ops/deform_conv.py:94"),
 }
 SERVING_KERNELS = ("min_area_rect", "quad_over_mask", "nms_scan",
                    "deform_sample_pair")
@@ -552,6 +589,9 @@ def say(phase: str, **fields) -> None:
     print(f"[{phase}] " + json.dumps(fields), flush=True)
 
 
+SUMMARY = {}  # phase -> its headline numbers, for lines that compare them
+
+
 def cuda_ms(fn, reps: int) -> float:
     """Mean device milliseconds per call over reps calls, after one
     warm-up.  The card is first kept busy (torch.cuda._sleep) for longer
@@ -721,20 +761,22 @@ def min_area_rect_ops(counts) -> float:
     return float((50 + (h + 1) * 279 + h * (6 * h + 50)).sum())
 
 
-def dcn_bytes_ops(rows, c, k, elem, backward, grad_elem=4):
-    """Bytes and ops of the paired DCN sampling over rows x k samples of C
-    channels in an elem-byte dtype.  Forward: two tables and the offsets
-    in, two (rows, k C) buffers out; per sample 30 ops of plan, per
-    channel and table 7 (four weighted corners).  Backward: tables,
-    offsets and the two buffers' grads (grad_elem bytes: f32, as the
-    autograd node hands them over) in, table and offset grads out; per
-    channel and table 22 (four weighted scatters, two corner differences
-    and their products with the grad)."""
-    tables, offs = 2 * rows * c * elem, rows * 2 * k * elem
+def dcn_bytes_ops(rows, c, k, elem, backward, grad_elem=4, n_tables=2):
+    """Bytes and ops of the DCN sampling over rows x k samples of C
+    channels of n_tables tables (2: the paired DCN; 1: the single) in an
+    elem-byte dtype.  Forward: the tables and the offsets in, a (rows,
+    k C) buffer a table out; per sample 30 ops of plan, per channel and
+    table 7 (four weighted corners).  Backward: tables, offsets and the
+    buffers' grads (grad_elem bytes: f32, as the autograd node hands them
+    over) in, table and offset grads out; per channel and table 22 (four
+    weighted scatters, two corner differences and their products with the
+    grad)."""
+    tables, offs = n_tables * rows * c * elem, rows * 2 * k * elem
     if backward:
-        return (tables + offs + 2 * rows * k * c * grad_elem + tables + offs,
-                rows * k * (30 + 44 * c))
-    return tables + offs + 2 * rows * k * c * elem, rows * k * (30 + 14 * c)
+        return (tables + offs + n_tables * rows * k * c * grad_elem + tables
+                + offs, rows * k * (30 + 22 * n_tables * c))
+    return (tables + offs + n_tables * rows * k * c * elem,
+            rows * k * (30 + 7 * n_tables * c))
 
 
 def rect_err(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -920,42 +962,71 @@ def phase_kernels(dev, rng):
             channels=256, dtype="bfloat16", max_abs_err=err, bit_equal=same,
             ms=ms, plain_ms=plain_ms, ok=same,
             **bound(*dcn_bytes_ops(n, 256, 9, 2, False)))
+
+    # the single DCNv1's sampling (the same kernel at one table) at the
+    # serving pyramid, bit for bit as the pair's
+    for dt in (torch.float32, torch.bfloat16):
+        errs[dt], times[dt] = dcn_forward_case(dev, LEVELS, dt, 5, 1)
+    lib_err, lib_ms = grid_sample_check(dev, rows, LEVELS, backward=False,
+                                        n_tables=1)
+    res["deform_sample"] = dict(
+        max_abs_err=errs[torch.bfloat16][0],
+        ok=all(e[1] for e in errs.values()) and lib_err <= LIBRARY_TOL,
+        ms=times[torch.bfloat16][0], plain_ms=times[torch.bfloat16][1],
+        library_ms=lib_ms,
+        **bound(*dcn_bytes_ops(rows, 256, 9, 2, False, n_tables=1)))
+    say("kernel", name="deform_sample", rows=rows, channels=256,
+        max_abs_err_f32=errs[torch.float32][0],
+        max_abs_err_bf16=errs[torch.bfloat16][0],
+        bit_equal_f32=errs[torch.float32][1],
+        bit_equal_bf16=errs[torch.bfloat16][1],
+        ms_f32=times[torch.float32][0], plain_ms_f32=times[torch.float32][1],
+        ms_bf16=times[torch.bfloat16][0],
+        plain_ms_bf16=times[torch.bfloat16][1],
+        library="grid_sample, one call per level, bf16",
+        library_max_abs_err_f32=lib_err, library_tol=LIBRARY_TOL,
+        **{k: res["deform_sample"][k] for k in
+           ("library_ms", "bound_ms", "bound_by", "ok")})
     return res
 
 
-def dcn_forward_case(dev, levels, dt, reps):
-    """The paired DCN forward kernel against its plain version on seeded
-    random tables and offsets (C 256, K 9): ((max error, bit equal),
-    (kernel ms, plain ms))."""
+def dcn_forward_case(dev, levels, dt, reps, n_tables=2):
+    """The DCN forward kernel (paired, or at n_tables 1 the single-table
+    entry) against its plain version on seeded random tables and offsets
+    (C 256, K 9): ((max error, bit equal), (kernel ms, plain ms))."""
     from orientedreppoints_tpu_torch.ops import deform_conv
 
     rows = sum(b * h * w for b, h, w in levels)
-    ta = torch.randn(rows, 256, device=dev).to(dt)
-    tb = torch.randn(rows, 256, device=dev).to(dt)
+    tabs = [torch.randn(rows, 256, device=dev).to(dt)
+            for _ in range(n_tables)]
     offs = (torch.randn(rows, 18, device=dev) * 3).to(dt)
-    got = deform_conv.deform_sample_pair(ta, tb, offs, levels)
-    want = deform_conv.deform_sample_pair_plain(ta, tb, offs, levels)
+    if n_tables == 2:
+        kernel, plain = (deform_conv.deform_sample_pair,
+                         deform_conv.deform_sample_pair_plain)
+    else:
+        kernel = lambda *a: (deform_conv.deform_sample(*a),)  # noqa: E731
+        plain = lambda *a: (deform_conv.deform_sample_plain(*a),)  # noqa
+    got = kernel(*tabs, offs, levels)
+    want = plain(*tabs, offs, levels)
     err = max(float((g.float() - w.float()).abs().max())
               for g, w in zip(got, want))
     same = all(differing_bits(g, w) == 0 for g, w in zip(got, want))
     del got, want
-    times = (cuda_ms(lambda: deform_conv.deform_sample_pair(
-                 ta, tb, offs, levels), reps),
-             cuda_ms(lambda: deform_conv.deform_sample_pair_plain(
-                 ta, tb, offs, levels), 2))
-    del ta, tb, offs
+    times = (cuda_ms(lambda: kernel(*tabs, offs, levels), reps),
+             cuda_ms(lambda: plain(*tabs, offs, levels), 2))
+    del tabs, offs
     torch.cuda.empty_cache()
     return (err, same), times
 
 
-def grid_sample_check(dev, rows, levels, backward: bool):
+def grid_sample_check(dev, rows, levels, backward: bool, n_tables=2):
     """torch's grid_sample over the paired DCN's sample points (bilinear,
     zero padding; a pixel x lies at (2 x + 1) / w - 1), both
     tables as one 2C-channel map, one call per pyramid level; backward:
     its autograd backward (aten.grid_sampler_2d_backward).  Returns (max
     |grid_sample - plain version| in f32 over the outputs, relative to
     each output's largest element for the backward; the time of the calls
-    in bf16).  Offset grads are compared at samples more than CELL_EDGE
+    in bf16).  n_tables 1: the single DCN, one C-channel map.  Offset grads are compared at samples more than CELL_EDGE
     from a pixel line only: there the gradient jumps from one cell's
     difference to the next, and the two formulations round the position
     differently."""
@@ -964,10 +1035,11 @@ def grid_sample_check(dev, rows, levels, backward: bool):
     c, k = 256, 9
     errs, ms = [], None
     for dt in (torch.float32, torch.bfloat16):
-        ta, tb = (torch.randn(rows, c, device=dev).to(dt) for _ in range(2))
+        tabs = [torch.randn(rows, c, device=dev).to(dt)
+                for _ in range(n_tables)]
         offs = (torch.randn(rows, 2 * k, device=dev) * 3).to(dt)
-        ga, gb = ((torch.randn(rows, k * c, device=dev).to(dt)
-                   for _ in range(2)) if backward else (None, None))
+        grads = ([torch.randn(rows, k * c, device=dev).to(dt)
+                  for _ in range(n_tables)] if backward else None)
         base = deform_conv.dcn_base_offset(3).to(dev).view(k, 2)
         calls, start, edge = [], 0, []
         for b, h, w in levels:
@@ -980,12 +1052,13 @@ def grid_sample_check(dev, rows, levels, backward: bool):
             frac = torch.stack([py, px], -1).frac().abs()
             edge.append((torch.minimum(frac, 1 - frac) < CELL_EDGE).any(-1)
                         .reshape(-1, k).repeat_interleave(2, 1))
-            x = torch.cat([ta[start:start + n], tb[start:start + n]], 1)
-            x = x.view(b, h, w, 2 * c).permute(0, 3, 1, 2).contiguous()
+            x = torch.cat([t[start:start + n] for t in tabs], 1)
+            x = x.view(b, h, w, n_tables * c).permute(0, 3, 1,
+                                                      2).contiguous()
             g = None
             if backward:
-                g = torch.cat([ga[start:start + n].view(b, h * w * k, c),
-                               gb[start:start + n].view(b, h * w * k, c)], 2)
+                g = torch.cat([gg[start:start + n].view(b, h * w * k, c)
+                               for gg in grads], 2)
                 g = g.permute(0, 2, 1)[..., None].contiguous()
             calls.append((x, grid, g, (b, h, w)))
             start += n
@@ -1004,25 +1077,32 @@ def grid_sample_check(dev, rows, levels, backward: bool):
             break
         outs = library()
         if backward:
-            want = deform_conv.deform_sample_pair_backward_plain(
-                ta, tb, offs, ga, gb, levels)
-            gtab = torch.cat([gx.permute(0, 2, 3, 1).reshape(-1, 2 * c)
+            want = (deform_conv.deform_sample_pair_backward_plain(
+                *tabs, offs, *grads, levels) if n_tables == 2 else
+                deform_conv.deform_sample_backward_plain(
+                    *tabs, offs, *grads, levels))
+            gtab = torch.cat([gx.permute(0, 2, 3, 1).reshape(-1,
+                                                             n_tables * c)
                               for gx, _ in outs])
             goff = torch.cat([
                 (gg.view(b, h, w, k, 2)
                  * torch.tensor([2 / w, 2 / h], device=dev)
                  ).flip(-1).reshape(-1, 2 * k)
                 for (_, gg), (_, _, _, (b, h, w)) in zip(outs, calls)])
-            goff = torch.where(torch.cat(edge), want[2], goff)
-            got = (gtab[:, :c], gtab[:, c:], goff)
+            goff = torch.where(torch.cat(edge), want[-1], goff)
+            got = (*(gtab[:, i * c:(i + 1) * c] for i in range(n_tables)),
+                   goff)
             errs = [float((x - y).abs().max() / y.abs().max())
                     for x, y in zip(got, want)]
         else:
-            want = deform_conv.deform_sample_pair_plain(ta, tb, offs, levels)
-            out = torch.cat([o.permute(0, 2, 1, 3).reshape(-1, k, 2 * c)
+            want = (deform_conv.deform_sample_pair_plain(*tabs, offs, levels)
+                    if n_tables == 2 else
+                    (deform_conv.deform_sample_plain(*tabs, offs, levels),))
+            out = torch.cat([o.permute(0, 2, 1, 3).reshape(-1, k,
+                                                           n_tables * c)
                              for o in outs])
-            got = (out[..., :c].reshape(rows, -1),
-                   out[..., c:].reshape(rows, -1))
+            got = [out[..., i * c:(i + 1) * c].reshape(rows, -1)
+                   for i in range(n_tables)]
             errs = [float((x - y).abs().max()) for x, y in zip(got, want)]
         del calls, outs, want, got
     return max(errs), ms
@@ -1063,10 +1143,9 @@ def train_batch(rng, max_gt):
 def phase_train_kernels(dev, rng):
     """The training step's kernels at its shapes: kernel 1's hulls of the
     B 2 x 37,606 point sets, hull IoU with G 512 gts of which 150 real, and
-    the DCN backward (75,212 rows, C 256)."""
+    the DCN backward, paired and single (75,212 rows, C 256)."""
     from orientedreppoints_tpu_torch.core import points
-    from orientedreppoints_tpu_torch.ops import (deform_conv, hull_iou,
-                                                 minarearect)
+    from orientedreppoints_tpu_torch.ops import hull_iou, minarearect
     res = {}
     b = TRAIN_BATCH
     n = sum(h * w for _, h, w in TRAIN_LEVELS)
@@ -1154,38 +1233,58 @@ def phase_train_kernels(dev, rng):
 
     rows = sum(bb * h * w for bb, h, w in TRAIN_LEVELS)
     c, k = 256, 9
+    for n_tables, name in ((2, "deform_sample_pair_backward"),
+                           (1, "deform_sample_backward")):
+        res[name] = dcn_backward_case(dev, rows, c, k, n_tables, name)
+    return res
+
+
+def dcn_backward_case(dev, rows, c, k, n_tables, name):
+    """The DCN backward kernel (paired, or the single-table entry) against
+    its plain version at the training step's shape, f32 and bf16 tables
+    with f32 sample grads, each output against its own largest element;
+    timed beside grid_sampler_2d_backward."""
+    from orientedreppoints_tpu_torch.ops import deform_conv
+
+    if n_tables == 2:
+        kernel = deform_conv.deform_sample_pair_backward
+        plain = deform_conv.deform_sample_pair_backward_plain
+    else:
+        kernel = deform_conv.deform_sample_backward
+        plain = deform_conv.deform_sample_backward_plain
     errs, times = {}, {}
     for dt in (torch.float32, torch.bfloat16):
-        ta, tb = (torch.randn(rows, c, device=dev).to(dt) for _ in range(2))
+        tabs = [torch.randn(rows, c, device=dev).to(dt)
+                for _ in range(n_tables)]
         offs = (torch.randn(rows, 2 * k, device=dev) * 3).to(dt)
         # the sample grads come from the autograd node's f32 matmul
-        ga, gb = (torch.randn(rows, k * c, device=dev) for _ in range(2))
-        args = (ta, tb, offs, ga, gb, TRAIN_LEVELS)
-        got = deform_conv.deform_sample_pair_backward(*args)
-        want = deform_conv.deform_sample_pair_backward_plain(*args)
-        name = str(dt).split(".")[-1]
-        errs[name] = [(float((x.float() - y.float()).abs().max()),
-                       max(float(y.float().abs().max()), 1e-30),
-                       str(x.dtype).split(".")[-1])
-                      for x, y in zip(got, want)]
+        grads = [torch.randn(rows, k * c, device=dev)
+                 for _ in range(n_tables)]
+        args = (*tabs, offs, *grads, TRAIN_LEVELS)
+        got = kernel(*args)
+        want = plain(*args)
+        dname = str(dt).split(".")[-1]
+        errs[dname] = [(float((x.float() - y.float()).abs().max()),
+                        max(float(y.float().abs().max()), 1e-30),
+                        str(x.dtype).split(".")[-1])
+                       for x, y in zip(got, want)]
         del got, want
-        times[name] = (
-            cuda_ms(lambda: deform_conv.deform_sample_pair_backward(*args), 5),
-            cuda_ms(lambda: deform_conv.deform_sample_pair_backward_plain(
-                *args), 1))
-        del args, ta, tb, offs, ga, gb
+        times[dname] = (cuda_ms(lambda: kernel(*args), 5),
+                        cuda_ms(lambda: plain(*args), 1))
+        del args, tabs, offs, grads
         torch.cuda.empty_cache()
     ok = all(e <= DCN_BWD_RTOL[dt] * scale
-             for name in errs for e, scale, dt in errs[name])
+             for dname in errs for e, scale, dt in errs[dname])
     lib_err, lib_ms = grid_sample_check(dev, rows, TRAIN_LEVELS,
-                                        backward=True)
+                                        backward=True, n_tables=n_tables)
     torch.cuda.empty_cache()
-    res["deform_sample_pair_backward"] = dict(
+    out = dict(
         max_abs_err=max(e for e, _, _ in errs["bfloat16"]),
         ok=ok and lib_err <= LIBRARY_TOL,
         ms=times["bfloat16"][0], plain_ms=times["bfloat16"][1],
-        library_ms=lib_ms, **bound(*dcn_bytes_ops(rows, c, k, 2, True)))
-    say("kernel", name="deform_sample_pair_backward", rows=rows, channels=c,
+        library_ms=lib_ms,
+        **bound(*dcn_bytes_ops(rows, c, k, 2, True, n_tables=n_tables)))
+    say("kernel", name=name, rows=rows, channels=c,
         max_abs_err_f32=[e for e, _, _ in errs["float32"]],
         max_abs_err_bf16=[e for e, _, _ in errs["bfloat16"]],
         grad_scale_f32=[s for _, s, _ in errs["float32"]],
@@ -1195,9 +1294,75 @@ def phase_train_kernels(dev, rng):
         plain_ms_bf16=times["bfloat16"][1],
         library="aten.grid_sampler_2d_backward, one call per level, bf16",
         library_max_rel_err_f32=lib_err, library_tol=LIBRARY_TOL,
-        **{k: res["deform_sample_pair_backward"][k] for k in
+        **{key: out[key] for key in
            ("library_ms", "bound_ms", "bound_by", "ok")})
-    return res
+    return out
+
+
+def phase_dcn_single(dev, ops_mod, card):
+    """The single DCNv1's entry, deform_conv2d_pyramid, forward and
+    backward at the training step's pyramid (75,212 rows, C 256 -> 256,
+    bf16 features and offsets, an f32 weight), counted: the two
+    single-table kernels launch once each; then the same through their
+    plain versions: the outputs and the weight's grad bit for bit, the
+    feature and offset grads within DCN_BWD_RTOL of their largest element
+    (the backward's f32 atomics); the op's ms (host clock, both
+    passes)."""
+    from orientedreppoints_tpu_torch.ops import deform_conv
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(*shape, device=dev, generator=gen) * scale)
+
+    feats = [randn(b, h, w, 256).to(torch.bfloat16)
+             for b, h, w in TRAIN_LEVELS]
+    offs = [randn(b, h, w, 18, scale=3.0).to(torch.bfloat16)
+            for b, h, w in TRAIN_LEVELS]
+    weight = randn(9, 256, 256, scale=0.02)
+    cots = [randn(b, h, w, 256).to(torch.bfloat16)
+            for b, h, w in TRAIN_LEVELS]
+
+    def run():
+        leaves = [t.detach().requires_grad_(True)
+                  for t in feats + offs + [weight]]
+        n = len(feats)
+        t0 = time.perf_counter()
+        outs = deform_conv.deform_conv2d_pyramid(leaves[:n],
+                                                 leaves[n:2 * n], leaves[-1])
+        torch.autograd.backward(outs, cots)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        return [o.detach() for o in outs], [t.grad for t in leaves], ms
+
+    run()  # warm-up
+    ops_mod.reset_launch_counts()
+    outs, grads, ms = run()
+    launches = ops_mod.launch_counts()
+    with swapped([(deform_conv, "deform_sample",
+                   deform_conv.deform_sample_plain),
+                  (deform_conv, "deform_sample_backward",
+                   deform_conv.deform_sample_backward_plain)]):
+        outs_p, grads_p, plain_ms = run()
+    outs_equal = all(torch.equal(a, b) for a, b in zip(outs, outs_p))
+    weight_equal = torch.equal(grads[-1], grads_p[-1])
+    rel = [float((a.float() - b.float()).abs().max()
+                 / b.float().abs().max().clamp_min(1e-30))
+           for a, b in zip(grads[:-1], grads_p[:-1])]
+    finite = all(bool(torch.isfinite(t.float()).all()) for t in outs + grads)
+    ok = (launches["deform_sample"] == 1
+          and launches["deform_sample_backward"] == 1 and finite
+          and outs_equal and weight_equal
+          and max(rel) <= DCN_BWD_RTOL["bfloat16"])
+    say("dcn_single", rows=sum(b * h * w for b, h, w in TRAIN_LEVELS),
+        channels=256, out_channels=256, dtype="bfloat16", launches={
+            k: launches[k] for k in ("deform_sample",
+                                     "deform_sample_backward")},
+        outputs_bit_equal=outs_equal, weight_grad_bit_equal=weight_equal,
+        grad_max_rel_err=max(rel), rtol=DCN_BWD_RTOL["bfloat16"],
+        finite=finite, fwd_bwd_ms=ms, plain_fwd_bwd_ms=plain_ms, card=card,
+        ok=ok)
+    return ok, launches
 
 
 @contextlib.contextmanager
@@ -2254,6 +2419,8 @@ def phase_slice(dev, rng, ops_mod, card, config=CONFIG, phase="slice"):
         images_per_s_median=statistics.median(ips), images_per_s=ips,
         backbone_ms=backbone_ms, max_memory_allocated_bytes=peak,
         card=card, ok=ok)
+    SUMMARY[phase] = dict(images_per_s_median=statistics.median(ips),
+                          backbone_ms=backbone_ms)
     return ok, launches, pred, first_outs
 
 
@@ -2581,6 +2748,7 @@ def phase_train(dev, ops_mod, card, sd, batch, config=CONFIG,
         trainable_tensors=trainable, trainable_unchanged=unchanged,
         unchanged_zero_without_grad=unreached, finite=finite, card=card,
         ok=ok)
+    SUMMARY[phase] = dict(step_ms_median=med * 1e3)
     return ok, launches
 
 
@@ -2816,11 +2984,12 @@ def resumed_epoch(cfg, ds, dev, ckpt, ckpt_dir, on_step=None,
     return (model, opt, sched, step), loaded, model_state(model)
 
 
-def checked_step(routes, loader, step, phase: str) -> dict:
+def checked_step(routes, loader, step, phase: str, timed=True) -> dict:
     """One step on the loader's next batch with every training kernel's
-    entry checked against its plain version on the same inputs, then each
-    kernel timed at the inputs of its first call -> {name: dict(calls, ok,
-    checks, ms, plain_ms)}, each printed under `phase`."""
+    entry checked against its plain version on the same inputs, then
+    (timed) each kernel and its plain version timed at the inputs of its
+    first call -> {name: dict(calls, ok, checks, ms, plain_ms)}, each
+    printed under `phase`."""
     checks = {name: [] for name in routes}
     calls = {}
 
@@ -2843,8 +3012,9 @@ def checked_step(routes, loader, step, phase: str) -> dict:
             calls=len(checks[name]),
             ok=bool(checks[name]) and all(c["ok"] for c in checks[name]),
             checks=checks[name][:2],
-            ms=cuda_ms(lambda: entry(*args, **kwargs), 10),
-            plain_ms=cuda_ms(lambda: plain(*args, **kwargs), 1))
+            ms=cuda_ms(lambda: entry(*args, **kwargs), 10) if timed else None,
+            plain_ms=(cuda_ms(lambda: plain(*args, **kwargs), 1) if timed
+                      else None))
         say(phase, name=name, **shapes[name])
     return shapes
 
@@ -3171,6 +3341,185 @@ def phase_hard_aug_train(dev, ops_mod, card):
         finite=finite, phase_s=time.perf_counter() - t_phase, card=card,
         ok=ok)
     return ok, launches
+
+
+# phase configs: the configs that had never run on the card, each at its
+# own widths, batch, canvas, max_gt / max_pos, optimizer, schedule and
+# pipelines, on one shared set of hard tiles (ship-only for the HRSC one)
+CONFIGS_PHASE = ("synth_r18_512_hard_aug", "synth_swin_512_hard_aug",
+                 "synth_r101_512_hard_aug", "synth_r50_1024_hard_aug",
+                 "synth_r18_512_hard_aug_mp1024", "synth_r18_512_hrsc_aug",
+                 "orientedreppoints_r50_mosaic")
+CONFIGS_SCENES = 4  # hard train scenes of EVAL_SCENE_SIZE^2: 16 tiles
+CONFIGS_SHIP_SCENES = 2  # ship-only train scenes: 8 tiles
+CONFIGS_VAL_SCENES = 1  # val scenes a kind: 4 tiles, all scored
+
+
+def render_tiles(wd, split, scenes, seed, prefix, specs=None):
+    """scenes hard (or specs') scenes of EVAL_SCENE_SIZE^2 rendered under
+    wd/split_raw and cut into EVAL_SUBSIZE^2 tiles with their json ->
+    (scene names, json path, tile image folder)."""
+    from orientedreppoints_tpu_torch.data.synth import generate_synth_dota
+    from orientedreppoints_tpu_torch.devkit.dota2coco import dota2coco_train
+    from orientedreppoints_tpu_torch.devkit.img_split import ImgSplit
+
+    raw = os.path.join(wd, f"{split}_raw")
+    tiles = os.path.join(wd, f"{split}_split")
+    names = generate_synth_dota(raw, scenes, size=EVAL_SCENE_SIZE,
+                                n_objects=EVAL_OBJECTS, seed=seed,
+                                prefix=prefix, hard=specs is None,
+                                specs=specs)
+    ImgSplit(raw, tiles, gap=EVAL_GAP, subsize=EVAL_SUBSIZE, ext=".npy",
+             num_process=1).splitdata()
+    ann = dota2coco_train(tiles, os.path.join(wd, f"{split}.json"),
+                          ext=".npy")
+    return names, ann, os.path.join(tiles, "images")
+
+
+def config_run(name, data, dev, ops_mod, card, wd):
+    """One config of CONFIGS_PHASE through the port's entry points: its
+    seeded initial weights (a Swin's biases drawn as perturbed_weights
+    draws them), its train dataset and loader on the shared tiles, its
+    recipe; a warm-up step and a counted one through apis.train_epochs,
+    one step with each training kernel's entry held against its plain
+    version, then run_inference over the val tiles with its test pipeline
+    and canvas (counted), Task1 files, merge and Task1 mAP / mAOE, and
+    apis.evaluate_results -> (ok, launches of the step, of the eval)."""
+    from orientedreppoints_tpu_torch import apis
+    from orientedreppoints_tpu_torch.data.synth import SYNTH_HARD_CLASS_SPECS
+    from orientedreppoints_tpu_torch.devkit import evaluation, result_merge
+    from orientedreppoints_tpu_torch.devkit.dota_utils import DOTA10_CLASSES
+    from orientedreppoints_tpu_torch.host import load_config
+
+    t_run = time.perf_counter()
+    config = f"configs/dota/{name}.py"
+    cfg = load_config(config)
+    kind = "ship" if "hrsc" in name else "hard"
+    train_ann, train_imgs, val_names, val_ann, val_imgs = data[kind]
+    cfg["data"]["train"].update(ann_file=train_ann, img_prefix=train_imgs)
+    cfg["data"]["test"].update(ann_file=val_ann, img_prefix=val_imgs,
+                               test_mode=True)
+    tpu = cfg["tpu"]
+    model, _ = apis.init_detector(cfg, compute_dtype=tpu["compute_dtype"],
+                                  device=dev, seed=SEED)
+    if model.backbone_type == "swin":
+        rng = np.random.default_rng(SEED + 11)
+        with torch.no_grad():
+            for k, v in model.backbone.named_parameters():
+                if v.dim() == 1:
+                    v += torch.from_numpy(rng.normal(
+                        0.0, SWIN_NORM_STD, v.shape).astype(np.float32)).to(
+                            dev, v.dtype)
+    ds = train_dataset(cfg)
+    loader = apis.build_dataloader(ds, cfg, seed=SEED)
+    opt, sched, step = apis.build_trainer(model, cfg, len(loader), seed=SEED)
+    records, warmed = [], []
+
+    def on_step(epoch, losses, stats, batch):
+        if not warmed:  # the warm-up step: count from the next one
+            warmed.append(True)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ops_mod.reset_launch_counts()
+            return
+        records.append(dict(
+            {k: float(v) for k, v in losses.items()},
+            refine_pos=int((stats["gt_inds"] > 0).sum()),
+            gts=int(batch["gt_valid"].sum())))
+
+    run = apis.train_epochs(model, loader, step, opt, sched,
+                            os.path.join(wd, "ckpts", name), 10, max_iters=2,
+                            ckpt_interval=100, on_step=on_step)
+    launches = ops_mod.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    step_s, wait_s = run["step_s"][-1], run["wait_s"][-1]
+    grads_finite = all(bool(torch.isfinite(p.grad).all())
+                       for p in model.parameters() if p.grad is not None)
+    loader.epoch = run["epoch"] + 1
+    # the kernels' times at these shapes are the kernel phases' business;
+    # timing the plain versions here (the mosaic config's batch 8 at 1344^2)
+    # would cost ~20 s and tens of GB
+    shapes = checked_step(synth_kernel_routes(), loader, step,
+                          "configs_kernel", timed=False)
+
+    # the test pipeline and canvas over the val tiles, counted
+    val_ds = apis.build_dataset(cfg["data"]["test"])
+    canvas = tuple(tpu["canvas_buckets"][-1])
+    model.eval()
+    ops_mod.reset_launch_counts()
+    t0 = time.perf_counter()
+    results = apis.run_inference(model, val_ds, cfg["test_cfg"],
+                                 canvas=canvas, num_fg=len(val_ds.CLASSES))
+    torch.cuda.synchronize()
+    infer_s = time.perf_counter() - t0
+    launches_eval = ops_mod.launch_counts()
+    raw, merged = (os.path.join(wd, name, d) for d in ("raw", "merged"))
+    result_merge.write_task1_results(results, DOTA10_CLASSES, raw)
+    result_merge.merge_by_poly(raw, merged, num_process=1)
+    task1_files = sorted(os.listdir(merged))
+    detpath = os.path.join(merged, "Task1_{:s}.txt")
+    annopath = os.path.join(wd, f"{kind}_val_raw", "labelTxt", "{:s}.txt")
+    classnames = list(SYNTH_HARD_CLASS_SPECS) if kind == "hard" else ["ship"]
+    mAP, _ = evaluation.eval_dota_task1(detpath, annopath, val_names,
+                                        classnames=classnames,
+                                        use_07_metric=False)
+    mAOE, _ = evaluation.eval_maoe(detpath, annopath, val_names,
+                                   classnames=classnames, ovthresh=0.7)
+    tile_map, _ = apis.evaluate_results(results, val_ds)
+
+    finite = grads_finite and all(np.isfinite(v) for r in records
+                                  for v in r.values())
+    ok = (finite and len(records) == 1
+          and all(launches[k] > 0 for k in TRAIN_KERNELS)
+          and all(v["ok"] for v in shapes.values())
+          and all(launches_eval[k] > 0 for k in SERVING_KERNELS)
+          and len(results) == len(val_ds) and bool(task1_files)
+          and task1_files == sorted(os.listdir(raw)))
+    say("configs", config=name, backbone=cfg["model"]["backbone"]["type"],
+        optimizer=cfg["optimizer"]["type"], canvas=canvas,
+        batch=tpu["global_batch_size"], max_gt=tpu["max_gt"],
+        max_pos=tpu["max_pos"], tiles=len(ds), losses=records,
+        step_ms=step_s * 1e3, loader_wait_share=wait_s / (wait_s + step_s),
+        peak_gb=peak / 1e9, launches=launches, grads_finite=grads_finite,
+        kernels_ok={k: v["ok"] for k, v in shapes.items()},
+        val_tiles=len(val_ds), infer_s=infer_s,
+        launches_eval=launches_eval, task1_files=len(task1_files),
+        mAP=mAP, mAOE_deg=mAOE, tile_mAP=tile_map,
+        seconds=time.perf_counter() - t_run, card=card, ok=ok)
+    return ok, launches, launches_eval
+
+
+def phase_configs(dev, ops_mod, card):
+    """Every config of CONFIGS_PHASE (config_run) on one set of hard tiles
+    (CONFIGS_SCENES scenes, 768^2, cut into 512^2 tiles; each config's
+    pipeline resizes them) and ship-only ones for the HRSC config, and a
+    val scene of each kind.  Random weights: mAP and mAOE are read, not
+    gated -> (ok, [launches of each counted run])."""
+    from orientedreppoints_tpu_torch.data.synth import SYNTH_CLASS_SPECS
+
+    t_phase = time.perf_counter()
+    ships = {"ship": SYNTH_CLASS_SPECS["ship"]}
+    oks, runs = [], []
+    with tempfile.TemporaryDirectory() as wd:
+        data = {}
+        for kind, scenes, specs in (("hard", CONFIGS_SCENES, None),
+                                    ("ship", CONFIGS_SHIP_SCENES, ships)):
+            _, train_ann, train_imgs = render_tiles(
+                wd, f"{kind}_train", scenes, SEED, "T", specs)
+            val_names, val_ann, val_imgs = render_tiles(
+                wd, f"{kind}_val", CONFIGS_VAL_SCENES, EVAL_SEED, "V", specs)
+            data[kind] = (train_ann, train_imgs, val_names, val_ann,
+                          val_imgs)
+        data_s = time.perf_counter() - t_phase
+        for name in CONFIGS_PHASE:
+            ok, launches, launches_eval = config_run(name, data, dev, ops_mod,
+                                                     card, wd)
+            oks.append(ok)
+            runs += [launches, launches_eval]
+            torch.cuda.empty_cache()
+    say("configs_phase", configs=len(CONFIGS_PHASE), data_s=data_s,
+        phase_s=time.perf_counter() - t_phase, ok=all(oks))
+    return all(oks), runs
 
 
 def cpu_quota() -> str | None:
@@ -4359,7 +4708,10 @@ EXPORT_REPS = 3
 FLOPS_CASES = ((CONFIG, (1024, 1024)), (CONFIG, (1344, 1344)),
                (SWIN_CONFIG, (1024, 1024)), (SWIN_CONFIG, (1344, 1344)))
 # the four serving kernels' __global__ functions (csrc/*.cu), looked for
-# among the trace's CUDA events
+# among the trace's CUDA events; each must be there.  The DCN's other
+# kernels, which a serving batch does not launch, are deform_sample_kernel
+# (the single table) and deform_sample{_pair,}_bwd_{tile,scalar} (the
+# backward): no name is a substring of another's
 TRACE_KERNELS = {"min_area_rect": "mar_kernel",
                  "quad_over_mask": "quad_over_kernel",
                  "nms_scan": "nms_scan_kernel",
@@ -4505,9 +4857,9 @@ def trace_reading(path: str) -> tuple[set, dict]:
 def phase_profile(pred, images):
     """utils/collect_env's report, then utils/profiling.trace around one
     slice batch with annotate ranges around the forward and the decode:
-    the written trace must hold both ranges; whether each serving kernel's
-    launches (ctypes, the library's own CUDA runtime) show among its CUDA
-    events is read, not gated; profile_time's line."""
+    the written trace must hold both ranges and a CUDA event of each
+    serving kernel (launched through ctypes, on the library's own CUDA
+    runtime); profile_time's line."""
     import logging
 
     from orientedreppoints_tpu_torch.models.detector import decode_detections
@@ -4542,7 +4894,8 @@ def phase_profile(pred, images):
             "slice_batch_synced", stream=dets, logger=logger):
         pred.model(imgs)
     logger.removeHandler(handler)
-    ok = ranges == set(TRACE_RANGES) and len(lines) == 2
+    ok = (ranges == set(TRACE_RANGES) and len(lines) == 2
+          and all(n > 0 for n in kernels.values()))
     say("profile", ranges=sorted(ranges),
         kernel_events_in_trace=kernels, profile_time_lines=lines, ok=ok)
     return ok
@@ -4551,7 +4904,14 @@ def phase_profile(pred, images):
 def phase_flops(dev, card):
     """tools/get_flops_torch.py's count for the R-50 demo and Swin-T at
     1024^2 and 1344^2 on the card: params, forward GFLOPs, the counted
-    forward's seconds."""
+    forward's seconds; and parallel/train.step_cost_analysis of each
+    one's train step (bf16, 1344^2, batch 2, a seeded batch of the train
+    phase's kind): the step's GFLOPs, above the forward's, the model
+    unchanged after it."""
+    from orientedreppoints_tpu_torch.host import load_config
+    from orientedreppoints_tpu_torch.parallel.train import (
+        step_cost_analysis, to_device)
+
     tool = load_tool("get_flops_torch")
     ok, rows = True, []
     for config, shape in FLOPS_CASES:
@@ -4565,7 +4925,26 @@ def phase_flops(dev, card):
     # pixels
     for a, b in zip(rows[0::2], rows[1::2]):
         ok &= a["params_m"] == b["params_m"] and b["gflops"] > a["gflops"]
-    say("flops", cases=rows, card=card, ok=ok)
+    rng = np.random.default_rng(SEED + 12)
+    steps = []
+    for config, fwd in ((CONFIG, rows[1]), (SWIN_CONFIG, rows[3])):
+        model, step = build_trainer(perturbed_weights(rng, config),
+                                    "bfloat16", dev, config)
+        batch = to_device(train_batch(rng, load_config(config)["tpu"][
+            "max_gt"]), dev)
+        before = model_state(model)
+        t0 = time.perf_counter()
+        flops = step_cost_analysis(step, batch)
+        secs = time.perf_counter() - t0
+        same = same_states(before, model_state(model))
+        ok &= flops > fwd["gflops"] * 1e9 * TRAIN_BATCH and same
+        steps.append(dict(config=config, batch=TRAIN_BATCH,
+                          canvas=TRAIN_CANVAS, step_gflops=flops / 1e9,
+                          forward_gflops_batch=fwd["gflops"] * TRAIN_BATCH,
+                          model_unchanged=same, counter_s=secs))
+        del model, step, batch, before
+        torch.cuda.empty_cache()
+    say("flops", cases=rows, steps=steps, card=card, ok=ok)
     return ok
 
 
@@ -4627,11 +5006,13 @@ def main() -> int:
     rng_hrnet = np.random.default_rng(SEED + 5)
     rng_ssd = np.random.default_rng(SEED + 6)
     rng_resnext = np.random.default_rng(SEED + 7)
+    rng_r101 = np.random.default_rng(SEED + 10)
     kernels = phase_kernels(dev, rng)
     train_res = phase_train_kernels(dev, rng_train)
     kernels["min_area_rect"]["ok"] &= train_res.pop(
         "min_area_rect_train")["ok"]
     kernels.update(train_res)
+    ok_dcn_single, launches_dcn_single = phase_dcn_single(dev, ops_mod, card)
     quad_res, ok_entries = phase_quad_kernels(dev, rng_quad)
     kernels.update(quad_res)
     ok_host = phase_host(dev, rng_host)
@@ -4661,10 +5042,12 @@ def main() -> int:
     ok_swin_decode = phase_decode(pred, outs, "swin_decode")
     del pred, outs
     torch.cuda.empty_cache()
-    ok_more, launches_more = [], []  # HRNet, SSD-VGG, ResNeXt serving
+    # HRNet, SSD-VGG, ResNeXt and R-101 serving
+    ok_more, launches_more = [], []
     serving = (("hrnet", HRNET_CONFIG, rng_hrnet),
                ("ssd_vgg", SSD_VGG_CONFIG, rng_ssd),
-               ("resnext", resnext_config(), rng_resnext))
+               ("resnext", resnext_config(), rng_resnext),
+               ("r101", R101_CONFIG, rng_r101))
     for name, config, rng_bb in serving:
         ok_bb, launches_bb, pred, outs = phase_slice(dev, rng_bb, ops_mod,
                                                      card, config, name)
@@ -4711,7 +5094,8 @@ def main() -> int:
                                       "swin_train_check")
     torch.cuda.empty_cache()
     for name, config, rng_bb in (("hrnet", HRNET_CONFIG, rng_hrnet),
-                                 ("ssd_vgg", SSD_VGG_CONFIG, rng_ssd)):
+                                 ("ssd_vgg", SSD_VGG_CONFIG, rng_ssd),
+                                 ("r101", R101_CONFIG, rng_r101)):
         sd = perturbed_weights(rng_bb, config)
         ok_bb, launches_bb = phase_train(dev, ops_mod, card, sd, batch,
                                          config, f"{name}_train")
@@ -4726,6 +5110,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     ok_hard_aug, launches_hard_aug = phase_hard_aug_train(dev, ops_mod, card)
     torch.cuda.empty_cache()
+    ok_configs, launches_configs = phase_configs(dev, ops_mod, card)
+    torch.cuda.empty_cache()
     ok_dota, launches_dota, launches_dota_train = phase_dota_input(
         dev, ops_mod, card)
     torch.cuda.empty_cache()
@@ -4733,18 +5119,19 @@ def main() -> int:
 
     # launches: each kernel's count over the counted runs of the paths
     # that run it (serving, training, TTA, the IoU path, eval, Swin,
-    # HRNet, SSD-VGG and ResNeXt serving, Swin, HRNet and SSD-VGG
-    # training, the DOTA input's serving and training, the robustness
-    # settings, the chunked phase's scoring, nms_hbb's scan, the exported
-    # program, the sanity run, show_points_and_boxes); the single-image
-    # over-mask is the TTA
-    # run's over-mask count
+    # HRNet, SSD-VGG, ResNeXt and R-101 serving, Swin, HRNet, SSD-VGG and
+    # R-101 training, the DOTA input's serving and training, the
+    # robustness settings, the chunked phase's scoring, nms_hbb's scan,
+    # the exported program, the sanity run, show_points_and_boxes, the
+    # single DCNv1's entry, the configs phase's steps and eval passes);
+    # the single-image over-mask is the TTA run's over-mask count
     runs = (launches, launches_train, launches_tta, launches_iou,
             launches_eval, launches_hard, launches_hard_tta, launches_synth,
             launches_hard_aug, launches_swin, launches_swin_train,
             launches_dota, launches_dota_train, launches_shard, launches_ddp,
             launches_robust, launches_chunked, launches_hbb, launches_export,
-            launches_sanity, launches_visual, *launches_more)
+            launches_sanity, launches_visual, launches_dcn_single,
+            *launches_configs, *launches_more)
     single = (launches_tta, launches_hard_tta)  # the single-image entry
     counts = {name: sum(r[name] for r in runs) for name in ops_mod.KERNELS}
     counts["quad_over_mask"] = sum(
@@ -4754,6 +5141,9 @@ def main() -> int:
                                           for r in single)
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
+    say("r101_vs_r50", card=card, **{
+        phase: SUMMARY[phase] for phase in ("slice", "r101", "train",
+                                            "r101_train")})
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=SOURCES[name][0],
              replaces=SOURCES[name][1], launches=counts[name],
@@ -4767,7 +5157,8 @@ def main() -> int:
             and ok_chunked and ok_hbb and ok_export and ok_profile
             and ok_flops and ok_sanity and ok_visual
             and ok_swin and ok_swin_decode and ok_swin_train
-            and ok_swin_check and ok_shard and ok_ddp and all(ok_more)):
+            and ok_swin_check and ok_shard and ok_ddp and all(ok_more)
+            and ok_dcn_single and ok_configs):
         print("chip_smoke: a phase failed", file=sys.stderr)
         return 1
     print(json.dumps({"ok": True, "device": {

@@ -15,6 +15,13 @@
 // weights with torch.matmul outside this kernel, as the JAX package leaves
 // that einsum to XLA.
 //
+// The work is a template on the table count NT, launched under one kernel
+// name a count (deform_sample_pair_kernel, deform_sample_kernel), so that
+// a trace tells them apart.  NT = 1 is the single DCNv1 (deform_conv2d /
+// deform_conv2d_pyramid, the sampling of JAX's bilinear_gather and its
+// _pyramid_plan takes): one table, one buffer,
+// half the pair's gathers and stores, the same plan and arithmetic.
+//
 // Bound on the H100: memory.  At 1344^2, batch 4, C = 256 in bf16 (150,424
 // rows, 1.35M samples) it writes two 693 MB im2col buffers, 1.39 GB of the
 // 1.55 GB it must move (0.461 ms at 3.35 TB/s), and gathers 4 corners x 2
@@ -174,14 +181,12 @@ __device__ __forceinline__ Tap plan_tap(int k, int K, int ks, float off,
 // One warp per row.  The lanes split into 32 / lanes_per_tap groups of
 // lanes_per_tap lanes; group i takes taps i, i + groups, ...; its lanes
 // walk the tap's C / E chunks of E channels.
-template <typename T, int E>
-__global__ void __launch_bounds__(WARPS * 32, MIN_BLOCKS)
-    deform_sample_pair_kernel(const T* __restrict__ table_a,
-                              const T* __restrict__ table_b,
-                              const T* __restrict__ offsets, Levels lv,
-                              T* __restrict__ out_a, T* __restrict__ out_b,
-                              int rows, int C, int K, int ks,
-                              int lanes_per_tap) {
+template <typename T, int E, int NT>
+__device__ __forceinline__ void sample_rows(
+    const T* __restrict__ table_a, const T* __restrict__ table_b,
+    const T* __restrict__ offsets, const Levels& lv, T* __restrict__ out_a,
+    T* __restrict__ out_b, int rows, int C, int K, int ks,
+    int lanes_per_tap) {
   using Ch = Chunk<T, E>;
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * WARPS + (threadIdx.x >> 5);
@@ -216,7 +221,7 @@ __global__ void __launch_bounds__(WARPS * 32, MIN_BLOCKS)
       for (int c = 0; c < 4; ++c) {
         const size_t at = (size_t)t.row[c] * C + (size_t)ch * E;
         ra[c] = Ch::load(table_a + at);
-        rb[c] = Ch::load(table_b + at);
+        if constexpr (NT == 2) rb[c] = Ch::load(table_b + at);
       }
       float va[E], vb[E];
 #pragma unroll
@@ -230,20 +235,43 @@ __global__ void __launch_bounds__(WARPS * 32, MIN_BLOCKS)
 #pragma unroll
           for (int i = 0; i < E; ++i) {
             va[i] += Ch::get(ra[c], i) * t.cw[c];
-            vb[i] += Ch::get(rb[c], i) * t.cw[c];
+            if constexpr (NT == 2) vb[i] += Ch::get(rb[c], i) * t.cw[c];
           }
         }
       }
       const size_t at = out_row + (size_t)k * C + (size_t)ch * E;
       Ch::store(out_a + at, va);
-      Ch::store(out_b + at, vb);
+      if constexpr (NT == 2) Ch::store(out_b + at, vb);
     }
   }
 }
 
+// The kernels: one __global__ name a table count.
+#define ORP_SAMPLE_KERNEL(NAME, NT)                                          \
+  template <typename T, int E>                                               \
+  __global__ void __launch_bounds__(WARPS * 32, MIN_BLOCKS)                  \
+      NAME(const T* __restrict__ table_a, const T* __restrict__ table_b,     \
+           const T* __restrict__ offsets, Levels lv, T* __restrict__ out_a,  \
+           T* __restrict__ out_b, int rows, int C, int K, int ks,            \
+           int lanes_per_tap) {                                              \
+    sample_rows<T, E, NT>(table_a, table_b, offsets, lv, out_a, out_b, rows, \
+                          C, K, ks, lanes_per_tap);                          \
+  }
+
+ORP_SAMPLE_KERNEL(deform_sample_pair_kernel, 2)
+ORP_SAMPLE_KERNEL(deform_sample_kernel, 1)
+
+template <typename T, int E, int NT>
+auto sample_kernel() {
+  if constexpr (NT == 2)
+    return deform_sample_pair_kernel<T, E>;
+  else
+    return deform_sample_kernel<T, E>;
+}
+
 bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
-template <typename T, int E>
+template <typename T, int E, int NT>
 int launch(const void* table_a, const void* table_b, const void* offsets,
            const int* levels, void* out_a, void* out_b, int rows, int C,
            int K, int num_levels, void* stream) {
@@ -264,18 +292,15 @@ int launch(const void* table_a, const void* table_b, const void* offsets,
     const int chunks = C / E;
     const bool vector = C % E == 0 && chunks > 0 &&
                         (chunks % 32 == 0 || 32 % chunks == 0) &&
-                        aligned16(table_a) && aligned16(table_b) &&
-                        aligned16(out_a) && aligned16(out_b);
-    if (vector)
-      deform_sample_pair_kernel<T, E>
-          <<<blocks, WARPS * 32, 0, (cudaStream_t)stream>>>(
-              (const T*)table_a, (const T*)table_b, (const T*)offsets, lv,
-              (T*)out_a, (T*)out_b, rows, C, K, ks, chunks < 32 ? chunks : 32);
-    else
-      deform_sample_pair_kernel<T, 1>
-          <<<blocks, WARPS * 32, 0, (cudaStream_t)stream>>>(
-              (const T*)table_a, (const T*)table_b, (const T*)offsets, lv,
-              (T*)out_a, (T*)out_b, rows, C, K, ks, 32);
+                        aligned16(table_a) && aligned16(out_a) &&
+                        (NT == 1 || (aligned16(table_b) && aligned16(out_b)));
+    // the 16-byte path, or the scalar loop (E = 1, a lane a channel)
+    const auto kernel = vector ? sample_kernel<T, E, NT>()
+                               : sample_kernel<T, 1, NT>();
+    kernel<<<blocks, WARPS * 32, 0, (cudaStream_t)stream>>>(
+        (const T*)table_a, (const T*)table_b, (const T*)offsets, lv,
+        (T*)out_a, (T*)out_b, rows, C, K, ks,
+        vector && chunks < 32 ? chunks : 32);
   }
   return (int)cudaGetLastError();
 }
@@ -285,29 +310,19 @@ int launch(const void* table_a, const void* table_b, const void* offsets,
 // table_a, table_b (R, C); offsets (R, 2K) (dy, dx) pairs relative to the
 // base grid, 2K <= 32; levels: host int array of (first row, h, w) per
 // level (rows of a level are image-major, then y, then x); out_a, out_b
-// (R, K*C).
-extern "C" int orp_deform_sample_pair_f32(const void* table_a,
-                                          const void* table_b,
-                                          const void* offsets,
-                                          const int* levels, void* out_a,
-                                          void* out_b, int rows, int C, int K,
-                                          int num_levels, int device,
-                                          void* stream) {
-  const DeviceScope scope(device);
-  if (scope.error() != cudaSuccess) return (int)scope.error();
-  return launch<float, 4>(table_a, table_b, offsets, levels, out_a, out_b,
-                          rows, C, K, num_levels, stream);
-}
+// (R, K*C).  The single-table entries take table_a and out_a only.
+#define ORP_DEFORM_SAMPLE(NAME, T, E, NT)                                    \
+  extern "C" int NAME(const void* table_a, const void* table_b,             \
+                      const void* offsets, const int* levels, void* out_a,  \
+                      void* out_b, int rows, int C, int K, int num_levels,  \
+                      int device, void* stream) {                           \
+    const DeviceScope scope(device);                                         \
+    if (scope.error() != cudaSuccess) return (int)scope.error();            \
+    return launch<T, E, NT>(table_a, table_b, offsets, levels, out_a, out_b, \
+                            rows, C, K, num_levels, stream);                 \
+  }
 
-extern "C" int orp_deform_sample_pair_bf16(const void* table_a,
-                                           const void* table_b,
-                                           const void* offsets,
-                                           const int* levels, void* out_a,
-                                           void* out_b, int rows, int C,
-                                           int K, int num_levels, int device,
-                                           void* stream) {
-  const DeviceScope scope(device);
-  if (scope.error() != cudaSuccess) return (int)scope.error();
-  return launch<__nv_bfloat16, 8>(table_a, table_b, offsets, levels, out_a,
-                                  out_b, rows, C, K, num_levels, stream);
-}
+ORP_DEFORM_SAMPLE(orp_deform_sample_pair_f32, float, 4, 2)
+ORP_DEFORM_SAMPLE(orp_deform_sample_pair_bf16, __nv_bfloat16, 8, 2)
+ORP_DEFORM_SAMPLE(orp_deform_sample_f32, float, 4, 1)
+ORP_DEFORM_SAMPLE(orp_deform_sample_bf16, __nv_bfloat16, 8, 1)

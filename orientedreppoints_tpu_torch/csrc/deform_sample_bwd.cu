@@ -55,6 +55,12 @@
 // multiple of CS or a pointer not 16-byte aligned, the launcher takes a
 // scalar kernel instead (one warp a row, lanes walk single channels, f32
 // atomics straight to the scratch), with the same plan and arithmetic.
+// Both kernels' work is a template on the table count NT, launched under
+// one name a count (deform_sample_pair_bwd_{tile,scalar},
+// deform_sample_bwd_{tile,scalar}): NT = 1 is the backward of the single
+// DCNv1 (JAX's autodiff of bilinear_gather under deform_conv2d /
+// deform_conv2d_pyramid), with a (rows, C) scratch, one table's slices and
+// one table's offset-grad sums.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -221,15 +227,12 @@ __device__ __forceinline__ void quad_smem(const float* p, float (&v)[4]) {
   v[3] = r.w;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS, 1)
-    deform_sample_pair_bwd_tile(const T* __restrict__ table_a,
-                                const T* __restrict__ table_b,
-                                const T* __restrict__ offsets,
-                                const float* __restrict__ grad_a,
-                                const float* __restrict__ grad_b, Levels lv,
-                                float* __restrict__ gtab,
-                                T* __restrict__ goff, int C) {
+template <typename T, int NT>
+__device__ __forceinline__ void bwd_tile(
+    const T* __restrict__ table_a, const T* __restrict__ table_b,
+    const T* __restrict__ offsets, const float* __restrict__ grad_a,
+    const float* __restrict__ grad_b, const Levels& lv,
+    float* __restrict__ gtab, T* __restrict__ goff, int C) {
   using Cfg = Tile<T>;
   constexpr int CS = Cfg::CS, LPS = Cfg::LPS, GROUPS = Cfg::GROUPS;
   constexpr int ITERS = Cfg::ITERS;
@@ -257,7 +260,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int wy0 = ty0 - HALO, wx0 = tx0 - HALO;
   const int img_base = lv.start[l] + img * h * w;
   const int tid = threadIdx.x, lane = tid & 31;
-  const int blocks_c = C / CS, slices = 2 * blocks_c;
+  const int blocks_c = C / CS, slices = NT * blocks_c;
   // sample s = pixel * K + tap; its grad row (row * K + tap) or -1
   auto grad_row = [&](int s) {
     const int p = s / TK;
@@ -455,7 +458,7 @@ __global__ void __launch_bounds__(THREADS, 1)
         acc[3] += to_f32(from_f32<T>(g.w)) * cw;
       }
       const int row = img_base + (wy0 + i / WW) * w + wx0 + i % WW;
-      red_v4(gcol + (size_t)row * 2 * C, acc[0], acc[1], acc[2], acc[3]);
+      red_v4(gcol + (size_t)row * NT * C, acc[0], acc[1], acc[2], acc[3]);
     }
     for (int i = grp; i < nfar; i += GROUPS) {
       const int e = CAP - 1 - i;
@@ -464,7 +467,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       const short2 yx = pyx[s];
       const int row = img_base + (yx.x + (c >> 1)) * w + yx.y + (c & 1);
       const float4 g = *reinterpret_cast<const float4*>(gs + s * CS + 4 * q);
-      red_v4(gcol + (size_t)row * 2 * C, to_f32(from_f32<T>(g.x)) * cw,
+      red_v4(gcol + (size_t)row * NT * C, to_f32(from_f32<T>(g.x)) * cw,
              to_f32(from_f32<T>(g.y)) * cw, to_f32(from_f32<T>(g.z)) * cw,
              to_f32(from_f32<T>(g.w)) * cw);
     }
@@ -484,16 +487,13 @@ __global__ void __launch_bounds__(THREADS, 1)
 // ---------------------------------------------------------------------------
 // The scalar kernel (any C, any alignment): one warp a row, lanes walk
 // single channels, f32 atomics straight into the scratch.
-template <typename T>
-__global__ void __launch_bounds__(WARPS * 32)
-    deform_sample_pair_bwd_scalar(const T* __restrict__ table_a,
-                                  const T* __restrict__ table_b,
-                                  const T* __restrict__ offsets,
-                                  const float* __restrict__ grad_a,
-                                  const float* __restrict__ grad_b,
-                                  Levels lv, float* __restrict__ gtab,
-                                  T* __restrict__ goff, int rows, int C,
-                                  int K, int ks) {
+template <typename T, int NT>
+__device__ __forceinline__ void bwd_scalar(
+    const T* __restrict__ table_a, const T* __restrict__ table_b,
+    const T* __restrict__ offsets, const float* __restrict__ grad_a,
+    const float* __restrict__ grad_b, const Levels& lv,
+    float* __restrict__ gtab, T* __restrict__ goff, int rows, int C, int K,
+    int ks) {
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * WARPS + (threadIdx.x >> 5);
   if (row >= rows) return;  // uniform over the warp
@@ -523,24 +523,34 @@ __global__ void __launch_bounds__(WARPS * 32)
     const size_t g_row = ((size_t)row * K + k) * C;
     float sy = 0.f, sx = 0.f;
     for (int ch = lane; ch < C; ch += 32) {
-      const float ga = grad_a[g_row + ch], gb = grad_b[g_row + ch];
+      const float ga = grad_a[g_row + ch];
+      const float gb = NT == 2 ? grad_b[g_row + ch] : 0.f;
       const float ra = to_f32(from_f32<T>(ga)), rb = to_f32(from_f32<T>(gb));
       float va[4], vb[4];
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         va[c] = ok[c] ? to_f32(table_a[(size_t)crow[c] * C + ch]) : 0.f;
-        vb[c] = ok[c] ? to_f32(table_b[(size_t)crow[c] * C + ch]) : 0.f;
+        vb[c] = ok[c] && NT == 2 ? to_f32(table_b[(size_t)crow[c] * C + ch])
+                                 : 0.f;
         if (ok[c] && cw[c] != 0.f) {
-          atomicAdd(gtab + (size_t)crow[c] * 2 * C + ch, ra * cw[c]);
-          atomicAdd(gtab + (size_t)crow[c] * 2 * C + C + ch, rb * cw[c]);
+          atomicAdd(gtab + (size_t)crow[c] * NT * C + ch, ra * cw[c]);
+          if constexpr (NT == 2)
+            atomicAdd(gtab + (size_t)crow[c] * NT * C + C + ch, rb * cw[c]);
         }
       }
       const float ddy_a = (va[2] - va[0]) * one_wx + (va[3] - va[1]) * pl.wx;
       const float ddx_a = (va[1] - va[0]) * one_wy + (va[3] - va[2]) * pl.wy;
-      const float ddy_b = (vb[2] - vb[0]) * one_wx + (vb[3] - vb[1]) * pl.wx;
-      const float ddx_b = (vb[1] - vb[0]) * one_wy + (vb[3] - vb[2]) * pl.wy;
-      sy += ga * ddy_a + gb * ddy_b;
-      sx += ga * ddx_a + gb * ddx_b;
+      if constexpr (NT == 2) {
+        const float ddy_b =
+            (vb[2] - vb[0]) * one_wx + (vb[3] - vb[1]) * pl.wx;
+        const float ddx_b =
+            (vb[1] - vb[0]) * one_wy + (vb[3] - vb[2]) * pl.wy;
+        sy += ga * ddy_a + gb * ddy_b;
+        sx += ga * ddx_a + gb * ddx_b;
+      } else {
+        sy += ga * ddy_a;
+        sx += ga * ddx_a;
+      }
     }
 #pragma unroll
     for (int d = 16; d > 0; d >>= 1) {
@@ -554,9 +564,50 @@ __global__ void __launch_bounds__(WARPS * 32)
   }
 }
 
+// The kernels: one __global__ name a table count and kernel, so that a
+// trace tells the pair's launches from the single table's.
+#define ORP_BWD_KERNELS(PREFIX, NT)                                          \
+  template <typename T>                                                      \
+  __global__ void __launch_bounds__(THREADS, 1) PREFIX##_tile(               \
+      const T* __restrict__ table_a, const T* __restrict__ table_b,          \
+      const T* __restrict__ offsets, const float* __restrict__ grad_a,       \
+      const float* __restrict__ grad_b, Levels lv, float* __restrict__ gtab, \
+      T* __restrict__ goff, int C) {                                         \
+    bwd_tile<T, NT>(table_a, table_b, offsets, grad_a, grad_b, lv, gtab,     \
+                    goff, C);                                                \
+  }                                                                          \
+  template <typename T>                                                      \
+  __global__ void __launch_bounds__(WARPS * 32) PREFIX##_scalar(             \
+      const T* __restrict__ table_a, const T* __restrict__ table_b,          \
+      const T* __restrict__ offsets, const float* __restrict__ grad_a,       \
+      const float* __restrict__ grad_b, Levels lv, float* __restrict__ gtab, \
+      T* __restrict__ goff, int rows, int C, int K, int ks) {                \
+    bwd_scalar<T, NT>(table_a, table_b, offsets, grad_a, grad_b, lv, gtab,   \
+                      goff, rows, C, K, ks);                                 \
+  }
+
+ORP_BWD_KERNELS(deform_sample_pair_bwd, 2)
+ORP_BWD_KERNELS(deform_sample_bwd, 1)
+
+template <typename T, int NT>
+auto tile_kernel() {
+  if constexpr (NT == 2)
+    return deform_sample_pair_bwd_tile<T>;
+  else
+    return deform_sample_bwd_tile<T>;
+}
+
+template <typename T, int NT>
+auto scalar_kernel() {
+  if constexpr (NT == 2)
+    return deform_sample_pair_bwd_scalar<T>;
+  else
+    return deform_sample_bwd_scalar<T>;
+}
+
 bool aligned(const void* p, uintptr_t n) { return ((uintptr_t)p % n) == 0; }
 
-template <typename T>
+template <typename T, int NT>
 int launch(const void* table_a, const void* table_b, const void* offsets,
            const float* grad_a, const float* grad_b, const int* levels,
            float* gtab, void* goff, int rows, int C, int K, int num_levels,
@@ -587,23 +638,24 @@ int launch(const void* table_a, const void* table_b, const void* offsets,
                          device);
   const bool tile = K == TK && C % Cfg::CS == 0 &&
                     Cfg::SMEM + 64 <= (size_t)max_smem &&
-                    aligned(table_a, 16) && aligned(table_b, 16) &&
-                    aligned(grad_a, 16) && aligned(grad_b, 16);
+                    aligned(table_a, 16) && aligned(grad_a, 16) &&
+                    (NT == 1 ||
+                     (aligned(table_b, 16) && aligned(grad_b, 16)));
   if (tile) {
+    const auto kernel = tile_kernel<T, NT>();
     cudaError_t err = cudaFuncSetAttribute(
-        deform_sample_pair_bwd_tile<T>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Cfg::SMEM);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Cfg::SMEM);
     if (err != cudaSuccess) return (int)err;
-    deform_sample_pair_bwd_tile<T><<<lv.tile_start[num_levels], THREADS,
-                                     Cfg::SMEM, (cudaStream_t)stream>>>(
-        (const T*)table_a, (const T*)table_b, (const T*)offsets, grad_a,
-        grad_b, lv, gtab, (T*)goff, C);
+    kernel<<<lv.tile_start[num_levels], THREADS, Cfg::SMEM,
+             (cudaStream_t)stream>>>((const T*)table_a, (const T*)table_b,
+                                     (const T*)offsets, grad_a, grad_b, lv,
+                                     gtab, (T*)goff, C);
   } else {
-    deform_sample_pair_bwd_scalar<T>
-        <<<(unsigned)((rows + WARPS - 1) / WARPS), WARPS * 32, 0,
-           (cudaStream_t)stream>>>((const T*)table_a, (const T*)table_b,
-                                   (const T*)offsets, grad_a, grad_b, lv,
-                                   gtab, (T*)goff, rows, C, K, ks);
+    const auto kernel = scalar_kernel<T, NT>();
+    kernel<<<(unsigned)((rows + WARPS - 1) / WARPS), WARPS * 32, 0,
+             (cudaStream_t)stream>>>((const T*)table_a, (const T*)table_b,
+                                     (const T*)offsets, grad_a, grad_b, lv,
+                                     gtab, (T*)goff, rows, C, K, ks);
   }
   return (int)cudaGetLastError();
 }
@@ -612,29 +664,23 @@ int launch(const void* table_a, const void* table_b, const void* offsets,
 
 // table_a, table_b (R, C); offsets (R, 2K); grad_a, grad_b
 // (R, K*C) f32; levels: host int array of (first row, h, w) per level
-// (rows of a level are image-major, then y, then x); gtab (R, 2C) f32,
-// zeroed by the caller; goff (R, 2K) in the table dtype.
-extern "C" int orp_deform_sample_pair_bwd_f32(
-    const void* table_a, const void* table_b, const void* offsets,
-    const void* grad_a, const void* grad_b, const int* levels, float* gtab,
-    void* goff, int rows, int C, int K, int num_levels, int device,
-    void* stream) {
-  const DeviceScope scope(device);
-  if (scope.error() != cudaSuccess) return (int)scope.error();
-  return launch<float>(table_a, table_b, offsets, (const float*)grad_a,
-                       (const float*)grad_b, levels, gtab, goff, rows, C, K,
-                       num_levels, device, stream);
-}
+// (rows of a level are image-major, then y, then x); gtab (R, NT*C) f32,
+// zeroed by the caller; goff (R, 2K) in the table dtype.  The
+// single-table entries (NT = 1) take table_a and grad_a only.
+#define ORP_DEFORM_SAMPLE_BWD(NAME, T, NT)                                   \
+  extern "C" int NAME(const void* table_a, const void* table_b,             \
+                      const void* offsets, const void* grad_a,              \
+                      const void* grad_b, const int* levels, float* gtab,   \
+                      void* goff, int rows, int C, int K, int num_levels,   \
+                      int device, void* stream) {                           \
+    const DeviceScope scope(device);                                         \
+    if (scope.error() != cudaSuccess) return (int)scope.error();            \
+    return launch<T, NT>(table_a, table_b, offsets, (const float*)grad_a,   \
+                         (const float*)grad_b, levels, gtab, goff, rows, C, \
+                         K, num_levels, device, stream);                    \
+  }
 
-extern "C" int orp_deform_sample_pair_bwd_bf16(
-    const void* table_a, const void* table_b, const void* offsets,
-    const void* grad_a, const void* grad_b, const int* levels, float* gtab,
-    void* goff, int rows, int C, int K, int num_levels, int device,
-    void* stream) {
-  const DeviceScope scope(device);
-  if (scope.error() != cudaSuccess) return (int)scope.error();
-  return launch<__nv_bfloat16>(table_a, table_b, offsets,
-                               (const float*)grad_a, (const float*)grad_b,
-                               levels, gtab, goff, rows, C, K, num_levels,
-                               device, stream);
-}
+ORP_DEFORM_SAMPLE_BWD(orp_deform_sample_pair_bwd_f32, float, 2)
+ORP_DEFORM_SAMPLE_BWD(orp_deform_sample_pair_bwd_bf16, __nv_bfloat16, 2)
+ORP_DEFORM_SAMPLE_BWD(orp_deform_sample_bwd_f32, float, 1)
+ORP_DEFORM_SAMPLE_BWD(orp_deform_sample_bwd_bf16, __nv_bfloat16, 1)

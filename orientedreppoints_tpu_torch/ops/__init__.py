@@ -2,7 +2,9 @@
 PyTorch version.  KERNELS maps each kernel's name to its launching function,
 whose ``launches`` attribute counts its launches."""
 
-from .deform_conv import (deform_sample_pair_backward_kernel,
+from .deform_conv import (deform_sample_backward_kernel,
+                          deform_sample_kernel,
+                          deform_sample_pair_backward_kernel,
                           deform_sample_pair_kernel)
 from .hull_iou import hull_quad_iou_kernel
 from .minarearect import min_area_rect_kernel
@@ -20,6 +22,10 @@ KERNELS = {
     "deform_sample_pair_backward": deform_sample_pair_backward_kernel,
     "quad_iou_full": quad_iou_full_kernel,
     "quad_iou_tri": quad_iou_tri_kernel,
+    # the single DCNv1 (deform_conv2d[_pyramid]): the DCN kernels at one
+    # table
+    "deform_sample": deform_sample_kernel,
+    "deform_sample_backward": deform_sample_backward_kernel,
 }
 
 

@@ -47,6 +47,11 @@ SIGNATURES = {
     "orp_deform_sample_pair_bf16": [P, P, P, P, P, P, I, I, I, I, I, P],
     "orp_deform_sample_pair_bwd_f32": [P] * 8 + [I, I, I, I, I, P],
     "orp_deform_sample_pair_bwd_bf16": [P] * 8 + [I, I, I, I, I, P],
+    # the same two kernels at one table (the b pointers unused)
+    "orp_deform_sample_f32": [P, P, P, P, P, P, I, I, I, I, I, P],
+    "orp_deform_sample_bf16": [P, P, P, P, P, P, I, I, I, I, I, P],
+    "orp_deform_sample_bwd_f32": [P] * 8 + [I, I, I, I, I, P],
+    "orp_deform_sample_bwd_bf16": [P] * 8 + [I, I, I, I, I, P],
     "orp_hull_quad_iou": [P, P, P, P, P, P, I, I, I, I, P],
     "orp_quad_iou_full": [P, P, P, I, I, I, I, P],
     "orp_quad_iou_tri": [P, P, P, P, I, I, I, I, P],

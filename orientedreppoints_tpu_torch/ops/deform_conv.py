@@ -1,5 +1,5 @@
-"""Paired deformable conv over an FPN pyramid (counterpart of the forward of
-ops/deform_conv.py::deform_conv2d_pyramid_pair).
+"""Deformable conv over an FPN pyramid: the paired form (counterpart of
+ops/deform_conv.py::deform_conv2d_pyramid_pair) and the single one.
 
 Every (level, image, pixel) of the pyramid is one row of a flat
 (rows, C) feature table.  Both DCN instances of the head (cls and refine)
@@ -23,6 +23,12 @@ backward kernel in f32 and the weight grads are f32 sums returned in the
 weights' dtype, as ``_pair_core_bwd`` computes them.  Only the JAX
 package's default variants are ported (not ORP_DCN_GATHER=fused,
 ORP_PAIR_GATHER=cat or ORP_PAIR_SCATTER=window).
+
+The single DCNv1 (``deform_conv2d``, ``deform_conv2d_pyramid``, the JAX
+package's functions of those names) is ``DeformSample``, the same node for
+one table: ``deform_sample`` / ``deform_sample_backward`` launch the same
+two kernels instantiated for one table, or run the pair's plain versions
+for one table on the CPU.
 """
 
 from __future__ import annotations
@@ -37,6 +43,11 @@ _KERNEL_DTYPES = {torch.float32: "orp_deform_sample_pair_f32",
                   torch.bfloat16: "orp_deform_sample_pair_bf16"}
 _BWD_KERNEL_DTYPES = {torch.float32: "orp_deform_sample_pair_bwd_f32",
                       torch.bfloat16: "orp_deform_sample_pair_bwd_bf16"}
+# the same kernels instantiated for one table
+_SINGLE_KERNEL_DTYPES = {torch.float32: "orp_deform_sample_f32",
+                         torch.bfloat16: "orp_deform_sample_bf16"}
+_SINGLE_BWD_KERNEL_DTYPES = {torch.float32: "orp_deform_sample_bwd_f32",
+                             torch.bfloat16: "orp_deform_sample_bwd_bf16"}
 
 
 def dcn_base_offset(kernel_size: int = 3) -> torch.Tensor:
@@ -91,23 +102,37 @@ def pyramid_plan(shapes, offsets: torch.Tensor, kernel_size: int = 3):
             torch.cat(wys), torch.cat(wxs))
 
 
-def deform_sample_pair_plain(table_a, table_b, offsets, shapes,
-                             kernel_size: int = 3):
-    """Plain version: four corner gathers per table, lerp in f32, one
-    rounding to the table dtype."""
+def _sample_plain(tables, offsets, shapes, kernel_size):
+    """Plain sampling of each table with one plan: four corner gathers
+    per table, lerp in f32, one rounding to the table dtype."""
     k = kernel_size * kernel_size
-    c = table_a.shape[1]
+    c = tables[0].shape[1]
     idx, ok, wy, wx = pyramid_plan(shapes, offsets, kernel_size)
     weights = ((1 - wy) * (1 - wx), (1 - wy) * wx, wy * (1 - wx), wy * wx)
     outs = []
-    for table in (table_a, table_b):
+    for table in tables:
         acc = torch.zeros((idx[0].shape[0], c), dtype=torch.float32,
                           device=table.device)
         for i, o, cw in zip(idx, ok, weights):
             acc += table[i].to(torch.float32) * torch.where(o, cw, 0.0)[:,
                                                                       None]
         outs.append(acc.to(table.dtype).reshape(-1, k * c))
-    return outs[0], outs[1]
+    return outs
+
+
+def deform_sample_pair_plain(table_a, table_b, offsets, shapes,
+                             kernel_size: int = 3):
+    """Plain version: four corner gathers per table, lerp in f32, one
+    rounding to the table dtype."""
+    out_a, out_b = _sample_plain((table_a, table_b), offsets, shapes,
+                                 kernel_size)
+    return out_a, out_b
+
+
+def deform_sample_plain(table, offsets, shapes, kernel_size: int = 3):
+    """Plain version of the single-table sampling: the pair's arithmetic
+    for one table."""
+    return _sample_plain((table,), offsets, shapes, kernel_size)[0]
 
 
 def deform_sample_pair(table_a: torch.Tensor, table_b: torch.Tensor,
@@ -147,34 +172,65 @@ def _(table_a, table_b, offsets, shapes, kernel_size):
     return table_a.new_empty(out), table_b.new_empty(out)
 
 
+def _sample_kernel(what, entries, tables, offsets, shapes, kernel_size):
+    """Launch the sampling kernel over one or two tables (entries: the
+    C entry by dtype) -> one (rows, K*C) buffer a table."""
+    table = tables[0]
+    rows, c = table.shape
+    k = kernel_size * kernel_size
+    if table.dtype not in entries:
+        raise TypeError(f"{what}: no kernel for {table.dtype}")
+    if sum(b * h * w for b, h, w in shapes) != rows:
+        raise ValueError(f"{what}: shapes do not cover the table")
+    if 2 * k > 32:  # a lane of the warp holds each of the row's offsets
+        raise ValueError(f"{what}: kernel_size {kernel_size} above 4 is not "
+                         "supported by the kernel")
+    named = [(f"table_{x}", t, (rows, c)) for x, t in zip("ab", tables)]
+    for name, t, shape in named + [("offsets", offsets, (rows, 2 * k))]:
+        _ext.check_cuda(t, name, table.dtype, shape, table.device)
+    outs = [torch.empty((rows, k * c), dtype=table.dtype, device=table.device)
+            for _ in tables]
+    ptrs = [t.data_ptr() for t in tables]
+    out_ptrs = [o.data_ptr() for o in outs]
+    if len(tables) == 1:  # the single-table entry ignores the b pointers
+        ptrs, out_ptrs = ptrs * 2, out_ptrs * 2
+    _ext.launch(entries[table.dtype], ptrs[0], ptrs[1], offsets.data_ptr(),
+                _levels_arg(shapes), out_ptrs[0], out_ptrs[1], rows, c, k,
+                len(shapes), on=table)
+    return outs
+
+
 def deform_sample_pair_kernel(table_a, table_b, offsets, shapes,
                               kernel_size: int = 3):
-    rows, c = table_a.shape
-    k = kernel_size * kernel_size
-    if table_a.dtype not in _KERNEL_DTYPES:
-        raise TypeError(f"deform_sample_pair: no kernel for {table_a.dtype}")
-    if sum(b * h * w for b, h, w in shapes) != rows:
-        raise ValueError("deform_sample_pair: shapes do not cover the table")
-    if 2 * k > 32:  # a lane of the warp holds each of the row's offsets
-        raise ValueError(f"deform_sample_pair: kernel_size {kernel_size} "
-                         "above 4 is not supported by the kernel")
-    for name, t, shape in (("table_a", table_a, (rows, c)),
-                           ("table_b", table_b, (rows, c)),
-                           ("offsets", offsets, (rows, 2 * k))):
-        _ext.check_cuda(t, name, table_a.dtype, shape, table_a.device)
-    levels_c = _levels_arg(shapes)
-    out_a = torch.empty((rows, k * c), dtype=table_a.dtype,
-                        device=table_a.device)
-    out_b = torch.empty_like(out_a)
-    _ext.launch(_KERNEL_DTYPES[table_a.dtype], table_a.data_ptr(),
-                table_b.data_ptr(), offsets.data_ptr(), levels_c,
-                out_a.data_ptr(), out_b.data_ptr(), rows, c, k, len(shapes),
-                on=table_a)
+    out_a, out_b = _sample_kernel("deform_sample_pair", _KERNEL_DTYPES,
+                                  (table_a, table_b), offsets, shapes,
+                                  kernel_size)
     deform_sample_pair_kernel.launches += 1
     return out_a, out_b
 
 
 deform_sample_pair_kernel.launches = 0
+
+
+def deform_sample_kernel(table, offsets, shapes, kernel_size: int = 3):
+    """The single-table sampling kernel (csrc/deform_sample.cu at one
+    table): one (rows, K*C) im2col buffer in the table dtype."""
+    out = _sample_kernel("deform_sample", _SINGLE_KERNEL_DTYPES, (table,),
+                         offsets, shapes, kernel_size)[0]
+    deform_sample_kernel.launches += 1
+    return out
+
+
+deform_sample_kernel.launches = 0
+
+
+def deform_sample(table, offsets, shapes, kernel_size: int = 3):
+    """(rows, C) table + (rows, 2K) offsets -> one (rows, K*C) im2col
+    buffer in the table dtype; the kernel for CUDA tensors, the plain
+    version for CPU tensors.  shapes: per-level (B, H, W)."""
+    if table.device.type == "cpu":
+        return deform_sample_plain(table, offsets, shapes, kernel_size)
+    return deform_sample_kernel(table, offsets, shapes, kernel_size)
 
 
 def _levels_arg(shapes):
@@ -199,23 +255,33 @@ def deform_sample_pair_backward_plain(table_a, table_b, offsets, grad_a,
     f32 sum over channels and both instances of the f32 grad *
     d(sample)/d(coord).
     """
+    *gtabs, goff = _sample_backward_plain((table_a, table_b), offsets,
+                                          (grad_a, grad_b), shapes,
+                                          kernel_size)
+    return gtabs[0], gtabs[1], goff
+
+
+def _sample_backward_plain(tables, offsets, grads, shapes, kernel_size):
+    """The plain backward over one or two tables sampled with one plan:
+    each table's grad (the tables' f32 scatters side by side, rounded
+    once), then the offsets' grad."""
     k = kernel_size * kernel_size
-    rows, c = table_a.shape
+    rows, c = tables[0].shape
     idx, ok, wy, wx = pyramid_plan(shapes, offsets, kernel_size)
     okf = [o.to(torch.float32) for o in ok]
     weights = ((1 - wy) * (1 - wx), (1 - wy) * wx, wy * (1 - wx), wy * wx)
-    grads = [g.reshape(-1, c).to(torch.float32) for g in (grad_a, grad_b)]
+    grads = [g.reshape(-1, c).to(torch.float32) for g in grads]
     rounded = [g.to(t.dtype).to(torch.float32)
-               for g, t in zip(grads, (table_a, table_b))]
-    gtab = torch.zeros((rows, 2 * c), dtype=torch.float32,
-                       device=table_a.device)
+               for g, t in zip(grads, tables)]
+    gtab = torch.zeros((rows, len(tables) * c), dtype=torch.float32,
+                       device=tables[0].device)
     for i, o, cw in zip(idx, okf, weights):
         w = (cw * o)[:, None]
-        gtab.index_add_(0, i, torch.cat([rounded[0] * w, rounded[1] * w], 1))
+        gtab.index_add_(0, i, torch.cat([r * w for r in rounded], 1))
     del rounded
     gwy = torch.zeros_like(wy)
     gwx = torch.zeros_like(wx)
-    for table, g in zip((table_a, table_b), grads):
+    for table, g in zip(tables, grads):
         v = [table[i].to(torch.float32) * o[:, None]
              for i, o in zip(idx, okf)]
         ddy = (v[2] - v[0]) * (1 - wx)[:, None] + (v[3] - v[1]) * wx[:, None]
@@ -224,8 +290,17 @@ def deform_sample_pair_backward_plain(table_a, table_b, offsets, grad_a,
         gwx += (g * ddx).sum(-1)
         del v, ddy, ddx
     goff = torch.stack([gwy, gwx], -1).reshape(rows, 2 * k)
-    return (gtab[:, :c].to(table_a.dtype), gtab[:, c:].to(table_b.dtype),
-            goff.to(offsets.dtype))
+    return (*(gtab[:, j * c:(j + 1) * c].to(t.dtype)
+              for j, t in enumerate(tables)), goff.to(offsets.dtype))
+
+
+def deform_sample_backward_plain(table, offsets, grad, shapes,
+                                 kernel_size: int = 3):
+    """Plain version of the single-table backward: the pair's arithmetic
+    for one table.  grad: (rows, K*C) f32.  Returns the grads of table
+    (rows, C) and offsets (rows, 2K) in their dtypes."""
+    return _sample_backward_plain((table,), offsets, (grad,), shapes,
+                                  kernel_size)
 
 
 def deform_sample_pair_backward(table_a, table_b, offsets, grad_a, grad_b,
@@ -240,38 +315,73 @@ def deform_sample_pair_backward(table_a, table_b, offsets, grad_a, grad_b,
         table_a, table_b, offsets, grad_a, grad_b, shapes, kernel_size)
 
 
+def _sample_backward_kernel(what, entries, tables, offsets, grads, shapes,
+                            kernel_size):
+    """Launch the sampling backward over one or two tables -> the tables'
+    grads, then the offsets' grad."""
+    table = tables[0]
+    rows, c = table.shape
+    k = kernel_size * kernel_size
+    if table.dtype not in entries:
+        raise TypeError(f"{what}: no kernel for {table.dtype}")
+    if sum(b * h * w for b, h, w in shapes) != rows:
+        raise ValueError(f"{what}: shapes do not cover the table")
+    named = [(f"table_{x}", t, (rows, c)) for x, t in zip("ab", tables)]
+    for name, t, shape in named + [("offsets", offsets, (rows, 2 * k))]:
+        _ext.check_cuda(t, name, table.dtype, shape, table.device)
+    for x, g in zip("ab", grads):
+        _ext.check_cuda(g, f"grad_{x}", torch.float32, (rows, k * c),
+                        table.device)
+    # f32 scratch for the atomics, the tables' grads side by side
+    gtab = torch.zeros((rows, len(tables) * c), dtype=torch.float32,
+                       device=table.device)
+    goff = torch.empty((rows, 2 * k), dtype=table.dtype, device=table.device)
+    ptrs = [t.data_ptr() for t in tables]
+    gptrs = [g.data_ptr() for g in grads]
+    if len(tables) == 1:  # the single-table entry ignores the b pointers
+        ptrs, gptrs = ptrs * 2, gptrs * 2
+    _ext.launch(entries[table.dtype], ptrs[0], ptrs[1], offsets.data_ptr(),
+                gptrs[0], gptrs[1], _levels_arg(shapes), gtab.data_ptr(),
+                goff.data_ptr(), rows, c, k, len(shapes), on=table)
+    gtab = gtab.to(table.dtype)
+    return (*(gtab[:, j * c:(j + 1) * c] for j in range(len(tables))), goff)
+
+
 def deform_sample_pair_backward_kernel(table_a, table_b, offsets, grad_a,
                                        grad_b, shapes, kernel_size: int = 3):
-    rows, c = table_a.shape
-    k = kernel_size * kernel_size
-    if table_a.dtype not in _BWD_KERNEL_DTYPES:
-        raise TypeError("deform_sample_pair_backward: no kernel for "
-                        f"{table_a.dtype}")
-    if sum(b * h * w for b, h, w in shapes) != rows:
-        raise ValueError("deform_sample_pair_backward: shapes do not cover "
-                         "the table")
-    for name, t, shape in (("table_a", table_a, (rows, c)),
-                           ("table_b", table_b, (rows, c)),
-                           ("offsets", offsets, (rows, 2 * k))):
-        _ext.check_cuda(t, name, table_a.dtype, shape, table_a.device)
-    for name, t in (("grad_a", grad_a), ("grad_b", grad_b)):
-        _ext.check_cuda(t, name, torch.float32, (rows, k * c),
-                        table_a.device)
-    # f32 scratch for the atomics, both instances side by side
-    gtab = torch.zeros((rows, 2 * c), dtype=torch.float32,
-                       device=table_a.device)
-    goff = torch.empty((rows, 2 * k), dtype=table_a.dtype,
-                       device=table_a.device)
-    _ext.launch(_BWD_KERNEL_DTYPES[table_a.dtype], table_a.data_ptr(),
-                table_b.data_ptr(), offsets.data_ptr(), grad_a.data_ptr(),
-                grad_b.data_ptr(), _levels_arg(shapes), gtab.data_ptr(),
-                goff.data_ptr(), rows, c, k, len(shapes), on=table_a)
+    out = _sample_backward_kernel(
+        "deform_sample_pair_backward", _BWD_KERNEL_DTYPES, (table_a, table_b),
+        offsets, (grad_a, grad_b), shapes, kernel_size)
     deform_sample_pair_backward_kernel.launches += 1
-    gtab = gtab.to(table_a.dtype)
-    return gtab[:, :c], gtab[:, c:], goff
+    return out
 
 
 deform_sample_pair_backward_kernel.launches = 0
+
+
+def deform_sample_backward_kernel(table, offsets, grad, shapes,
+                                  kernel_size: int = 3):
+    """The single-table backward kernel (csrc/deform_sample_bwd.cu at one
+    table): the grads of table and offsets from the buffer's f32 grad."""
+    out = _sample_backward_kernel(
+        "deform_sample_backward", _SINGLE_BWD_KERNEL_DTYPES, (table,),
+        offsets, (grad,), shapes, kernel_size)
+    deform_sample_backward_kernel.launches += 1
+    return out
+
+
+deform_sample_backward_kernel.launches = 0
+
+
+def deform_sample_backward(table, offsets, grad, shapes,
+                           kernel_size: int = 3):
+    """Grads of (table, offsets) from the f32 grad of the im2col buffer;
+    the kernel for CUDA tensors, the plain version for CPU tensors."""
+    if table.device.type == "cpu":
+        return deform_sample_backward_plain(table, offsets, grad, shapes,
+                                            kernel_size)
+    return deform_sample_backward_kernel(table, offsets, grad, shapes,
+                                         kernel_size)
 
 
 def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -341,6 +451,73 @@ def deform_conv2d_pyramid_pair(feats_a, feats_b, offsets, weight_a, weight_b,
                                           off.to(table_a.dtype), weight_a,
                                           weight_b, shapes, kernel_size)
     return _split_levels(out_a, shapes), _split_levels(out_b, shapes)
+
+
+class DeformSample(torch.autograd.Function):
+    """The single DCNv1 as one autograd node over (table, offsets, weight),
+    built as DeformSamplePair for one table: the forward samples the table
+    (kernel or plain version), then cols @ W in the table dtype; the
+    backward hands the f32 sample grads g @ W^T to the sampling backward
+    and returns the weight grad cols^T @ g summed in f32, in the weight's
+    dtype.  Its grads are those JAX's autodiff takes through
+    bilinear_gather and the einsum of deform_conv2d (f32 lerp, one
+    rounding: ROADMAP Queue 3 item 3)."""
+
+    @staticmethod
+    def forward(ctx, table, offsets, weight, shapes, kernel_size):
+        cols = deform_sample(table, offsets, shapes, kernel_size)
+        w = weight.reshape(-1, weight.shape[-1]).to(table.dtype)
+        ctx.save_for_backward(table, offsets, cols, w)
+        ctx.shapes, ctx.kernel_size = shapes, kernel_size
+        ctx.weight = (weight.shape, weight.dtype)
+        return cols @ w
+
+    @staticmethod
+    def backward(ctx, grad):
+        table, offsets, cols, w = ctx.saved_tensors
+        grad = grad.contiguous()
+        gtab, goff = deform_sample_backward(
+            table, offsets, _mm_f32(grad, w.t()), ctx.shapes,
+            ctx.kernel_size)
+        shape, dtype = ctx.weight
+        gw = _mm_f32(cols.t(), grad).reshape(shape).to(dtype)
+        return gtab, goff, gw, None, None
+
+
+def deform_conv2d_pyramid(feats, offsets, weight, kernel_size: int = 3):
+    """DCNv1 over a feature pyramid with one table (counterpart of the JAX
+    package's deform_conv2d_pyramid).
+
+    feats: per-level (B, H, W, C) NHWC maps; offsets: per-level
+    (B, H, W, 2K) (dy, dx) pairs relative to the base grid; weight
+    (K, C, Cout).  Returns the per-level (B, H, W, Cout) outputs in the
+    feature dtype; gradients reach feats, offsets and weight.
+
+    The offsets must be in the feature dtype: the sampling kernels read
+    them so.  The JAX function samples f32 offsets at f32 positions
+    whatever the feature dtype, so offsets in another dtype are refused,
+    not rounded (bf16 moves a sample by up to 1/16 px at |offset| 8).
+    """
+    c = feats[0].shape[-1]
+    dtypes = {o.dtype for o in offsets} - {feats[0].dtype}
+    if dtypes:
+        raise TypeError(f"deform_conv2d: offsets in {dtypes.pop()} with "
+                        f"{feats[0].dtype} features; cast them to the "
+                        "feature dtype")
+    shapes = [tuple(f.shape[:3]) for f in feats]
+    table = torch.cat([f.reshape(-1, c) for f in feats])
+    off = torch.cat([o.reshape(-1, o.shape[-1]) for o in offsets])
+    out = DeformSample.apply(table, off, weight, shapes, kernel_size)
+    return _split_levels(out, shapes)
+
+
+def deform_conv2d(feat, offsets, weight, kernel_size: int = 3):
+    """DCNv1 forward (counterpart of the JAX package's deform_conv2d):
+    feat (B, H, W, Cin), offsets (B, H, W, 2K) relative to the base grid,
+    weight (K, Cin, Cout) -> (B, H, W, Cout) in the feature dtype.  Stride
+    1, zero padding, no bias.  The offsets must be in the feature dtype
+    (deform_conv2d_pyramid)."""
+    return deform_conv2d_pyramid([feat], [offsets], weight, kernel_size)[0]
 
 
 def bilinear_gather(feat: torch.Tensor, py: torch.Tensor, px: torch.Tensor):

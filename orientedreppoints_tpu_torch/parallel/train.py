@@ -253,4 +253,40 @@ def make_train_step(model: torch.nn.Module, loss_cfg: LossConfig, optimizer,
 
     for p in params:  # every trainable leaf decays, as optax applies it
         p.grad = torch.zeros_like(p)
+    # what step_cost_analysis saves and restores around a counted step
+    step.model, step.optimizer, step.scheduler = model, optimizer, scheduler
     return step
+
+
+def step_cost_analysis(step, batch: dict) -> float:
+    """FLOPs of one train step, forward and backward (counterpart of the
+    JAX package's step_cost_analysis), counted as tools/get_flops_torch.py
+    counts them: torch.utils.flop_counter.FlopCounterMode, 2 x the
+    multiply-adds of every convolution and matrix product (the DCN's
+    sampling, the assigners' kernels and elementwise work are not
+    counted).  JAX's figure is XLA's cost analysis of the compiled step,
+    elementwise work included, so the two numbers differ by definition.
+
+    step: a make_train_step step; it runs once on batch, and the model's
+    parameters and buffers, the optimizer's and the scheduler's state are
+    put back after, so the count changes nothing.  Raises if the count
+    fails or comes to 0; never returns None.
+    """
+    import copy
+
+    from torch.utils.flop_counter import FlopCounterMode
+
+    saved = [copy.deepcopy(x.state_dict())
+             for x in (step.model, step.optimizer, step.scheduler)]
+    counter = FlopCounterMode(display=False)
+    try:
+        with counter:
+            step(batch)
+    finally:
+        for x, state in zip((step.model, step.optimizer, step.scheduler),
+                            saved):
+            x.load_state_dict(state)
+    flops = float(counter.get_total_flops())
+    if not flops > 0:
+        raise RuntimeError("step_cost_analysis: the step counted no FLOPs")
+    return flops

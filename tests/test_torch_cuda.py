@@ -192,15 +192,10 @@ def test_hull_iou_kernel_masks_and_ragged_shapes_bit_for_bit(cuda):
     assert ((got[0] > 0).sum(0) >= 10).sum() >= 20
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("c", [256, 64, 24])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
-                         ids=["f32", "bf16"])
-def test_deform_sample_kernel_bit_for_bit(cuda, c, dtype):
-    """The DCN forward against its plain version, bit for bit: C 256 and
-    64 take the 16-byte path, C 24 the scalar loop; a 1x1 level, rows
-    (372) not a multiple of the kernel's 8 a block, and offsets that throw
-    a tenth of the samples far outside the map."""
+def fwd_inputs(cuda, c, dtype):
+    """Two tables, offsets and shapes for the DCN forward: a 1x1 level,
+    rows (372) not a multiple of the kernel's 8 a block, and offsets that
+    throw a tenth of the samples far outside the map."""
     rng = np.random.default_rng(5)
     shapes = [(2, 13, 11), (2, 7, 6), (2, 1, 1)]
     rows = sum(bb * hh * w for bb, hh, w in shapes)
@@ -210,8 +205,10 @@ def test_deform_sample_kernel_bit_for_bit(cuda, c, dtype):
     far = rng.random((rows, 18)) < 0.1
     off[far] = rng.choice([-60.0, 60.0], far.sum())
     off = torch.tensor(off, device=cuda).to(dtype)
-    got = deform_conv.deform_sample_pair(ta, tb, off, shapes)
-    want = deform_conv.deform_sample_pair_plain(ta, tb, off, shapes)
+    return ta, tb, off, shapes
+
+
+def same_sampling(got, want, dtype, rows, c):
     for x, y in zip(got, want):
         assert x.dtype == y.dtype == dtype and x.shape == (rows, 9 * c)
         assert torch.equal(x.view(torch.int16 if dtype == torch.bfloat16
@@ -222,17 +219,39 @@ def test_deform_sample_kernel_bit_for_bit(cuda, c, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("c", [256, 48, 20])
+@pytest.mark.parametrize("c", [256, 64, 24])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
-def test_deform_sample_backward_kernel_matches_plain(cuda, c, dtype):
-    """The DCN backward against its plain version, f32 sample grads: C 256
-    and 48 take the tile kernel, C 20 the scalar one; levels wider and
-    taller than a tile with ragged edges, a level of width 1 and one of a
-    single pixel; a tenth of the offsets thrown far off the map and a tenth
-    thrown 6-12 px, onto the map but outside a tile's window.  Table grads
-    are f32 sums reordered by the atomics (bf16: one rounding step), both
-    relative to each tensor's largest grad (chip_smoke.DCN_BWD_RTOL)."""
+def test_deform_sample_kernel_bit_for_bit(cuda, c, dtype):
+    """The DCN forward against its plain version, bit for bit: C 256 and
+    64 take the 16-byte path, C 24 the scalar loop (fwd_inputs)."""
+    ta, tb, off, shapes = fwd_inputs(cuda, c, dtype)
+    got = deform_conv.deform_sample_pair(ta, tb, off, shapes)
+    want = deform_conv.deform_sample_pair_plain(ta, tb, off, shapes)
+    same_sampling(got, want, dtype, ta.shape[0], c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [256, 64, 24])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_deform_sample_single_kernel_bit_for_bit(cuda, c, dtype):
+    """The single-table DCN forward (deform_sample_kernel) against its
+    plain version, bit for bit, on the pair test's inputs."""
+    ta, _, off, shapes = fwd_inputs(cuda, c, dtype)
+    launches = deform_conv.deform_sample_kernel.launches
+    got = deform_conv.deform_sample(ta, off, shapes)
+    assert deform_conv.deform_sample_kernel.launches == launches + 1
+    want = deform_conv.deform_sample_plain(ta, off, shapes)
+    same_sampling([got], [want], dtype, ta.shape[0], c)
+
+
+def bwd_inputs(cuda, c, dtype):
+    """Two tables, offsets, two f32 sample grads and shapes for the DCN
+    backward: levels wider and taller than a tile with ragged edges, a
+    level of width 1 and one of a single pixel; a tenth of the offsets
+    thrown far off the map and a tenth thrown 6-12 px, onto the map but
+    outside a tile's window."""
     rng = np.random.default_rng(8)
     shapes = [(2, 13, 37), (2, 9, 1), (2, 7, 19), (1, 1, 1)]
     rows = sum(bb * hh * w for bb, hh, w in shapes)
@@ -249,15 +268,51 @@ def test_deform_sample_backward_kernel_matches_plain(cuda, c, dtype):
                       device=cuda)
     gb = torch.tensor(rng.normal(size=(rows, 9 * c)), dtype=torch.float32,
                       device=cuda)
-    got = deform_conv.deform_sample_pair_backward(ta, tb, off, ga, gb, shapes)
-    want = deform_conv.deform_sample_pair_backward_plain(ta, tb, off, ga, gb,
-                                                         shapes)
+    return ta, tb, off, ga, gb, shapes
+
+
+def close_grads(got, want, dtype, shapes_of):
+    """Table grads are f32 sums reordered by the atomics (bf16: one
+    rounding step), each relative to its tensor's largest grad
+    (chip_smoke.DCN_BWD_RTOL)."""
     tol = 1e-5 if dtype == torch.float32 else 2 ** -7
-    for g, w, shape in zip(got, want, ((rows, c), (rows, c), (rows, 18))):
+    for g, w, shape in zip(got, want, shapes_of):
         assert g.dtype == w.dtype == dtype and g.shape == shape
         scale = max(1.0, float(w.float().abs().max()))
         assert (g.float() - w.float()).abs().max() <= tol * scale
         assert (w != 0).float().mean() > 0.5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [256, 48, 20])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_deform_sample_backward_kernel_matches_plain(cuda, c, dtype):
+    """The DCN backward against its plain version, f32 sample grads: C 256
+    and 48 take the tile kernel, C 20 the scalar one (bwd_inputs,
+    close_grads)."""
+    ta, tb, off, ga, gb, shapes = bwd_inputs(cuda, c, dtype)
+    rows = ta.shape[0]
+    got = deform_conv.deform_sample_pair_backward(ta, tb, off, ga, gb, shapes)
+    want = deform_conv.deform_sample_pair_backward_plain(ta, tb, off, ga, gb,
+                                                         shapes)
+    close_grads(got, want, dtype, ((rows, c), (rows, c), (rows, 18)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [256, 48, 20])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_deform_sample_single_backward_kernel_matches_plain(cuda, c, dtype):
+    """The single-table DCN backward (deform_sample_bwd_{tile,scalar})
+    against its plain version on the pair test's inputs."""
+    ta, _, off, ga, _, shapes = bwd_inputs(cuda, c, dtype)
+    rows = ta.shape[0]
+    launches = deform_conv.deform_sample_backward_kernel.launches
+    got = deform_conv.deform_sample_backward(ta, off, ga, shapes)
+    assert deform_conv.deform_sample_backward_kernel.launches == launches + 1
+    want = deform_conv.deform_sample_backward_plain(ta, off, ga, shapes)
+    close_grads(got, want, dtype, ((rows, c), (rows, 18)))
 
 
 def rect_err(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -14,6 +14,7 @@ CUDA-only entries raise without a GPU; CPU tensors never reach a
 kernel."""
 
 import os
+import re
 import subprocess
 import sys
 import textwrap
@@ -181,13 +182,31 @@ NO_JAX_SCRIPT = textwrap.dedent("""
     assert sum(len(a) for a in out[0]) > 0
     opt, _, step = build_trainer(swin_pred.model, swin_cfg)
     assert isinstance(opt, torch.optim.AdamW)
-    losses = step(dict(images=np.zeros((2, 64, 64, 3), np.uint8),
-                       gt_polys=np.stack([quad, quad]),
-                       gt_labels=np.int32([[3], [4]]),
-                       gt_valid=np.ones((2, 1), bool),
-                       img_hw=np.int32([[64, 64], [64, 48]])))
+    swin_batch = dict(images=np.zeros((2, 64, 64, 3), np.uint8),
+                      gt_polys=np.stack([quad, quad]),
+                      gt_labels=np.int32([[3], [4]]),
+                      gt_valid=np.ones((2, 1), bool),
+                      img_hw=np.int32([[64, 64], [64, 48]]))
+    # a step's FLOPs, counted without changing the model
+    from orientedreppoints_tpu_torch.parallel.train import step_cost_analysis
+    before = {k: v.clone() for k, v in swin_pred.model.state_dict().items()}
+    assert step_cost_analysis(step, swin_batch) > 0
+    assert all(torch.equal(v, swin_pred.model.state_dict()[k])
+               for k, v in before.items())
+    losses = step(swin_batch)
     assert np.isfinite(float(losses["loss_total"]))
     assert not swin_pred.model.training
+    # the single DCNv1 over a pyramid and alone, with its grads
+    from orientedreppoints_tpu_torch.ops import deform_conv
+    feats = [torch.randn(2, h, h, 8, requires_grad=True) for h in (6, 3)]
+    offs = [torch.randn(2, h, h, 18, requires_grad=True) for h in (6, 3)]
+    dcn_w = torch.randn(9, 8, 4, requires_grad=True)
+    outs = deform_conv.deform_conv2d_pyramid(feats, offs, dcn_w)
+    sum(o.square().sum() for o in outs).backward()
+    assert all(t.grad is not None and torch.isfinite(t.grad).all()
+               for t in feats + offs + [dcn_w])
+    assert deform_conv.deform_conv2d(feats[1], offs[1], dcn_w).shape == (
+        2, 3, 3, 4)
     # the hard and ship-only scenes (cv2's drawing rebuilt), the HRSC
     # labels, dataset and evaluators, and the benchmark tool's modes
     import importlib.util
@@ -463,9 +482,23 @@ def _hull_call(gt_valid="ok", rows_valid="ok"):
     (lambda: deform_conv.deform_sample_pair_kernel(
         torch.zeros(6, 8), torch.zeros(6, 8), torch.zeros(6, 50),
         [(1, 2, 3)], kernel_size=5), ValueError, "kernel_size 5"),
+    (lambda: deform_conv.deform_sample_kernel(
+        torch.zeros(6, 8), torch.zeros(6, 18), [(1, 2, 3)]), ValueError,
+     "CUDA tensor"),
+    (lambda: deform_conv.deform_sample_kernel(
+        torch.zeros(6, 8), torch.zeros(6, 50), [(1, 2, 3)], kernel_size=5),
+     ValueError, "kernel_size 5"),
+    (lambda: deform_conv.deform_sample_backward_kernel(
+        torch.zeros(6, 8), torch.zeros(6, 18), torch.zeros(6, 72),
+        [(1, 2, 3)]), ValueError, "CUDA tensor"),
+    (lambda: deform_conv.deform_sample_kernel(
+        torch.zeros(6, 8, dtype=torch.float16), torch.zeros(6, 18),
+        [(1, 2, 3)]), TypeError, "no kernel for torch.float16"),
 ], ids=["hull_cpu", "hull_cpu_no_masks", "gt_valid_dtype", "gt_valid_shape",
         "rows_valid_dtype", "rows_valid_shape", "dcn_fwd_cpu",
-        "dcn_fwd_kernel_size"])
+        "dcn_fwd_kernel_size", "dcn_single_fwd_cpu",
+        "dcn_single_fwd_kernel_size", "dcn_single_bwd_cpu",
+        "dcn_single_fwd_dtype"])
 def test_kernel_wrappers_refuse_before_any_launch(call, error, match):
     """The wrappers of the redesigned kernels check their inputs (device,
     the masks' dtype and shape, the DCN's kernel size) before a launch;
@@ -474,6 +507,26 @@ def test_kernel_wrappers_refuse_before_any_launch(call, error, match):
     with pytest.raises(error, match=match):
         call()
     assert ops.launch_counts() == {name: 0 for name in ops.KERNELS}
+
+
+def test_every_launched_entry_has_a_signature():
+    """Every C entry a wrapper launches has its ctypes argument types in
+    _ext.SIGNATURES (without them ctypes passes each pointer as a 32-bit
+    int), and every exported function a csrc/*.cu file defines is there."""
+    from orientedreppoints_tpu_torch.ops import _ext
+
+    launched = set()
+    for table in (deform_conv._KERNEL_DTYPES, deform_conv._BWD_KERNEL_DTYPES,
+                  deform_conv._SINGLE_KERNEL_DTYPES,
+                  deform_conv._SINGLE_BWD_KERNEL_DTYPES):
+        launched |= set(table.values())
+    assert launched <= set(_ext.SIGNATURES)
+    exported = set()
+    for src in _ext.CSRC.glob("*.cu"):
+        text = src.read_text()
+        exported |= set(re.findall(r'extern "C" int (orp_\w+)\(', text))
+        exported |= set(re.findall(r"^ORP_\w+\((orp_\w+),", text, re.M))
+    assert exported == set(_ext.SIGNATURES)
 
 
 def test_cpu_tensors_never_launch_a_kernel():
@@ -494,6 +547,8 @@ def test_cpu_tensors_never_launch_a_kernel():
     deform_conv.deform_sample_pair(t, t, off, [(b, h, w)])
     g = torch.ones(b * h * w, 9 * 16)
     deform_conv.deform_sample_pair_backward(t, t, off, g, g, [(b, h, w)])
+    deform_conv.deform_sample(t, off, [(b, h, w)])
+    deform_conv.deform_sample_backward(t, off, g, [(b, h, w)])
     hulls, counts = minarearect.convex_hull_entry(
         torch.from_numpy(rng.normal(size=(4, 18)).astype(np.float32)))
     hull_iou.hull_quad_iou_matrix(hulls[None], counts[None],
@@ -502,5 +557,5 @@ def test_cpu_tensors_never_launch_a_kernel():
     quad_iou.quad_iou_matrix(q, q)
     quad_iou.quad_iou_matrix(q, q, upper_tri=True, num_valid=4)
     quad_iou.quad_over_matrix(q, 0.4, 4)
-    assert len(ops.KERNELS) == 8
+    assert len(ops.KERNELS) == 10
     assert ops.launch_counts() == {name: 0 for name in ops.KERNELS}

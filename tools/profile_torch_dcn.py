@@ -3,7 +3,7 @@
 GPU.
 
     python tools/profile_torch_dcn.py [--reps 20] [--part all|forward|backward]
-                                      [--csrc DIR]
+                                      [--csrc DIR] [--against DIR]
 
 Forward: builds csrc/deform_sample.cu as it is and twice more with one side
 of its work dropped: "loads" keeps the gathers and the lerps and stores
@@ -26,6 +26,8 @@ the layout of the kernel before its redesign too (one warp a sample,
 scalar f32 atomics, bf16 grads) and takes whichever layout the source has.
 Its launchers must take the device ordinal before the stream, as this
 checkout's do; an older source is timed with its own checkout's tool.
+--against DIR times DIR's sources and --csrc's in turns on one card, in
+the order DIR, --csrc, --csrc, DIR (an A/B of two commits' kernels).
 
 Prints one JSON line a shape and part with each time, the byte bound and
 the card's name and power limit.  The profiler of the machine gives no
@@ -48,29 +50,46 @@ import torch
 ROOT = osp.dirname(osp.dirname(osp.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
+# the forward's stores and loads, in the kernel templated on the table
+# count and before it
 STORES = ("      Ch::store(out_a + at, va);\n"
+          "      if constexpr (NT == 2) Ch::store(out_b + at, vb);\n",
+          "      Ch::store(out_a + at, va);\n"
           "      Ch::store(out_b + at, vb);\n")
 LOADS = ("        ra[c] = Ch::load(table_a + at);\n"
+         "        if constexpr (NT == 2) rb[c] = Ch::load(table_b + at);\n",
+         "        ra[c] = Ch::load(table_a + at);\n"
          "        rb[c] = Ch::load(table_b + at);\n")
-FWD_VARIANTS = {
-    "kernel": [],
-    "loads": [(STORES, "      float s = 0.f;\n"
-                       "#pragma unroll\n"
-                       "      for (int i = 0; i < E; ++i)\n"
-                       "        s += va[i] + vb[i];\n"
-                       "      if (s == 1234.5f) {\n" + STORES + "      }\n")],
-    "stores": [(LOADS, "        ra[c] = typename Ch::Raw{};\n"
-                       "        rb[c] = typename Ch::Raw{};\n"
-                       "        (void)at;\n")],
-}
+
+
+def fwd_variants(text: str) -> dict:
+    """The forward's variants for whichever layout text has."""
+    stores, loads = next((st, ld) for st, ld in zip(STORES, LOADS)
+                         if text.count(st) == 1 and text.count(ld) == 1)
+    return {
+        "kernel": [],
+        "loads": [(stores, "      float s = 0.f;\n"
+                           "#pragma unroll\n"
+                           "      for (int i = 0; i < E; ++i)\n"
+                           "        s += va[i] + vb[i];\n"
+                           "      if (s == 1234.5f) {\n" + stores
+                   + "      }\n")],
+        "stores": [(loads, "        ra[c] = typename Ch::Raw{};\n"
+                           "        rb[c] = typename Ch::Raw{};\n"
+                           "        (void)at;\n")],
+    }
 
 # csrc/deform_sample_bwd.cu as redesigned: tiles binned in shared memory,
-# slices staged by cp.async, f32 grads
-BWD_WINDOW = ("      red_v4(gcol + (size_t)row * 2 * C, acc[0], acc[1], "
+# slices staged by cp.async, f32 grads (the scratch's row stride NT * C
+# since the kernel is templated on the table count, 2 * C before)
+def bwd_no_scatter(stride):
+    window = (f"      red_v4(gcol + (size_t)row * {stride}, acc[0], acc[1], "
               "acc[2], acc[3]);\n")
-BWD_FAR = "      red_v4(gcol + (size_t)row * 2 * C, to_f32("
-BWD_NO_SCATTER = [(BWD_WINDOW, "      if (acc[0] == 1234.5f)\n" + BWD_WINDOW),
-                  (BWD_FAR, "      if (cw == 1234.5f)\n" + BWD_FAR)]
+    far = f"      red_v4(gcol + (size_t)row * {stride}, to_f32("
+    return [(window, "      if (acc[0] == 1234.5f)\n" + window),
+            (far, "      if (cw == 1234.5f)\n" + far)]
+
+
 BWD_STAGE = ("      if (y >= 0 && y < h && x >= 0 && x < w)\n"
              "        cp_async16(reinterpret_cast<char*>(tdst")
 BWD_FAR_LOAD = ("            Quad<T>::load(table + (size_t)(img_base + (yx.x + "
@@ -91,19 +110,24 @@ OLD_TABLES = (
     "      vb[c] = ok[c] ? to_f32(table_b[trow[c] * C + ch]) : 0.f;\n")
 OLD_NO_TABLES = "      va[c] = 0.f;\n      vb[c] = 0.f;\n"
 OLD_NEVER = "      if (ok[c] && cw[c] == 1234.5f) {\n"
-BWD_LAYOUTS = {
-    "tiles": (torch.float32, {
+def tile_variants(stride):
+    return {
         "kernel": [],
-        "loads": BWD_NO_SCATTER,
+        "loads": bwd_no_scatter(stride),
         "atomics": BWD_NO_TABLES,
-        "grads": BWD_NO_SCATTER + BWD_NO_TABLES,
+        "grads": bwd_no_scatter(stride) + BWD_NO_TABLES,
         # phase 1 (offset grads) or phase 2 (table grads) left out
         "no_phase1": [(BWD_PHASE1, BWD_PHASE1.replace(
             "s < NS ? pw[s] : ", ""))],
         "no_phase2": [(BWD_PHASE2, BWD_PHASE2.replace("= grp", "= NW + grp")),
                       (BWD_PHASE2_FAR,
                        BWD_PHASE2_FAR.replace("= grp", "= nfar + grp"))],
-    }),
+    }
+
+
+BWD_LAYOUTS = {
+    "tiles": (torch.float32, tile_variants("NT * C")),
+    "tiles_pair": (torch.float32, tile_variants("2 * C")),
     "scalar_atomics": (torch.bfloat16, {
         "kernel": [],
         "loads": [(OLD_SCATTER, OLD_NEVER)],
@@ -113,16 +137,21 @@ BWD_LAYOUTS = {
 }
 
 
-def build(src_text: str, variants: dict, symbol: str, tag: str) -> dict:
-    """Compile each variant of src_text into its own library; returns
-    name -> the loaded function symbol."""
+def build(csrc: str, src_text: str, variants: dict, symbol: str,
+          tag: str) -> dict:
+    """Compile each variant of src_text (a file of csrc, whose headers it
+    includes) into its own library; returns name -> the loaded function
+    symbol."""
     from orientedreppoints_tpu_torch.ops import _ext
 
-    key = hashlib.sha256(src_text.encode()).hexdigest()[:16]
+    csrc = osp.abspath(csrc)
+    key = hashlib.sha256((csrc + src_text).encode()).hexdigest()[:16]
     out = osp.join(ROOT, "build", "profile_torch_dcn", f"{tag}_{key}")
     os.makedirs(out, exist_ok=True)
     procs = {}
     for name, subs in variants.items():
+        if osp.exists(osp.join(out, f"{name}.so")):  # an earlier turn's
+            continue
         text = src_text
         for old, new in subs:
             if text.count(old) != 1:
@@ -134,14 +163,15 @@ def build(src_text: str, variants: dict, symbol: str, tag: str) -> dict:
         with open(src, "w") as f:
             f.write(text)
         procs[name] = subprocess.Popen(
-            [_ext._nvcc(), *_ext.NVCC_FLAGS, "-shared", "-o",
+            [_ext._nvcc(), *_ext.NVCC_FLAGS, "-I", csrc, "-shared", "-o",
              osp.join(out, f"{name}.so"), src],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    libs = {}
     for name, p in procs.items():
         log = p.communicate()[0]
         if p.returncode != 0:
             raise RuntimeError(f"nvcc failed for {tag} {name}:\n{log}")
+    libs = {}
+    for name in variants:
         fn = getattr(ctypes.CDLL(osp.join(out, f"{name}.so")), symbol)
         fn.argtypes = _ext.SIGNATURES[symbol]
         libs[name] = fn
@@ -171,8 +201,9 @@ def profile_forward(csrc, card, reps):
     from orientedreppoints_tpu_torch.ops import deform_conv
 
     with open(osp.join(csrc, "deform_sample.cu")) as f:
-        libs = build(f.read(), FWD_VARIANTS, "orp_deform_sample_pair_bf16",
-                     "fwd")
+        text = f.read()
+    libs = build(csrc, text, fwd_variants(text),
+                 "orp_deform_sample_pair_bf16", "fwd")
     dev = torch.device("cuda")
     stream = torch.cuda.current_stream().cuda_stream
     ordinal = torch.cuda.current_device()
@@ -195,7 +226,8 @@ def profile_forward(csrc, card, reps):
                                           reps)
         nbytes, ops = chip_smoke.dcn_bytes_ops(rows, 256, 9, 2, False)
         print(json.dumps(dict(
-            part="forward", shape=shape, rows=rows, dtype="bfloat16",
+            part="forward", csrc=csrc, shape=shape, rows=rows,
+            dtype="bfloat16",
             card=card, kernel_ms=ms["kernel"], loads_only_ms=ms["loads"],
             stores_only_ms=ms["stores"],
             store_bytes=2 * rows * 9 * 256 * 2,
@@ -212,7 +244,8 @@ def profile_backward(csrc, card, reps):
     with open(osp.join(csrc, "deform_sample_bwd.cu")) as f:
         text = f.read()
     layout, gdt, variants = bwd_layout(text)
-    libs = build(text, variants, "orp_deform_sample_pair_bwd_bf16", layout)
+    libs = build(csrc, text, variants, "orp_deform_sample_pair_bwd_bf16",
+                 layout)
     dev = torch.device("cuda")
     stream = torch.cuda.current_stream().cuda_stream
     ordinal = torch.cuda.current_device()
@@ -235,7 +268,7 @@ def profile_backward(csrc, card, reps):
     elem = 4 if gdt == torch.float32 else 2
     nbytes, ops = chip_smoke.dcn_bytes_ops(rows, c, k, 2, True, grad_elem=elem)
     print(json.dumps(dict(
-        part="backward", layout=layout, shape="train", rows=rows,
+        part="backward", csrc=csrc, layout=layout, shape="train", rows=rows,
         dtype="bfloat16", grad_dtype=str(gdt).split(".")[-1], card=card,
         kernel_ms=ms["kernel"], loads_only_ms=ms["loads"],
         atomics_only_ms=ms["atomics"], grads_only_ms=ms["grads"],
@@ -255,6 +288,8 @@ def main():
                     default="all")
     ap.add_argument("--csrc", default=osp.join(
         ROOT, "orientedreppoints_tpu_torch", "csrc"))
+    ap.add_argument("--against", help="another csrc/: timed in turns with "
+                    "--csrc's, A B B A")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA device")
@@ -264,11 +299,14 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
-    torch.manual_seed(chip_smoke.SEED)
-    if args.part in ("all", "forward"):
-        profile_forward(args.csrc, card, args.reps)
-    if args.part in ("all", "backward"):
-        profile_backward(args.csrc, card, args.reps)
+    turns = ([args.against, args.csrc, args.csrc, args.against]
+             if args.against else [args.csrc])
+    for csrc in turns:
+        torch.manual_seed(chip_smoke.SEED)
+        if args.part in ("all", "forward"):
+            profile_forward(csrc, card, args.reps)
+        if args.part in ("all", "backward"):
+            profile_backward(csrc, card, args.reps)
 
 
 if __name__ == "__main__":
