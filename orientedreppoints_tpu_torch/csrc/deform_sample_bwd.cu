@@ -6,61 +6,63 @@
 // which the autograd node makes from the output grads and the DCN weights
 // with an f32 result, as the JAX package's einsum with
 // preferred_element_type=f32 does), it writes
-//   * the grads of both feature tables: every corner of every sample adds
-//     lerp weight x gs, with gs first rounded to the table dtype (JAX's
-//     gs_a_dt), into an f32 (rows, 2C) scratch (instance a in the first C
-//     columns, b in the last C), zeroed by the wrapper, which then rounds it
-//     once to the table dtype;
+//   * the grads of both feature tables into an f32 (rows, NT*C) scratch
+//     (instance a in the first C columns, b in the last C), which the
+//     wrapper rounds once to the table dtype.  Each value is the f32 sum,
+//     from +0.0 and one term after another, of its contributions: lerp
+//     weight x gs, with gs first rounded to the table dtype (JAX's
+//     gs_a_dt), in the order of the plain version's scatter
+//     (ops/deform_conv.py, _sample_backward_plain: corner 0..3, then
+//     sample = row * K + tap ascending).  So the table grads are the plain
+//     version's bit for bit, and the same from run to run;
 //   * the grads of the shared (dy, dx) offsets: per sample, the f32 sum over
-//     channels and both instances of the f32 gs x d(sample)/d(coordinate).
+//     channels and both instances of the f32 gs x d(sample)/d(coordinate),
+//     in a fixed order of their own (the plain version's reduction cannot
+//     spell it, so they agree within rounding).
 // The bilinear plan is recomputed from the offsets exactly as the forward
 // (deform_sample.cu) computes it, and the corner values are read again
 // from the tables: the JAX package keeps 8 corner residuals instead
 // (2.8 GB at batch 2, 1344^2, C 256 in bf16), this kernel keeps none.
 //
-// Bound on the H100.  At batch 2, 1344^2, C 256 with bf16 tables (75,212
-// rows, 677k samples) it must read the two f32 grads (1.39 GB of the ~1.55
-// GB it moves, 0.46 ms at 3.35 TB/s).  What held the first design (one
-// warp a sample, one f32 atomic a channel and corner: ~1.4G atomics into
-// L2) is the scatter: the card's L2 reductions run at ~0.6G f32 values a
-// millisecond whether they come as scalars or as red.global.add.v4.f32,
-// and f32 atomics on shared memory are a compare-and-swap loop.  So this
-// design cuts the number of values that reach L2 (tools/profile_torch_dcn.py
-// splits its time):
-//   - one block (1024 threads, one an SM) a tile of TH x TW pixels of one
-//     image and level; its samples' corners land, all but a few, in the
-//     window of the tile and a halo of HALO pixels;
-//   - phase 0, once a block: every sample's plan (weights, corner, and a
-//     code a corner: window pixel, far or off the map) into shared memory,
-//     and a counting sort of the corner entries by window pixel (integer
-//     shared atomics, which are native) with each entry's weight; corners
-//     outside the window go to a short list of far entries;
-//   - then per slice of CS channels (32 bytes of a table row) of one table,
-//     the next slice's grads and window rows staged by cp.async while this
-//     one is worked on, with one barrier a slice:
-//       phase 1, sample-major: a group of CS / 4 lanes a sample (4 channels
-//       a lane) sums the offset grads' share of the slice from the f32
-//       grads and the corners (the window's rows from shared memory, a far
-//       corner from global memory), in registers kept across the slices;
-//       phase 2, window-major: a group a window pixel sums weight x grad
-//       (rounded to the table dtype) over its entries in registers and
-//       issues one red.global.add.v4.f32 a pixel and 4 channels; far
-//       entries issue theirs directly.
-//   A table value takes one global reduction from each tile whose window
-//   covers it (up to 9) and one from each far corner, instead of one a
-//   corner (~36).  The offset grads are summed in a fixed order and
-//   written once.
-// The order of the atomics changes from run to run, so the table grads
-// vary in the last bits of their f32 sums.  For K other than 9, C not a
-// multiple of CS or a pointer not 16-byte aligned, the launcher takes a
-// scalar kernel instead (one warp a row, lanes walk single channels, f32
-// atomics straight to the scratch), with the same plan and arithmetic.
-// Both kernels' work is a template on the table count NT, launched under
-// one name a count (deform_sample_pair_bwd_{tile,scalar},
-// deform_sample_bwd_{tile,scalar}): NT = 1 is the backward of the single
-// DCNv1 (JAX's autodiff of bilinear_gather under deform_conv2d /
-// deform_conv2d_pyramid), with a (rows, C) scratch, one table's slices and
-// one table's offset-grad sums.
+// The table grads are gathered by destination, with no float atomic and no
+// order that an atomic decides.  An entry is a corner that lands on the map
+// with a nonzero weight; its key is corner * S + sample (S = rows * K), so
+// ascending keys are the plain version's order:
+//   1. count: one thread a sample computes its plan, keeps each entry's
+//      weight at its key and counts the entries of each destination row
+//      (an integer atomic counts; the count does not depend on the order);
+//   2. scan: an exclusive scan of the counts gives each row its segment;
+//   3. place: each entry writes its key into its row's segment (an integer
+//      atomic picks the slot);
+//   4. sort: a segment longer than SHORT is sorted by one block (a bitonic
+//      network, in shared memory where it fits, else in place in global
+//      memory); a shorter one is ranked in registers by step 5;
+//   5. sum: one warp a destination row, lanes across its NT*C columns
+//      (16-byte loads and stores where C is a multiple of 4 and the
+//      pointers are aligned), walks the keys in ascending order and adds
+//      weight x rounded grad; every row is written once (+0.0 where it
+//      has no entry).
+// A segment's keys are distinct, so its sorted order, and with it every
+// sum, is the same whatever slots step 3 gave them.
+//
+// The offset grads: for K = 9, C a multiple of CS and 16-byte aligned
+// pointers, one block (1024 threads, one an SM) a tile of TH x TW pixels of
+// one image and level: phase 0, once a block, every sample's plan (weights,
+// corner, and a code a corner: window pixel, far or off the map; the window
+// is the tile and a halo of HALO pixels) into shared memory; then per slice
+// of CS channels (32 bytes of a table row) of one table, the next slice's
+// grads and window rows staged by cp.async while this one is worked on,
+// one barrier a slice; phase 1, sample-major: a group of CS / 4 lanes a
+// sample (4 channels a lane) sums the offset grads' share of the slice from
+// the f32 grads and the corners (the window's rows from shared memory, a far
+// corner from global memory), in registers kept across the slices.
+// Otherwise a scalar kernel (one warp a row, lanes walk single channels)
+// with the same plan and arithmetic.
+//
+// Every kernel is a template on the table count NT, launched under one name
+// a count (deform_sample_pair_bwd_*, deform_sample_bwd_*): NT = 1 is the
+// backward of the single DCNv1 (JAX's autodiff of bilinear_gather under
+// deform_conv2d / deform_conv2d_pyramid), with a (rows, C) scratch.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -79,6 +81,18 @@ constexpr int WH = TH + 2 * HALO, WW = TW + 2 * HALO, NW = WH * WW;
 constexpr int THREADS = 1024;
 // scalar kernel
 constexpr int WARPS = 8;
+// table grads: threads a block of the count and place passes, of the scan
+// (SCAN_ITEMS counts a thread), of the sort; the sum's warps a block, and
+// its columns a lane and pass (SUM_U single ones, or SUM_VEC groups of 4);
+// the longest segment the sum ranks itself; the keys a sort block holds in
+// shared memory
+constexpr int ENTRY_THREADS = 256;
+constexpr int SCAN_THREADS = 1024, SCAN_ITEMS = 4;
+constexpr int SCAN_CHUNK = SCAN_THREADS * SCAN_ITEMS;
+constexpr int SORT_THREADS = 1024;
+constexpr int SUM_WARPS = 8, SUM_U = 8, SUM_VEC = 2;
+constexpr int SHORT = 64;
+constexpr int SORT_SMEM = 10240;  // 40 KB of static shared memory
 
 struct Levels {
   int start[MAX_LEVELS + 1];  // first row of each level, then total rows
@@ -159,20 +173,16 @@ __device__ __forceinline__ float corner_weight(float wy, float wx, int c) {
 }
 
 // ---------------------------------------------------------------------------
-// The tile kernel, for the 3 x 3 DCN (K = 9).  A slice is CS channels (32
-// bytes of a table row) of one table; slices run table a's channel blocks,
-// then table b's.  Shared memory (dynamic), for NS = TH * TW * K samples:
+// The tile kernel, for the 3 x 3 DCN (K = 9): the offset grads.  A slice is
+// CS channels (32 bytes of a table row) of one table; slices run table a's
+// channel blocks, then table b's.  Shared memory (dynamic), for NS = TH * TW
+// * K samples:
 //   gsf    2 x NS x CS  float   the slice's f32 grads, double-buffered
 //   tw     2 x NW x CS  T       the slice's table rows of the window
 //   pw     NS           float2  (wy, wx); wy < 0 marks a sample off the map
 //   pyx    NS           short2  (y0, x0)
 //   code   NS x 4       u16     each corner: its window pixel, FAR (on the
 //                               map, outside the window) or OFF (off it)
-//   start  NW + 1       int     first entry of each window pixel
-//   cur    NW           int     counts, then fill cursors
-//   ew     4 NS         float   each entry's lerp weight
-//   ent    4 NS         u16     window entries from the front, far ones
-//                               from the back; entry = sample * 4 + corner
 constexpr int TK = 9;
 constexpr int NS = TH * TW * TK;
 constexpr uint16_t FAR = 0xfffe, OFF = 0xffff;
@@ -180,22 +190,13 @@ constexpr uint16_t FAR = 0xfffe, OFF = 0xffff;
 template <typename T>
 struct Tile {
   static constexpr int CS = 32 / sizeof(T);  // channels of a slice
-  static constexpr int LPS = CS / 4;         // lanes a sample or pixel
+  static constexpr int LPS = CS / 4;         // lanes a sample
   static constexpr int GROUPS = THREADS / LPS;
   static constexpr int ITERS = (NS + GROUPS - 1) / GROUPS;  // samples a group
   static constexpr size_t SMEM =
       2 * (size_t)NS * CS * sizeof(float) + 2 * (size_t)NW * CS * sizeof(T) +
-      (size_t)NS * (8 + 4 + 8) + (2 * NW + 1) * sizeof(int) +
-      (size_t)NS * 4 * (sizeof(float) + sizeof(uint16_t));
+      (size_t)NS * (8 + 4 + 8);
 };
-
-// Four f32 atomic adds to p[0..3] in one reduction (p 16-byte aligned).
-__device__ __forceinline__ void red_v4(float* p, float a, float b, float c,
-                                       float d) {
-  asm volatile("red.global.add.v4.f32 [%0], {%1, %2, %3, %4};" ::"l"(p),
-               "f"(a), "f"(b), "f"(c), "f"(d)
-               : "memory");
-}
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
@@ -231,8 +232,8 @@ template <typename T, int NT>
 __device__ __forceinline__ void bwd_tile(
     const T* __restrict__ table_a, const T* __restrict__ table_b,
     const T* __restrict__ offsets, const float* __restrict__ grad_a,
-    const float* __restrict__ grad_b, const Levels& lv,
-    float* __restrict__ gtab, T* __restrict__ goff, int C) {
+    const float* __restrict__ grad_b, const Levels& lv, T* __restrict__ goff,
+    int C) {
   using Cfg = Tile<T>;
   constexpr int CS = Cfg::CS, LPS = Cfg::LPS, GROUPS = Cfg::GROUPS;
   constexpr int ITERS = Cfg::ITERS;
@@ -242,12 +243,6 @@ __device__ __forceinline__ void bwd_tile(
   float2* pw = reinterpret_cast<float2*>(tw + 2 * NW * CS);
   short2* pyx = reinterpret_cast<short2*>(pw + NS);
   uint2* code = reinterpret_cast<uint2*>(pyx + NS);  // 4 x u16 a sample
-  int* start = reinterpret_cast<int*>(code + NS);
-  int* cur = start + NW + 1;
-  float* ew = reinterpret_cast<float*>(cur + NW);
-  uint16_t* ent = reinterpret_cast<uint16_t*>(ew + 4 * NS);
-  constexpr int CAP = 4 * NS;
-  __shared__ int n_far;
 
   // the block's level, image and tile
   int l = 0;
@@ -295,10 +290,7 @@ __device__ __forceinline__ void bwd_tile(
     cp_async_commit();
   };
 
-  // phase 0: plans and corner codes, then the counting sort of the entries
-  for (int i = tid; i < NW; i += THREADS) cur[i] = 0;
-  if (tid == 0) n_far = 0;
-  __syncthreads();
+  // phase 0: plans and corner codes
   stage(0);
   for (int s = tid; s < NS; s += THREADS) {
     const int gr = grad_row(s);
@@ -322,59 +314,12 @@ __device__ __forceinline__ void bwd_tile(
       cd[c] = !(yy >= 0 && yy < h && xx >= 0 && xx < w)
                   ? OFF
                   : (inside ? (unsigned)(ry * WW + rx) : FAR);
-      const float cw = corner_weight(pl.wy, pl.wx, c);
-      if (cd[c] == OFF || cw == 0.f) continue;
-      if (inside) {
-        atomicAdd(&cur[cd[c]], 1);
-      } else {
-        const int e = CAP - 1 - atomicAdd(&n_far, 1);
-        ent[e] = (uint16_t)(s * 4 + c);
-        ew[e] = cw;
-      }
     }
     code[s] = make_uint2(cd[0] | (cd[1] << 16), cd[2] | (cd[3] << 16));
   }
-  __syncthreads();
-  if (tid < 32) {  // exclusive scan of the counts
-    constexpr int per = (NW + 31) / 32;
-    int sum = 0;
-    for (int i = lane * per; i < min(NW, (lane + 1) * per); ++i) sum += cur[i];
-    int incl = sum;
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      const int v = __shfl_up_sync(FULL, incl, d);
-      if (lane >= d) incl += v;
-    }
-    int run = incl - sum;
-    for (int i = lane * per; i < min(NW, (lane + 1) * per); ++i) {
-      const int n = cur[i];
-      start[i] = run;
-      cur[i] = run;
-      run += n;
-    }
-    if (lane == 31) start[NW] = incl;
-  }
-  __syncthreads();
-  for (int s = tid; s < NS; s += THREADS) {
-    const float2 wyx = pw[s];
-    if (wyx.x < 0.f) continue;
-    const uint2 cd = code[s];
-    const unsigned cds[4] = {cd.x & 0xffffu, cd.x >> 16, cd.y & 0xffffu,
-                             cd.y >> 16};
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const float cw = corner_weight(wyx.x, wyx.y, c);
-      if (cds[c] < NW && cw != 0.f) {
-        const int e = atomicAdd(&cur[cds[c]], 1);
-        ent[e] = (uint16_t)(s * 4 + c);
-        ew[e] = cw;
-      }
-    }
-  }
 
-  // lane group g (LPS lanes, 4 channels each) takes samples g + i GROUPS in
-  // phase 1, its samples' offset grads kept in registers across the
-  // slices, and window pixels g + i GROUPS in phase 2
+  // lane group g (LPS lanes, 4 channels each) takes samples g + i GROUPS,
+  // their offset grads kept in registers across the slices
   const int grp = tid / LPS, q = lane % LPS;
   float sy[ITERS], sx[ITERS];
 #pragma unroll
@@ -382,11 +327,11 @@ __device__ __forceinline__ void bwd_tile(
 
   for (int j = 0; j < slices; ++j) {
     // slice j is in buffer j & 1 once every thread's copies have landed;
-    // the barrier also frees buffer (j + 1) & 1 of slice j - 1
+    // the barrier also frees buffer (j + 1) & 1 of slice j - 1 (and, at
+    // j = 0, publishes phase 0)
     cp_async_wait_all();
     __syncthreads();
     if (j + 1 < slices) stage(j + 1);
-    const int nfar = n_far;
     const int tab = j / blocks_c, c0 = (j % blocks_c) * CS;
     const float* gs = gsf + (j & 1) * NS * CS;
     const T* tws = tw + (j & 1) * NW * CS;
@@ -441,36 +386,6 @@ __device__ __forceinline__ void bwd_tile(
       sy[it] += py;
       sx[it] += px;
     }
-    // phase 2, window-major: the grads rounded to the table dtype, one
-    // reduction a pixel and 4 channels (far entries one each)
-    float* gcol = gtab + (size_t)tab * C + c0 + 4 * q;
-    for (int i = grp; i < NW; i += GROUPS) {
-      const int e0 = start[i], e1 = start[i + 1];
-      if (e0 == e1) continue;
-      float acc[4] = {0.f, 0.f, 0.f, 0.f};
-      for (int e = e0; e < e1; ++e) {
-        const float cw = ew[e];
-        const float4 g = *reinterpret_cast<const float4*>(
-            gs + (ent[e] >> 2) * CS + 4 * q);
-        acc[0] += to_f32(from_f32<T>(g.x)) * cw;
-        acc[1] += to_f32(from_f32<T>(g.y)) * cw;
-        acc[2] += to_f32(from_f32<T>(g.z)) * cw;
-        acc[3] += to_f32(from_f32<T>(g.w)) * cw;
-      }
-      const int row = img_base + (wy0 + i / WW) * w + wx0 + i % WW;
-      red_v4(gcol + (size_t)row * NT * C, acc[0], acc[1], acc[2], acc[3]);
-    }
-    for (int i = grp; i < nfar; i += GROUPS) {
-      const int e = CAP - 1 - i;
-      const int v = ent[e], s = v >> 2, c = v & 3;
-      const float cw = ew[e];
-      const short2 yx = pyx[s];
-      const int row = img_base + (yx.x + (c >> 1)) * w + yx.y + (c & 1);
-      const float4 g = *reinterpret_cast<const float4*>(gs + s * CS + 4 * q);
-      red_v4(gcol + (size_t)row * NT * C, to_f32(from_f32<T>(g.x)) * cw,
-             to_f32(from_f32<T>(g.y)) * cw, to_f32(from_f32<T>(g.z)) * cw,
-             to_f32(from_f32<T>(g.w)) * cw);
-    }
   }
   if (q == 0) {
 #pragma unroll
@@ -485,15 +400,14 @@ __device__ __forceinline__ void bwd_tile(
 }
 
 // ---------------------------------------------------------------------------
-// The scalar kernel (any C, any alignment): one warp a row, lanes walk
-// single channels, f32 atomics straight into the scratch.
+// The scalar kernel (any K, any C, any alignment): the offset grads, one
+// warp a row, lanes walk single channels.
 template <typename T, int NT>
 __device__ __forceinline__ void bwd_scalar(
     const T* __restrict__ table_a, const T* __restrict__ table_b,
     const T* __restrict__ offsets, const float* __restrict__ grad_a,
-    const float* __restrict__ grad_b, const Levels& lv,
-    float* __restrict__ gtab, T* __restrict__ goff, int rows, int C, int K,
-    int ks) {
+    const float* __restrict__ grad_b, const Levels& lv, T* __restrict__ goff,
+    int rows, int C, int K, int ks) {
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * WARPS + (threadIdx.x >> 5);
   if (row >= rows) return;  // uniform over the warp
@@ -511,13 +425,11 @@ __device__ __forceinline__ void bwd_scalar(
                             ks, y, x, h, w);
     int crow[4];
     bool ok[4];
-    float cw[4];
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
       const int yy = pl.y0 + (c >> 1), xx = pl.x0 + (c & 1);
       ok[c] = yy >= 0 && yy < h && xx >= 0 && xx < w;
       crow[c] = ok[c] ? img_base + yy * w + xx : 0;
-      cw[c] = corner_weight(pl.wy, pl.wx, c);
     }
     const float one_wy = 1.f - pl.wy, one_wx = 1.f - pl.wx;
     const size_t g_row = ((size_t)row * K + k) * C;
@@ -525,18 +437,12 @@ __device__ __forceinline__ void bwd_scalar(
     for (int ch = lane; ch < C; ch += 32) {
       const float ga = grad_a[g_row + ch];
       const float gb = NT == 2 ? grad_b[g_row + ch] : 0.f;
-      const float ra = to_f32(from_f32<T>(ga)), rb = to_f32(from_f32<T>(gb));
       float va[4], vb[4];
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         va[c] = ok[c] ? to_f32(table_a[(size_t)crow[c] * C + ch]) : 0.f;
         vb[c] = ok[c] && NT == 2 ? to_f32(table_b[(size_t)crow[c] * C + ch])
                                  : 0.f;
-        if (ok[c] && cw[c] != 0.f) {
-          atomicAdd(gtab + (size_t)crow[c] * NT * C + ch, ra * cw[c]);
-          if constexpr (NT == 2)
-            atomicAdd(gtab + (size_t)crow[c] * NT * C + C + ch, rb * cw[c]);
-        }
       }
       const float ddy_a = (va[2] - va[0]) * one_wx + (va[3] - va[1]) * pl.wx;
       const float ddx_a = (va[1] - va[0]) * one_wy + (va[3] - va[2]) * pl.wy;
@@ -564,26 +470,329 @@ __device__ __forceinline__ void bwd_scalar(
   }
 }
 
-// The kernels: one __global__ name a table count and kernel, so that a
-// trace tells the pair's launches from the single table's.
-#define ORP_BWD_KERNELS(PREFIX, NT)                                          \
-  template <typename T>                                                      \
-  __global__ void __launch_bounds__(THREADS, 1) PREFIX##_tile(               \
-      const T* __restrict__ table_a, const T* __restrict__ table_b,          \
-      const T* __restrict__ offsets, const float* __restrict__ grad_a,       \
-      const float* __restrict__ grad_b, Levels lv, float* __restrict__ gtab, \
-      T* __restrict__ goff, int C) {                                         \
-    bwd_tile<T, NT>(table_a, table_b, offsets, grad_a, grad_b, lv, gtab,     \
-                    goff, C);                                                \
-  }                                                                          \
-  template <typename T>                                                      \
-  __global__ void __launch_bounds__(WARPS * 32) PREFIX##_scalar(             \
-      const T* __restrict__ table_a, const T* __restrict__ table_b,          \
-      const T* __restrict__ offsets, const float* __restrict__ grad_a,       \
-      const float* __restrict__ grad_b, Levels lv, float* __restrict__ gtab, \
-      T* __restrict__ goff, int rows, int C, int K, int ks) {                \
-    bwd_scalar<T, NT>(table_a, table_b, offsets, grad_a, grad_b, lv, gtab,   \
-                      goff, rows, C, K, ks);                                 \
+// ---------------------------------------------------------------------------
+// The table grads (steps 1-5 of the header).
+
+// Sample s's four corners: the destination row of each, or -1 where the
+// corner is off the map or its weight is 0 (it adds nothing), and weights.
+template <typename T>
+__device__ __forceinline__ void sample_corners(const T* __restrict__ offsets,
+                                               const Levels& lv, int s, int K,
+                                               int ks, int (&dest)[4],
+                                               float (&cw)[4]) {
+  const int row = s / K, k = s - row * K;
+  int l = 0;
+  while (l + 1 < lv.count && row >= lv.start[l + 1]) ++l;
+  const int h = lv.h[l], w = lv.w[l];
+  const int local = row - lv.start[l];
+  const int img = local / (h * w);
+  const int rem = local - img * h * w;
+  const int y = rem / w, x = rem - y * w;
+  const int img_base = lv.start[l] + img * h * w;
+  const Plan pl = plan_of(to_f32(offsets[2 * (size_t)s]),
+                          to_f32(offsets[2 * (size_t)s + 1]), k, ks, y, x,
+                          h, w);
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const int yy = pl.y0 + (c >> 1), xx = pl.x0 + (c & 1);
+    cw[c] = corner_weight(pl.wy, pl.wx, c);
+    dest[c] = yy >= 0 && yy < h && xx >= 0 && xx < w && cw[c] != 0.f
+                  ? img_base + yy * w + xx
+                  : -1;
+  }
+}
+
+// 1. count: each entry's weight at its key, the entries of each row
+template <typename T>
+__global__ void __launch_bounds__(ENTRY_THREADS)
+    tg_count(const T* __restrict__ offsets, Levels lv, int S, int K, int ks,
+             float* __restrict__ wgt, int* __restrict__ cnt) {
+  const int s = blockIdx.x * ENTRY_THREADS + threadIdx.x;
+  if (s >= S) return;
+  int dest[4];
+  float cw[4];
+  sample_corners(offsets, lv, s, K, ks, dest, cw);
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    if (dest[c] < 0) continue;
+    wgt[(size_t)c * S + s] = cw[c];
+    atomicAdd(&cnt[dest[c]], 1);
+  }
+}
+
+// The sum of v over the block (SCAN_THREADS threads), in every thread.
+__device__ __forceinline__ int block_sum(int v, int* red) {
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1) v += __shfl_xor_sync(FULL, v, d);
+  if (lane == 0) red[wid] = v;
+  __syncthreads();
+  int t = lane < SCAN_THREADS / 32 ? red[lane] : 0;
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1) t += __shfl_xor_sync(FULL, t, d);
+  __syncthreads();  // red may be written again
+  return t;
+}
+
+// 2a. scan: the sum of each chunk of SCAN_CHUNK counts (the counts of rows
+// 0 .. R - 1, then a 0 for row R)
+__global__ void __launch_bounds__(SCAN_THREADS)
+    tg_chunk_sums(const int* __restrict__ cnt, int R, int* __restrict__ bsum) {
+  __shared__ int red[32];
+  const int base = blockIdx.x * SCAN_CHUNK + threadIdx.x * SCAN_ITEMS;
+  int v = 0;
+#pragma unroll
+  for (int i = 0; i < SCAN_ITEMS; ++i)
+    v += base + i < R ? cnt[base + i] : 0;
+  v = block_sum(v, red);
+  if (threadIdx.x == 0) bsum[blockIdx.x] = v;
+}
+
+// 2b. scan: seg[i] = the counts of rows before i, for i = 0 .. R
+__global__ void __launch_bounds__(SCAN_THREADS)
+    tg_chunk_scan(const int* __restrict__ cnt, int R,
+                  const int* __restrict__ bsum, int* __restrict__ seg) {
+  __shared__ int red[32];
+  __shared__ int warp_tot[32];
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  int pre = 0;  // the chunks before this one
+  for (int j = threadIdx.x; j < (int)blockIdx.x; j += SCAN_THREADS)
+    pre += bsum[j];
+  pre = block_sum(pre, red);
+  const int base = blockIdx.x * SCAN_CHUNK + threadIdx.x * SCAN_ITEMS;
+  int v[SCAN_ITEMS], tot = 0;
+#pragma unroll
+  for (int i = 0; i < SCAN_ITEMS; ++i) {
+    v[i] = base + i < R ? cnt[base + i] : 0;
+    tot += v[i];
+  }
+  // exclusive scan of the threads' totals: within the warp, then the warps
+  int incl = tot;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int u = __shfl_up_sync(FULL, incl, d);
+    if (lane >= d) incl += u;
+  }
+  if (lane == 31) warp_tot[wid] = incl;
+  __syncthreads();
+  if (wid == 0) {
+    int x = lane < SCAN_THREADS / 32 ? warp_tot[lane] : 0;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int u = __shfl_up_sync(FULL, x, d);
+      if (lane >= d) x += u;
+    }
+    warp_tot[lane] = x;  // inclusive over the warps
+  }
+  __syncthreads();
+  int run = pre + (wid ? warp_tot[wid - 1] : 0) + incl - tot;
+#pragma unroll
+  for (int i = 0; i < SCAN_ITEMS; ++i) {
+    if (base + i <= R) seg[base + i] = run;
+    run += v[i];
+  }
+}
+
+// 3. place: each entry's key into its row's segment; cnt counts down to 0
+template <typename T>
+__global__ void __launch_bounds__(ENTRY_THREADS)
+    tg_place(const T* __restrict__ offsets, Levels lv, int S, int K, int ks,
+             const int* __restrict__ seg, int* __restrict__ cnt,
+             unsigned* __restrict__ keys) {
+  const int s = blockIdx.x * ENTRY_THREADS + threadIdx.x;
+  if (s >= S) return;
+  int dest[4];
+  float cw[4];
+  sample_corners(offsets, lv, s, K, ks, dest, cw);
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    if (dest[c] < 0) continue;
+    const int slot = seg[dest[c]] + atomicSub(&cnt[dest[c]], 1) - 1;
+    keys[slot] = (unsigned)c * (unsigned)S + (unsigned)s;
+  }
+}
+
+// Sort a[0 .. n) ascending with the block's threads: a bitonic network
+// whose every comparator puts the smaller key at the lower index (each
+// merge starts with the flip), so the keys past n (the padding to a power
+// of two) act as +inf that never moves and are left out.
+__device__ void bitonic_sort(unsigned* a, int n) {
+  int p = 1;
+  while (p < n) p <<= 1;
+  for (int k = 2; k <= p; k <<= 1) {
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      for (int i = threadIdx.x; i < (p >> 1); i += blockDim.x) {
+        const int lo = ((i & ~(j - 1)) << 1) | (i & (j - 1));
+        const int hi = j == (k >> 1) ? (lo ^ (k - 1)) : lo + j;
+        if (hi < n) {
+          const unsigned x = a[lo], y = a[hi];
+          if (x > y) {
+            a[lo] = y;
+            a[hi] = x;
+          }
+        }
+      }
+      __syncthreads();
+    }
+  }
+}
+
+// 4. sort: the segments longer than SHORT among this block's rows
+__global__ void __launch_bounds__(SORT_THREADS)
+    tg_sort_long(const int* __restrict__ seg, int R,
+                 unsigned* __restrict__ keys) {
+  __shared__ unsigned sk[SORT_SMEM];
+  __shared__ int rows_long[SORT_THREADS];
+  __shared__ int n_long;
+  if (threadIdx.x == 0) n_long = 0;
+  __syncthreads();
+  const int r = blockIdx.x * SORT_THREADS + threadIdx.x;
+  if (r < R && seg[r + 1] - seg[r] > SHORT)
+    rows_long[atomicAdd(&n_long, 1)] = r;
+  __syncthreads();
+  for (int i = 0; i < n_long; ++i) {
+    const int a = seg[rows_long[i]], n = seg[rows_long[i] + 1] - a;
+    unsigned* g = keys + a;
+    if (n <= SORT_SMEM) {
+      for (int e = threadIdx.x; e < n; e += SORT_THREADS) sk[e] = g[e];
+      __syncthreads();
+      bitonic_sort(sk, n);
+      for (int e = threadIdx.x; e < n; e += SORT_THREADS) g[e] = sk[e];
+      __syncthreads();
+    } else {
+      bitonic_sort(g, n);
+    }
+  }
+}
+
+// 5. sum: one warp a destination row, its keys in ascending order
+template <typename T, int NT>
+__device__ __forceinline__ void tg_sum_row(
+    const float* __restrict__ grad_a, const float* __restrict__ grad_b,
+    const int* __restrict__ seg, const unsigned* __restrict__ keys,
+    const float* __restrict__ wgt, int R, int C, int S, int vec,
+    float* __restrict__ gtab) {
+  __shared__ unsigned ranked[SUM_WARPS][SHORT];
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  const int d = blockIdx.x * SUM_WARPS + wid;
+  if (d >= R) return;  // uniform over the warp
+  const int a = seg[d], n = seg[d + 1] - a;
+  const unsigned* order = keys + a;
+  if (n <= SHORT) {
+    // rank the (distinct) keys: each lane's key goes to slot = the number
+    // of smaller ones
+    const unsigned k0 = lane < n ? keys[a + lane] : 0xffffffffu;
+    const unsigned k1 = lane + 32 < n ? keys[a + lane + 32] : 0xffffffffu;
+    int r0 = 0, r1 = 0;
+    for (int j = 0; j < n; ++j) {
+      const unsigned u0 = __shfl_sync(FULL, k0, j & 31);
+      const unsigned u1 = __shfl_sync(FULL, k1, j & 31);
+      const unsigned kj = j < 32 ? u0 : u1;
+      r0 += kj < k0;
+      r1 += kj < k1;
+    }
+    if (lane < n) ranked[wid][r0] = k0;
+    if (lane + 32 < n) ranked[wid][r1] = k1;
+    __syncwarp();
+    order = ranked[wid];
+  }
+  const int cols = NT * C;
+  const unsigned su = (unsigned)S;
+  float* out = gtab + (size_t)d * cols;
+  if (vec) {  // SUM_VEC float4 groups of columns a lane and pass
+    for (int base = 0; base < cols; base += 128 * SUM_VEC) {
+      const float* src[SUM_VEC];
+      float acc[SUM_VEC][4];
+#pragma unroll
+      for (int v = 0; v < SUM_VEC; ++v) {
+        const int col = base + 4 * (lane + 32 * v);
+        const bool b = NT == 2 && col >= C;
+        src[v] = col < cols ? (b ? grad_b + (col - C) : grad_a + col) : nullptr;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[v][i] = 0.f;
+      }
+#pragma unroll 2
+      for (int e = 0; e < n; ++e) {
+        const unsigned key = order[e];
+        const unsigned c = (key >= su) + (key >= 2 * su) + (key >= 3 * su);
+        const size_t s = key - c * su;
+        const float cw = wgt[key];
+#pragma unroll
+        for (int v = 0; v < SUM_VEC; ++v)
+          if (src[v]) {
+            const float4 g =
+                __ldg(reinterpret_cast<const float4*>(src[v] + s * C));
+            acc[v][0] += to_f32(from_f32<T>(g.x)) * cw;
+            acc[v][1] += to_f32(from_f32<T>(g.y)) * cw;
+            acc[v][2] += to_f32(from_f32<T>(g.z)) * cw;
+            acc[v][3] += to_f32(from_f32<T>(g.w)) * cw;
+          }
+      }
+#pragma unroll
+      for (int v = 0; v < SUM_VEC; ++v) {
+        const int col = base + 4 * (lane + 32 * v);
+        if (col < cols)
+          *reinterpret_cast<float4*>(out + col) =
+              make_float4(acc[v][0], acc[v][1], acc[v][2], acc[v][3]);
+      }
+    }
+    return;
+  }
+  for (int base = 0; base < cols; base += 32 * SUM_U) {  // one column a lane
+    const float* src[SUM_U];
+    float acc[SUM_U];
+#pragma unroll
+    for (int u = 0; u < SUM_U; ++u) {
+      const int col = base + lane + 32 * u;
+      const bool b = NT == 2 && col >= C;
+      src[u] = col < cols ? (b ? grad_b + (col - C) : grad_a + col) : nullptr;
+      acc[u] = 0.f;
+    }
+    for (int e = 0; e < n; ++e) {
+      const unsigned key = order[e];
+      const unsigned c = (key >= su) + (key >= 2 * su) + (key >= 3 * su);
+      const size_t s = key - c * su;
+      const float cw = wgt[key];
+#pragma unroll
+      for (int u = 0; u < SUM_U; ++u)
+        if (src[u])
+          acc[u] += to_f32(from_f32<T>(src[u][s * C])) * cw;
+    }
+#pragma unroll
+    for (int u = 0; u < SUM_U; ++u) {
+      const int col = base + lane + 32 * u;
+      if (col < cols) out[col] = acc[u];
+    }
+  }
+}
+
+// The kernels of one table count: one __global__ name a count and kernel,
+// so that a trace tells the pair's launches from the single table's.
+#define ORP_BWD_KERNELS(PREFIX, NT)                                           \
+  template <typename T>                                                       \
+  __global__ void __launch_bounds__(THREADS, 1) PREFIX##_tile(                \
+      const T* __restrict__ table_a, const T* __restrict__ table_b,           \
+      const T* __restrict__ offsets, const float* __restrict__ grad_a,        \
+      const float* __restrict__ grad_b, Levels lv, T* __restrict__ goff,      \
+      int C) {                                                                \
+    bwd_tile<T, NT>(table_a, table_b, offsets, grad_a, grad_b, lv, goff, C);  \
+  }                                                                           \
+  template <typename T>                                                       \
+  __global__ void __launch_bounds__(WARPS * 32) PREFIX##_scalar(              \
+      const T* __restrict__ table_a, const T* __restrict__ table_b,           \
+      const T* __restrict__ offsets, const float* __restrict__ grad_a,        \
+      const float* __restrict__ grad_b, Levels lv, T* __restrict__ goff,      \
+      int rows, int C, int K, int ks) {                                       \
+    bwd_scalar<T, NT>(table_a, table_b, offsets, grad_a, grad_b, lv, goff,    \
+                      rows, C, K, ks);                                        \
+  }                                                                           \
+  template <typename T>                                                       \
+  __global__ void __launch_bounds__(SUM_WARPS * 32) PREFIX##_sum(             \
+      const float* __restrict__ grad_a, const float* __restrict__ grad_b,     \
+      const int* __restrict__ seg, const unsigned* __restrict__ keys,         \
+      const float* __restrict__ wgt, int R, int C, int S, int vec,            \
+      float* __restrict__ gtab) {                                             \
+    tg_sum_row<T, NT>(grad_a, grad_b, seg, keys, wgt, R, C, S, vec, gtab);    \
   }
 
 ORP_BWD_KERNELS(deform_sample_pair_bwd, 2)
@@ -605,14 +814,51 @@ auto scalar_kernel() {
     return deform_sample_bwd_scalar<T>;
 }
 
+template <typename T, int NT>
+auto sum_kernel() {
+  if constexpr (NT == 2)
+    return deform_sample_pair_bwd_sum<T>;
+  else
+    return deform_sample_bwd_sum<T>;
+}
+
 bool aligned(const void* p, uintptr_t n) { return ((uintptr_t)p % n) == 0; }
+
+size_t align16(size_t n) { return (n + 15) & ~(size_t)15; }
+
+// The workspace of the table grads, in bytes, and where each part starts:
+// cnt (R ints), seg (R + 1), bsum (one a scan chunk), keys (4 S u32), wgt
+// (4 S f32), each 16-byte aligned (ops/deform_conv.py, _bwd_work_bytes,
+// computes the same size).
+struct Work {
+  size_t cnt, seg, bsum, keys, wgt, bytes;
+};
+
+Work work_layout(long long rows, long long K) {
+  const size_t R = (size_t)rows, E = 4 * (size_t)rows * (size_t)K;
+  const size_t chunks = (R + 1 + SCAN_CHUNK - 1) / SCAN_CHUNK;
+  Work w;
+  w.cnt = 0;
+  w.seg = align16(w.cnt + R * sizeof(int));
+  w.bsum = align16(w.seg + (R + 1) * sizeof(int));
+  w.keys = align16(w.bsum + chunks * sizeof(int));
+  w.wgt = align16(w.keys + E * sizeof(unsigned));
+  w.bytes = align16(w.wgt + E * sizeof(float));
+  return w;
+}
 
 template <typename T, int NT>
 int launch(const void* table_a, const void* table_b, const void* offsets,
            const float* grad_a, const float* grad_b, const int* levels,
-           float* gtab, void* goff, int rows, int C, int K, int num_levels,
-           int device, void* stream) {
-  if (num_levels < 1 || num_levels > MAX_LEVELS || K < 1)
+           float* gtab, void* goff, void* work, long long work_bytes,
+           int rows, int C, int K, int num_levels, int device, void* stream) {
+  if (num_levels < 1 || num_levels > MAX_LEVELS || K < 1 || rows < 0)
+    return (int)cudaErrorInvalidValue;
+  // the keys (corner * S + sample) and the segment starts (int) must fit
+  if (4 * (long long)rows * K >= (1ll << 31))
+    return (int)cudaErrorInvalidValue;
+  const Work wl = work_layout(rows, K);
+  if ((unsigned long long)work_bytes < wl.bytes)
     return (int)cudaErrorInvalidValue;
   Levels lv;
   lv.count = num_levels;
@@ -632,6 +878,9 @@ int launch(const void* table_a, const void* table_b, const void* offsets,
   int ks = 1;
   while (ks * ks < K) ++ks;
   if (rows == 0) return (int)cudaGetLastError();
+  const cudaStream_t st = (cudaStream_t)stream;
+
+  // the offset grads
   using Cfg = Tile<T>;
   int max_smem = 0;
   cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin,
@@ -646,38 +895,68 @@ int launch(const void* table_a, const void* table_b, const void* offsets,
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Cfg::SMEM);
     if (err != cudaSuccess) return (int)err;
-    kernel<<<lv.tile_start[num_levels], THREADS, Cfg::SMEM,
-             (cudaStream_t)stream>>>((const T*)table_a, (const T*)table_b,
-                                     (const T*)offsets, grad_a, grad_b, lv,
-                                     gtab, (T*)goff, C);
+    kernel<<<lv.tile_start[num_levels], THREADS, Cfg::SMEM, st>>>(
+        (const T*)table_a, (const T*)table_b, (const T*)offsets, grad_a,
+        grad_b, lv, (T*)goff, C);
   } else {
     const auto kernel = scalar_kernel<T, NT>();
-    kernel<<<(unsigned)((rows + WARPS - 1) / WARPS), WARPS * 32, 0,
-             (cudaStream_t)stream>>>((const T*)table_a, (const T*)table_b,
-                                     (const T*)offsets, grad_a, grad_b, lv,
-                                     gtab, (T*)goff, rows, C, K, ks);
+    kernel<<<(unsigned)((rows + WARPS - 1) / WARPS), WARPS * 32, 0, st>>>(
+        (const T*)table_a, (const T*)table_b, (const T*)offsets, grad_a,
+        grad_b, lv, (T*)goff, rows, C, K, ks);
   }
+
+  // the table grads
+  char* base = (char*)work;
+  int* cnt = (int*)(base + wl.cnt);
+  int* seg = (int*)(base + wl.seg);
+  int* bsum = (int*)(base + wl.bsum);
+  unsigned* keys = (unsigned*)(base + wl.keys);
+  float* wgt = (float*)(base + wl.wgt);
+  const int S = rows * K;
+  cudaError_t err = cudaMemsetAsync(cnt, 0, (size_t)rows * sizeof(int), st);
+  if (err != cudaSuccess) return (int)err;
+  const unsigned entry_blocks = (unsigned)((S + ENTRY_THREADS - 1) /
+                                           ENTRY_THREADS);
+  const unsigned chunks = (unsigned)((rows + 1 + SCAN_CHUNK - 1) /
+                                     SCAN_CHUNK);
+  tg_count<T><<<entry_blocks, ENTRY_THREADS, 0, st>>>(
+      (const T*)offsets, lv, S, K, ks, wgt, cnt);
+  tg_chunk_sums<<<chunks, SCAN_THREADS, 0, st>>>(cnt, rows, bsum);
+  tg_chunk_scan<<<chunks, SCAN_THREADS, 0, st>>>(cnt, rows, bsum, seg);
+  tg_place<T><<<entry_blocks, ENTRY_THREADS, 0, st>>>(
+      (const T*)offsets, lv, S, K, ks, seg, cnt, keys);
+  tg_sort_long<<<(unsigned)((rows + SORT_THREADS - 1) / SORT_THREADS),
+                 SORT_THREADS, 0, st>>>(seg, rows, keys);
+  const int vec = C % 4 == 0 && aligned(grad_a, 16) && aligned(gtab, 16) &&
+                  (NT == 1 || aligned(grad_b, 16));
+  const auto sum = sum_kernel<T, NT>();
+  sum<<<(unsigned)((rows + SUM_WARPS - 1) / SUM_WARPS), SUM_WARPS * 32, 0,
+        st>>>(grad_a, grad_b, seg, keys, wgt, rows, C, S, vec, gtab);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// table_a, table_b (R, C); offsets (R, 2K); grad_a, grad_b
-// (R, K*C) f32; levels: host int array of (first row, h, w) per level
-// (rows of a level are image-major, then y, then x); gtab (R, NT*C) f32,
-// zeroed by the caller; goff (R, 2K) in the table dtype.  The
-// single-table entries (NT = 1) take table_a and grad_a only.
+// table_a, table_b (R, C); offsets (R, 2K); grad_a, grad_b (R, K*C) f32;
+// levels: host int array of (first row, h, w) per level (rows of a level
+// are image-major, then y, then x); gtab (R, NT*C) f32, every value
+// written; goff (R, 2K) in the table dtype; work: work_bytes of device
+// memory, 16-byte aligned, for the table grads' entries (work_layout; a
+// smaller one is refused).  The single-table entries (NT =
+// 1) take table_a and grad_a only.
 #define ORP_DEFORM_SAMPLE_BWD(NAME, T, NT)                                   \
   extern "C" int NAME(const void* table_a, const void* table_b,             \
                       const void* offsets, const void* grad_a,              \
                       const void* grad_b, const int* levels, float* gtab,   \
-                      void* goff, int rows, int C, int K, int num_levels,   \
-                      int device, void* stream) {                           \
+                      void* goff, void* work, long long work_bytes,         \
+                      int rows, int C, int K, int num_levels, int device,   \
+                      void* stream) {                                       \
     const DeviceScope scope(device);                                         \
     if (scope.error() != cudaSuccess) return (int)scope.error();            \
     return launch<T, NT>(table_a, table_b, offsets, (const float*)grad_a,   \
-                         (const float*)grad_b, levels, gtab, goff, rows, C, \
-                         K, num_levels, device, stream);                    \
+                         (const float*)grad_b, levels, gtab, goff, work,    \
+                         work_bytes, rows, C, K, num_levels, device,        \
+                         stream);                                           \
   }
 
 ORP_DEFORM_SAMPLE_BWD(orp_deform_sample_pair_bwd_f32, float, 2)

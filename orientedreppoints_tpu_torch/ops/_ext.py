@@ -36,6 +36,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 P = ctypes.c_void_p
 I = ctypes.c_int
+LL = ctypes.c_longlong
 F32 = ctypes.c_float
 # exported function -> argument types (pointers and the stream are c_void_p);
 # every one ends (..., device ordinal, stream)
@@ -45,13 +46,14 @@ SIGNATURES = {
     "orp_nms_scan": [P, P, P, P, I, I, I, P],
     "orp_deform_sample_pair_f32": [P, P, P, P, P, P, I, I, I, I, I, P],
     "orp_deform_sample_pair_bf16": [P, P, P, P, P, P, I, I, I, I, I, P],
-    "orp_deform_sample_pair_bwd_f32": [P] * 8 + [I, I, I, I, I, P],
-    "orp_deform_sample_pair_bwd_bf16": [P] * 8 + [I, I, I, I, I, P],
+    # ..., gtab, goff, work, work_bytes, rows, C, K, num_levels, ...
+    "orp_deform_sample_pair_bwd_f32": [P] * 9 + [LL, I, I, I, I, I, P],
+    "orp_deform_sample_pair_bwd_bf16": [P] * 9 + [LL, I, I, I, I, I, P],
     # the same two kernels at one table (the b pointers unused)
     "orp_deform_sample_f32": [P, P, P, P, P, P, I, I, I, I, I, P],
     "orp_deform_sample_bf16": [P, P, P, P, P, P, I, I, I, I, I, P],
-    "orp_deform_sample_bwd_f32": [P] * 8 + [I, I, I, I, I, P],
-    "orp_deform_sample_bwd_bf16": [P] * 8 + [I, I, I, I, I, P],
+    "orp_deform_sample_bwd_f32": [P] * 9 + [LL, I, I, I, I, I, P],
+    "orp_deform_sample_bwd_bf16": [P] * 9 + [LL, I, I, I, I, I, P],
     "orp_hull_quad_iou": [P, P, P, P, P, P, I, I, I, I, P],
     "orp_quad_iou_full": [P, P, P, I, I, I, I, P],
     "orp_quad_iou_tri": [P, P, P, P, I, I, I, I, P],

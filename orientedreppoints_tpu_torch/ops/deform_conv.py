@@ -251,9 +251,13 @@ def deform_sample_pair_backward_plain(table_a, table_b, offsets, grad_a,
     in their dtypes.  Table grads: per corner, the grad rounded to the table
     dtype (the JAX package's gs_a_dt) * lerp weight, scattered into an f32
     (rows, 2C) table (both instances side by side, as the JAX package
-    scatters them), rounded once.  Offset grads: (dy, dx) per sample, the
-    f32 sum over channels and both instances of the f32 grad *
-    d(sample)/d(coord).
+    scatters them), rounded once.  The scatter adds corner 0..3 in turn,
+    each corner's samples (row * K + tap) in ascending order, one term
+    after another from +0.0 (index_add_ on the CPU; on the card under
+    PyTorch's deterministic algorithms): the order csrc/deform_sample_bwd.cu
+    sums in, so the kernel's table grads are these bit for bit.  Offset
+    grads: (dy, dx) per sample, the f32 sum over channels and both
+    instances of the f32 grad * d(sample)/d(coord).
     """
     *gtabs, goff = _sample_backward_plain((table_a, table_b), offsets,
                                           (grad_a, grad_b), shapes,
@@ -315,6 +319,21 @@ def deform_sample_pair_backward(table_a, table_b, offsets, grad_a, grad_b,
         table_a, table_b, offsets, grad_a, grad_b, shapes, kernel_size)
 
 
+def _bwd_work_bytes(rows: int, k: int) -> int:
+    """Bytes of the backward kernel's workspace (csrc/deform_sample_bwd.cu,
+    work_layout): a count and a segment start a row, a sum a scan chunk of
+    4,096 rows, and a key and a weight for each of the 4 corners of the
+    rows * k samples, each part 16-byte aligned."""
+    def a16(n):
+        return (n + 15) // 16 * 16
+    entries = 4 * rows * k
+    seg = a16(4 * rows)
+    bsum = a16(seg + 4 * (rows + 1))
+    keys = a16(bsum + 4 * ((rows + 1 + 4095) // 4096))
+    wgt = a16(keys + 4 * entries)
+    return a16(wgt + 4 * entries)
+
+
 def _sample_backward_kernel(what, entries, tables, offsets, grads, shapes,
                             kernel_size):
     """Launch the sampling backward over one or two tables -> the tables'
@@ -332,17 +351,21 @@ def _sample_backward_kernel(what, entries, tables, offsets, grads, shapes,
     for x, g in zip("ab", grads):
         _ext.check_cuda(g, f"grad_{x}", torch.float32, (rows, k * c),
                         table.device)
-    # f32 scratch for the atomics, the tables' grads side by side
-    gtab = torch.zeros((rows, len(tables) * c), dtype=torch.float32,
+    # the tables' grads side by side in f32, every value written by the
+    # kernel; the workspace of its entries
+    gtab = torch.empty((rows, len(tables) * c), dtype=torch.float32,
                        device=table.device)
     goff = torch.empty((rows, 2 * k), dtype=table.dtype, device=table.device)
+    work_bytes = _bwd_work_bytes(rows, k)
+    work = torch.empty((work_bytes,), dtype=torch.uint8, device=table.device)
     ptrs = [t.data_ptr() for t in tables]
     gptrs = [g.data_ptr() for g in grads]
     if len(tables) == 1:  # the single-table entry ignores the b pointers
         ptrs, gptrs = ptrs * 2, gptrs * 2
     _ext.launch(entries[table.dtype], ptrs[0], ptrs[1], offsets.data_ptr(),
                 gptrs[0], gptrs[1], _levels_arg(shapes), gtab.data_ptr(),
-                goff.data_ptr(), rows, c, k, len(shapes), on=table)
+                goff.data_ptr(), work.data_ptr(), work_bytes, rows, c, k,
+                len(shapes), on=table)
     gtab = gtab.to(table.dtype)
     return (*(gtab[:, j * c:(j + 1) * c] for j in range(len(tables))), goff)
 

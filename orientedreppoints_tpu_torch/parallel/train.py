@@ -60,6 +60,7 @@ import torch
 from ..core.loss_head import LossConfig, compute_losses
 from ..models.swin import BatchRows
 from ..utils import jax_random
+from ..utils.determinism import deterministic
 from . import dist
 
 BATCH_KEYS = ("images", "gt_polys", "gt_labels", "gt_valid", "img_hw")
@@ -206,6 +207,9 @@ def make_train_step(model: torch.nn.Module, loss_cfg: LossConfig, optimizer,
     parameters; the step is then the one-process step of the global batch
     (module docstring).  The ranks' row counts may differ, none may be 0.
     None: one process.
+
+    Every step runs under utils/determinism.deterministic(), so one seed
+    gives the same parameters on every run, as the JAX step does.
     """
     params = [p for g in optimizer.param_groups for p in g["params"]]
     device = params[0].device
@@ -214,42 +218,44 @@ def make_train_step(model: torch.nn.Module, loss_cfg: LossConfig, optimizer,
         lambda t: dist.all_reduce_sum(t, group))
 
     def step(batch: dict, stats: dict | None = None) -> dict:
-        batch = to_device(batch, device)
-        imgs = batch["images"]
-        if img_norm is not None:
-            imgs = device_normalize(imgs, batch["img_hw"], **img_norm)
-        was_training = model.training
-        model.train()
-        key = dropout_key(seed, scheduler.last_epoch)
-        if group is not None:  # the ranks' shares may differ (the loader)
-            counts = dist.row_counts(len(imgs), group, device)
-            key = BatchRows(key, sum(counts[:rank]), sum(counts))
-        try:
-            outs = model(imgs, key)
-        finally:
-            model.train(was_training)
-        losses = compute_losses(outs, batch["gt_polys"], batch["gt_labels"],
-                                batch["gt_valid"], batch["img_hw"], loss_cfg,
-                                stats=stats, reduce=reduce)
-        total = sum(v for k, v in losses.items() if k.startswith("loss"))
-        optimizer.zero_grad(set_to_none=False)
-        total.backward()
-        if group is not None:
-            all_reduce_grads_([p.grad for p in params], group)
-        clip_by_global_norm_([p.grad for p in params], grad_clip)
-        optimizer.step()
-        scheduler.step()
-        losses = {k: v.detach() for k, v in losses.items()}
-        losses["loss_total"] = total.detach()
-        if group is not None:
-            names = list(losses)
-            summed = dist.all_reduce_sum(
-                torch.stack([losses[k].float() for k in names]), group)
-            losses = dict(zip(names, summed.unbind()))
-            if stats is not None:
-                for k in ("gt_inds", "iou_gt_0p1"):
-                    stats[k] = dist.gather_rows(stats[k], group, counts)
-        return losses
+        with deterministic():
+            batch = to_device(batch, device)
+            imgs = batch["images"]
+            if img_norm is not None:
+                imgs = device_normalize(imgs, batch["img_hw"], **img_norm)
+            was_training = model.training
+            model.train()
+            key = dropout_key(seed, scheduler.last_epoch)
+            if group is not None:  # the ranks' shares may differ (loader)
+                counts = dist.row_counts(len(imgs), group, device)
+                key = BatchRows(key, sum(counts[:rank]), sum(counts))
+            try:
+                outs = model(imgs, key)
+            finally:
+                model.train(was_training)
+            losses = compute_losses(
+                outs, batch["gt_polys"], batch["gt_labels"],
+                batch["gt_valid"], batch["img_hw"], loss_cfg, stats=stats,
+                reduce=reduce)
+            total = sum(v for k, v in losses.items() if k.startswith("loss"))
+            optimizer.zero_grad(set_to_none=False)
+            total.backward()
+            if group is not None:
+                all_reduce_grads_([p.grad for p in params], group)
+            clip_by_global_norm_([p.grad for p in params], grad_clip)
+            optimizer.step()
+            scheduler.step()
+            losses = {k: v.detach() for k, v in losses.items()}
+            losses["loss_total"] = total.detach()
+            if group is not None:
+                names = list(losses)
+                summed = dist.all_reduce_sum(
+                    torch.stack([losses[k].float() for k in names]), group)
+                losses = dict(zip(names, summed.unbind()))
+                if stats is not None:
+                    for k in ("gt_inds", "iou_gt_0p1"):
+                        stats[k] = dist.gather_rows(stats[k], group, counts)
+            return losses
 
     for p in params:  # every trainable leaf decays, as optax applies it
         p.grad = torch.zeros_like(p)

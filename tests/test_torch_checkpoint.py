@@ -24,6 +24,16 @@ from orientedreppoints_tpu_torch.devkit.img_split import ImgSplit
 from orientedreppoints_tpu_torch.host import load_config
 from orientedreppoints_tpu_torch.utils import checkpoint
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One torch thread: the suite runs several files side by side."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SYNTH = os.path.join(REPO, "configs/dota/synth_r18_512.py")
 WIDTH = 32
@@ -167,7 +177,8 @@ def test_training_clis_default_to_cuda(data, tmp_path, tool):
 
 def run_tool(*args):
     res = subprocess.run([sys.executable, *args], cwd=REPO,
-                         capture_output=True, text=True, timeout=300)
+                         capture_output=True, text=True, timeout=300,
+                         env=dict(os.environ, OMP_NUM_THREADS="1"))
     assert res.returncode in (0, 1), res.stdout + res.stderr
     return res
 

@@ -62,7 +62,7 @@ def test_kernels_match_plain_versions_on_the_card(cuda):
 def test_training_kernels_match_plain_versions_on_the_card(cuda):
     """Kernel 1's hull output and the hull-IoU kernel give the plain
     versions' bits (the assigner compares IoUs for equality); the DCN
-    backward is within the reordering of its f32 atomics."""
+    backward's table grads too (close_grads)."""
     rng = np.random.default_rng(2)
     pts = rng.uniform(0, 400, (3000, 1, 2)) + rng.normal(0, 20, (3000, 9, 2))
     pts[:100] = pts[:100, :1]
@@ -82,20 +82,17 @@ def test_training_kernels_match_plain_versions_on_the_card(cuda):
 
     shapes = [(2, 12, 10), (2, 6, 5)]
     rows = sum(b * hh * w for b, hh, w in shapes)
-    for dt, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2 ** -7)):
+    for dt in (torch.float32, torch.bfloat16):
         ta = torch.randn(rows, 64, device=cuda).to(dt)
         tb = torch.randn(rows, 64, device=cuda).to(dt)
         off = (torch.randn(rows, 18, device=cuda) * 3).to(dt)
         ga = torch.randn(rows, 9 * 64, device=cuda)  # f32 sample grads
         gb = torch.randn(rows, 9 * 64, device=cuda)
-        got = deform_conv.deform_sample_pair_backward(ta, tb, off, ga, gb,
-                                                      shapes)
-        want = deform_conv.deform_sample_pair_backward_plain(
-            ta, tb, off, ga, gb, shapes)
-        for g, w in zip(got, want):
-            assert g.dtype == w.dtype == dt
-            scale = max(1.0, float(w.float().abs().max()))
-            assert (g.float() - w.float()).abs().max() <= tol * scale
+        args = (ta, tb, off, ga, gb, shapes)
+        got = deform_conv.deform_sample_pair_backward(*args)
+        want = on_the_cpu(deform_conv.deform_sample_pair_backward_plain,
+                          *args)
+        close_grads(got, want, dt, ((rows, 64), (rows, 64), (rows, 18)))
 
 
 @pytest.mark.cuda
@@ -271,16 +268,36 @@ def bwd_inputs(cuda, c, dtype):
     return ta, tb, off, ga, gb, shapes
 
 
-def close_grads(got, want, dtype, shapes_of):
-    """Table grads are f32 sums reordered by the atomics (bf16: one
-    rounding step), each relative to its tensor's largest grad
-    (chip_smoke.DCN_BWD_RTOL)."""
+def on_the_cpu(plain, *args):
+    """A plain version run on CPU copies of the card's tensors, its outputs
+    back on the card: its index_add_ sums in the declared order there
+    (tests/test_torch_dcn_order.py), whatever algorithm the card's takes."""
+    cpu = [a.cpu() if isinstance(a, torch.Tensor) else a for a in args]
+    return [o.to(args[0].device) for o in plain(*cpu)]
+
+
+def bit_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    as_int = {4: torch.int32, 2: torch.int16}[a.element_size()]
+    return a.dtype == b.dtype and torch.equal(a.contiguous().view(as_int),
+                                              b.contiguous().view(as_int))
+
+
+def close_grads(got, want, dtype, shapes_of, dense=True):
+    """Table grads (all outputs but the last) bit for bit: the kernel sums
+    them in the plain version's order.  Offset grads (the last) sum over
+    channels in the kernel's own order: within one rounding step of the
+    dtype (f32: 1e-5) of their largest (chip_smoke.DCN_BWD_RTOL).
+    dense: most of every wanted grad is nonzero (else at least one value
+    of each)."""
     tol = 1e-5 if dtype == torch.float32 else 2 ** -7
-    for g, w, shape in zip(got, want, shapes_of):
+    for i, (g, w, shape) in enumerate(zip(got, want, shapes_of)):
         assert g.dtype == w.dtype == dtype and g.shape == shape
-        scale = max(1.0, float(w.float().abs().max()))
-        assert (g.float() - w.float()).abs().max() <= tol * scale
-        assert (w != 0).float().mean() > 0.5
+        if i < len(got) - 1:
+            assert bit_equal(g, w)
+        else:
+            scale = max(1.0, float(w.float().abs().max()))
+            assert (g.float() - w.float()).abs().max() <= tol * scale
+        assert (w != 0).float().mean() > (0.5 if dense else 0.0)
 
 
 @pytest.mark.cuda
@@ -294,8 +311,8 @@ def test_deform_sample_backward_kernel_matches_plain(cuda, c, dtype):
     ta, tb, off, ga, gb, shapes = bwd_inputs(cuda, c, dtype)
     rows = ta.shape[0]
     got = deform_conv.deform_sample_pair_backward(ta, tb, off, ga, gb, shapes)
-    want = deform_conv.deform_sample_pair_backward_plain(ta, tb, off, ga, gb,
-                                                         shapes)
+    want = on_the_cpu(deform_conv.deform_sample_pair_backward_plain, ta, tb,
+                      off, ga, gb, shapes)
     close_grads(got, want, dtype, ((rows, c), (rows, c), (rows, 18)))
 
 
@@ -311,8 +328,70 @@ def test_deform_sample_single_backward_kernel_matches_plain(cuda, c, dtype):
     launches = deform_conv.deform_sample_backward_kernel.launches
     got = deform_conv.deform_sample_backward(ta, off, ga, shapes)
     assert deform_conv.deform_sample_backward_kernel.launches == launches + 1
-    want = deform_conv.deform_sample_backward_plain(ta, off, ga, shapes)
+    want = on_the_cpu(deform_conv.deform_sample_backward_plain, ta, off, ga,
+                      shapes)
     close_grads(got, want, dtype, ((rows, c), (rows, 18)))
+
+
+def piled_inputs(cuda, c, dtype):
+    """DCN backward inputs whose corners pile up: on a (1, 40, 48) level
+    every sample goes near one pixel (17,280 entries on each of its four
+    corners: the sort's pass in place in global memory), on a (2, 12, 20)
+    level near one of three (~1.4k: its pass in shared memory), a (1, 1, 1)
+    level; grads with -0.0 and 0.0 among them."""
+    rng = np.random.default_rng(9)
+    shapes = [(1, 40, 48), (2, 12, 20), (1, 1, 1)]
+    rows = sum(b * h * w for b, h, w in shapes)
+    base = deform_conv.dcn_base_offset(3).numpy().reshape(9, 2)
+    offs = []
+    for (b, h, w), targets in zip(shapes, ([[11, 17]],
+                                           [[2, 3], [6, 10], [9, 2]],
+                                           [[0, 0]])):
+        yx = np.stack(np.meshgrid(np.arange(h), np.arange(w),
+                                  indexing="ij"), -1).reshape(1, h * w, 1, 2)
+        pick = rng.integers(0, len(targets), (b, h * w, 9))
+        target = (np.array(targets, np.float64)[pick]
+                  + rng.uniform(0, 1, (b, h * w, 9, 2)))
+        offs.append((target - yx - base).reshape(-1, 18))
+    off = torch.tensor(np.concatenate(offs), device=cuda).to(dtype)
+    tabs = [torch.tensor(rng.normal(size=(rows, c)), device=cuda).to(dtype)
+            for _ in range(2)]
+    grads = []
+    for _ in range(2):
+        g = rng.normal(size=(rows, 9 * c)).astype(np.float32)
+        pick = rng.random(g.shape)
+        g[pick < 0.05] = -0.0
+        g[(pick >= 0.05) & (pick < 0.1)] = 0.0
+        grads.append(torch.tensor(g, device=cuda))
+    return tabs, off, grads, shapes
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [256, 48, 20, 22])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("n_tables", [2, 1], ids=["pair", "single"])
+def test_deform_sample_backward_repeats_bit_for_bit(cuda, c, dtype,
+                                                    n_tables):
+    """The DCN backward (offset grads: tile kernel at C 256 and 48, scalar
+    at 20 and 22; table grads: 16-byte sums where C is a multiple of 4,
+    single columns at 22) on inputs that pile thousands of corners onto a
+    few pixels: two launches give the same bits in every output, and the
+    table grads are the plain version's (close_grads)."""
+    tabs, off, grads, shapes = piled_inputs(cuda, c, dtype)
+    if n_tables == 2:
+        fn = deform_conv.deform_sample_pair_backward
+        plain = deform_conv.deform_sample_pair_backward_plain
+    else:
+        fn = deform_conv.deform_sample_backward
+        plain = deform_conv.deform_sample_backward_plain
+    args = (*tabs[:n_tables], off, *grads[:n_tables], shapes)
+    first = fn(*args)
+    again = fn(*args)
+    assert all(bit_equal(a, b) for a, b in zip(first, again))
+    rows = off.shape[0]
+    close_grads(first, on_the_cpu(plain, *args), dtype,
+                [(rows, c)] * n_tables + [(rows, 18)], dense=False)
 
 
 def rect_err(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

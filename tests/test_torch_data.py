@@ -16,6 +16,7 @@ import os.path as osp
 import cv2
 import numpy as np
 import pytest
+import torch
 
 from orientedreppoints_tpu.data import synth as synth_ref
 from orientedreppoints_tpu.devkit import dota_utils as util_ref
@@ -33,6 +34,17 @@ from orientedreppoints_tpu_torch.host import resize_cubic, resize_cubic_uint8
 # measured over the four scenes below: 11 of 786,432 pixels differ, each
 # by one grey level, all of them cv2's IPP bicubic (with IPP off the
 # scenes are equal bit for bit); the bound leaves room for other seeds
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One torch thread: the suite runs several files side by side."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 MIN_SAME_PIXELS = 0.9999
 IPP_PIXELS = 11
 SCENES = [(0, 256), (1, 256), (2, 256), (10000, 768)]

@@ -12,6 +12,7 @@ import os.path as osp
 
 import numpy as np
 import pytest
+import torch
 
 from orientedreppoints_tpu import apis as apis_ref
 from orientedreppoints_tpu.core import rbox as rbox_ref
@@ -26,6 +27,16 @@ from orientedreppoints_tpu_torch.devkit import dota_utils as util
 from orientedreppoints_tpu_torch.devkit import evaluation
 from orientedreppoints_tpu_torch.devkit import polygon as pg
 from orientedreppoints_tpu_torch.devkit import result_merge
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One torch thread: the suite runs several files side by side."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 CLASSES = ("plane", "ship", "storage-tank")
 

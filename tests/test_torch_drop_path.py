@@ -20,6 +20,16 @@ from orientedreppoints_tpu_torch.host import load_config
 from orientedreppoints_tpu_torch.models import swin
 from orientedreppoints_tpu_torch.parallel.train import dropout_key
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One torch thread: the suite runs several files side by side."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 SEEDS = (0, 1, 7, 12345)
 STEPS = 250  # steps 0..249 of each seed: 1,000 pairs
 # a block's share deviates by more than 4.5 sigma with chance ~7e-6, so

@@ -14,6 +14,7 @@ import os.path as osp
 
 import numpy as np
 import pytest
+import torch
 
 from orientedreppoints_tpu.devkit import dota2coco as d2c_ref
 from orientedreppoints_tpu.devkit import evaluation as eval_ref
@@ -22,6 +23,16 @@ from orientedreppoints_tpu_torch.data.synth import generate_synth_dota
 from orientedreppoints_tpu_torch.devkit import dota2coco, evaluation
 from orientedreppoints_tpu_torch.devkit import dota_utils as util
 from orientedreppoints_tpu_torch.devkit import polygon as pg
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One torch thread: the suite runs several files side by side."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 UCAS_NAMES = {"plane": "airplane", "small-vehicle": "car"}
 

@@ -19,6 +19,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from orientedreppoints_tpu import apis as apis_ref
 from orientedreppoints_tpu.core.rbox import rbbox2result as rbbox2result_ref
@@ -43,6 +44,16 @@ from orientedreppoints_tpu_torch.utils.convert import flax_to_torch
 from test_torch_devkit import assert_same_eval
 from test_torch_slice import perturb_head, same_min_rect
 from test_torch_tta import fast_jit, jax_ties_first  # noqa: F401
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One torch thread: the suite runs several files side by side."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 WIDTH = 32
 TILE = 128

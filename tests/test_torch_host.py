@@ -12,6 +12,15 @@ from orientedreppoints_tpu.utils.config import Config
 from orientedreppoints_tpu_torch import host
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One torch thread: the suite runs several files side by side."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("shape, scale", [
     *[(shape, scale) for shape in ((200, 260), (130, 97), (64, 64))
       for scale in ((128, 96), (1333, 1024), (100, 50))],

@@ -10,6 +10,7 @@ import shutil
 
 import numpy as np
 import pytest
+import torch
 
 from orientedreppoints_tpu.core import rbox as rbox_ref
 from orientedreppoints_tpu.data.dota import HrscDataset as HrscRef
@@ -21,6 +22,15 @@ from orientedreppoints_tpu_torch.data.dota import HrscDataset
 from orientedreppoints_tpu_torch.devkit import evaluation, hrsc
 from orientedreppoints_tpu_torch.devkit.dota2coco import dota2coco_train
 from orientedreppoints_tpu_torch.devkit.dota_utils import write_dota_poly
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One torch thread: the suite runs several files side by side."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def test_rbox2poly_equal():

@@ -13,8 +13,19 @@ replication (at most 4 columns).  Every comparison is exact.
 import cv2
 import numpy as np
 import pytest
+import torch
 
 from orientedreppoints_tpu_torch.data import jpeg
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One torch thread: the suite runs several files side by side."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 SIZES = [(512, 512), (389, 517), (64, 48), (37, 53)]
 QUALITIES = [80, 65, 58, 50, 40]

@@ -25,6 +25,15 @@ from orientedreppoints_tpu_torch.ops import geometry, hull_iou, minarearect
 from test_torch_slice import _min_area_rect_first_tie
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One torch thread: the suite runs several files side by side."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def point_sets(rng, n, lo=20.0, hi=100.0, spread=12.0):
     """n 9-point sets; the first eighth coincident (hull count 1), the next
     eighth on one line (count 2)."""

@@ -21,6 +21,15 @@ from orientedreppoints_tpu_torch.models.resnet import ResNet
 from orientedreppoints_tpu_torch.utils.convert import flax_to_torch
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One torch thread: the suite runs several files side by side."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def numpy_tree(variables):
     return jax.tree_util.tree_map(np.array, dict(variables))
 

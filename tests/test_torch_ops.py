@@ -20,6 +20,15 @@ from orientedreppoints_tpu_torch.ops import deform_conv, geometry, nms
 from orientedreppoints_tpu_torch.ops import minarearect, quad_iou
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One torch thread: the suite runs several files side by side."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def point_sets(rng, n, spread=20.0):
     """n 9-point sets; the first tenth coincident, the next tenth exactly
     collinear."""

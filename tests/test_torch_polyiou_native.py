@@ -21,6 +21,7 @@ import time
 
 import numpy as np
 import pytest
+import torch
 
 from orientedreppoints_tpu.devkit import polygon as pg_ref
 from orientedreppoints_tpu.devkit import result_merge as merge_ref
@@ -29,6 +30,16 @@ from orientedreppoints_tpu_torch.devkit import native
 from orientedreppoints_tpu_torch.devkit import polygon as pg
 from orientedreppoints_tpu_torch.devkit import result_merge
 from test_torch_devkit import PAIRS, assert_same_files, quads
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One torch thread: the suite runs several files side by side."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N_PAIRS = 21000

@@ -37,6 +37,16 @@ from orientedreppoints_tpu_torch.ops import (deform_conv, hull_iou,
 from orientedreppoints_tpu_torch.serving import Predictor
 from orientedreppoints_tpu_torch.utils.convert import flax_to_torch
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One torch thread: the suite runs several files side by side."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 R50 = os.path.join(REPO, "configs/dota/orientedreppoints_r50_demo.py")
 

@@ -21,6 +21,16 @@ from orientedreppoints_tpu_torch.ops import geometry
 from orientedreppoints_tpu_torch.serving import Predictor
 from orientedreppoints_tpu_torch.utils.convert import flax_to_torch
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One torch thread: the suite runs several files side by side."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TINY_CONFIG = """
 model = dict(
     type="OrientedRepPointsDetector",

@@ -29,6 +29,16 @@ from test_torch_hrnet import (IMG, REPO, assert_close, assert_level_matches,
                               one_sgd_step, tree_loads_strictly)
 from test_torch_train import make_batch
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One torch thread: the suite runs several files side by side."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 SSD_DEMO = "orientedreppoints_ssd_vgg16_demo.py"
 
 

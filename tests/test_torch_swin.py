@@ -39,6 +39,16 @@ from test_torch_slice import jax_ties_first, perturb_head  # noqa: F401
 from test_torch_slice import same_min_rect
 from test_torch_train import jax_fast_compile, make_batch
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One torch thread: the suite runs several files side by side."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SYNTH_SWIN = os.path.join(REPO, "configs/dota/synth_swin_512.py")
 SWIN_KW = dict(embed_dim=32, depths=(2, 2, 2, 2), num_heads=(1, 2, 4, 8))

@@ -15,9 +15,20 @@ labelTxt byte for byte; their pixels differ only by cv2's IPP bicubic
 import cv2
 import numpy as np
 import pytest
+import torch
 
 from orientedreppoints_tpu.data import synth as synth_ref
 from orientedreppoints_tpu_torch.data import synth
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One torch thread: the suite runs several files side by side."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 N_SHAPES = 400
 SCENES = [(0, 256), (1, 256), (2, 256), (10000, 768)]

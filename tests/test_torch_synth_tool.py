@@ -19,6 +19,16 @@ import torch
 
 from orientedreppoints_tpu_torch import apis
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One torch thread: the suite runs several files side by side."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 HARD = os.path.join(REPO, "configs/dota/synth_r18_512_hard.py")
 JAX_KEYS = {"metric", "mAP", "mAOE_deg", "per_class_ap", "per_class_aoe",

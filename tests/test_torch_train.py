@@ -36,6 +36,16 @@ from orientedreppoints_tpu_torch.parallel import train
 from orientedreppoints_tpu_torch.utils.convert import flax_to_torch
 from test_torch_slice import perturb_head
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One torch thread: the suite runs several files side by side."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 IMG = 128
 MAX_GT = 8
 WIDTH = 32

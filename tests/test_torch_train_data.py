@@ -16,6 +16,7 @@ import threading
 import cv2
 import numpy as np
 import pytest
+import torch
 
 from orientedreppoints_tpu.data import loader as loader_ref
 from orientedreppoints_tpu.data import pipelines as pipelines_ref
@@ -32,6 +33,16 @@ from orientedreppoints_tpu_torch.data.pipelines import (CorrectBox,
 from orientedreppoints_tpu_torch.devkit.dota2coco import dota2coco_train
 from orientedreppoints_tpu_torch.devkit.img_split import ImgSplit
 from orientedreppoints_tpu_torch.host import load_config
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One torch thread: the suite runs several files side by side."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 SYNTH = "configs/dota/synth_r18_512.py"
 R50 = "configs/dota/orientedreppoints_r50_demo.py"

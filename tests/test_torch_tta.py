@@ -36,6 +36,16 @@ from test_torch_slice import (_min_area_rect_first_tie, perturb_head,
                               same_min_rect)
 from test_torch_train import jax_fast_compile
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One torch thread: the suite runs several files side by side."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 WIDTH = 32
 CANVAS = (128, 128)
 TC = dict(nms_pre=100, score_thr=0.05, nms=dict(iou_thr=0.4),

@@ -13,17 +13,23 @@ and reads no table.  Times the three in bf16 (C 256, K 9, seeded random
 tables and offsets of std 3 px) at chip_smoke.py's serving (1344^2, batch
 4), training (1344^2, batch 2) and 2016^2 TTA (batch 2) pyramids.
 
-Backward: builds csrc/deform_sample_bwd.cu as it is and more ways:
-"loads" issues no global atomic (each stays behind a test that never
-passes); "atomics" reads no table row (neither the window's nor a far
-corner's); "grads" does neither; "no_phase1" and "no_phase2" leave out the
-offset grads' pass or the table grads' pass of each slice.  Times them
-with bf16 tables at the training pyramid (the step's only launch), with
-the wrapper's zero-fill of the f32 scratch and its rounding to bf16 timed
-apart.  --csrc points at another checkout's csrc/ (for
-instance the parent commit's, unpacked beside the repo): the tool knows
-the layout of the kernel before its redesign too (one warp a sample,
-scalar f32 atomics, bf16 grads) and takes whichever layout the source has.
+Backward: builds csrc/deform_sample_bwd.cu as it is and more ways.  The
+ordered layout (table grads gathered by destination and summed in the
+plain version's order, offset grads by the tile kernel): "no_tables"
+launches only the offset grads' kernel, "no_offsets" only the table
+grads' passes, "no_sort" and "no_sum" leave out the long segments' sort
+or the ordered sums.  The tiled layout before it (float atomics): "loads"
+issues no global atomic (each stays behind a test that never passes);
+"atomics" reads no table row (neither the window's nor a far corner's);
+"grads" does neither; "no_phase1" and "no_phase2" leave out the offset
+grads' pass or the table grads' pass of each slice.  Times them with bf16
+tables at the training pyramid (the step's only launch), with the
+wrapper's zero-fill of the f32 scratch (which only the atomics need) and
+its rounding to bf16 timed apart.  --csrc points at another checkout's
+csrc/ (for instance the parent commit's, unpacked beside the repo): the
+tool knows the layouts of the kernel before (one warp a sample, scalar
+f32 atomics, bf16 grads; tiles with f32 atomics) and takes whichever
+layout the source has, with that layout's C signature.
 Its launchers must take the device ordinal before the stream, as this
 checkout's do; an older source is timed with its own checkout's tool.
 --against DIR times DIR's sources and --csrc's in turns on one card, in
@@ -125,23 +131,47 @@ def tile_variants(stride):
     }
 
 
+# the ordered layout's launches, each left out by one variant
+ORD_TILE = ("    kernel<<<lv.tile_start[num_levels], THREADS, Cfg::SMEM, "
+            "st>>>(\n")
+ORD_SCALAR = ("    kernel<<<(unsigned)((rows + WARPS - 1) / WARPS), "
+              "WARPS * 32, ")
+ORD_TABLES = "  // the table grads\n"
+ORD_SORT = "  tg_sort_long<<<"
+ORD_SUM = "  sum<<<"
+ORDERED = {
+    "kernel": [],
+    "no_tables": [(ORD_TABLES, "  return (int)cudaGetLastError();\n"
+                   + ORD_TABLES)],
+    "no_offsets": [(ORD_TILE, "    if (false)\n" + ORD_TILE),
+                   (ORD_SCALAR, "    if (false)\n" + ORD_SCALAR)],
+    "no_sort": [(ORD_SORT, "  if (false)\n" + ORD_SORT)],
+    "no_sum": [(ORD_SUM, "  if (false)\n" + ORD_SUM)],
+}
+
+# layout -> (the grads' dtype, variants, whether its entry takes a
+# workspace: (..., gtab, goff, work, work_bytes, rows, ...))
 BWD_LAYOUTS = {
-    "tiles": (torch.float32, tile_variants("NT * C")),
-    "tiles_pair": (torch.float32, tile_variants("2 * C")),
+    "ordered": (torch.float32, ORDERED, True),
+    "tiles": (torch.float32, tile_variants("NT * C"), False),
+    "tiles_pair": (torch.float32, tile_variants("2 * C"), False),
     "scalar_atomics": (torch.bfloat16, {
         "kernel": [],
         "loads": [(OLD_SCATTER, OLD_NEVER)],
         "atomics": [(OLD_TABLES, OLD_NO_TABLES)],
         "grads": [(OLD_SCATTER, OLD_NEVER), (OLD_TABLES, OLD_NO_TABLES)],
-    }),
+    }, False),
 }
+# the backward's C entry before the workspace
+P, I = ctypes.c_void_p, ctypes.c_int
+NO_WORK_ARGTYPES = [P] * 8 + [I] * 5 + [P]
 
 
 def build(csrc: str, src_text: str, variants: dict, symbol: str,
-          tag: str) -> dict:
+          tag: str, argtypes=None) -> dict:
     """Compile each variant of src_text (a file of csrc, whose headers it
     includes) into its own library; returns name -> the loaded function
-    symbol."""
+    symbol, with argtypes (default: this checkout's signature of it)."""
     from orientedreppoints_tpu_torch.ops import _ext
 
     csrc = osp.abspath(csrc)
@@ -173,17 +203,17 @@ def build(csrc: str, src_text: str, variants: dict, symbol: str,
     libs = {}
     for name in variants:
         fn = getattr(ctypes.CDLL(osp.join(out, f"{name}.so")), symbol)
-        fn.argtypes = _ext.SIGNATURES[symbol]
+        fn.argtypes = argtypes or _ext.SIGNATURES[symbol]
         libs[name] = fn
     return libs
 
 
 def bwd_layout(text: str):
     """The backward layout whose substitutions all match text once."""
-    for name, (gdt, variants) in BWD_LAYOUTS.items():
+    for name, (gdt, variants, work) in BWD_LAYOUTS.items():
         if all(text.count(old) == 1 for subs in variants.values()
                for old, _ in subs):
-            return name, gdt, variants
+            return name, gdt, variants, work
     raise RuntimeError("deform_sample_bwd.cu matches no known layout; "
                        "update this tool's substitutions")
 
@@ -243,9 +273,9 @@ def profile_backward(csrc, card, reps):
 
     with open(osp.join(csrc, "deform_sample_bwd.cu")) as f:
         text = f.read()
-    layout, gdt, variants = bwd_layout(text)
+    layout, gdt, variants, work = bwd_layout(text)
     libs = build(csrc, text, variants, "orp_deform_sample_pair_bwd_bf16",
-                 layout)
+                 layout, None if work else NO_WORK_ARGTYPES)
     dev = torch.device("cuda")
     stream = torch.cuda.current_stream().cuda_stream
     ordinal = torch.cuda.current_device()
@@ -258,9 +288,14 @@ def profile_backward(csrc, card, reps):
     gtab = torch.zeros((rows, 2 * c), dtype=torch.float32, device=dev)
     goff = torch.empty((rows, 2 * k), dtype=torch.bfloat16, device=dev)
     lv = deform_conv._levels_arg(levels)
+    ws = []
+    if work:
+        nbytes = deform_conv._bwd_work_bytes(rows, k)
+        ws = [torch.empty((nbytes,), dtype=torch.uint8, device=dev), nbytes]
+        ws[0] = ws[0].data_ptr()
     args = (ta.data_ptr(), tb.data_ptr(), offs.data_ptr(), ga.data_ptr(),
-            gb.data_ptr(), lv, gtab.data_ptr(), goff.data_ptr(), rows, c, k,
-            len(levels), ordinal, stream)
+            gb.data_ptr(), lv, gtab.data_ptr(), goff.data_ptr(), *ws, rows,
+            c, k, len(levels), ordinal, stream)
     ms = {name: chip_smoke.cuda_ms(lambda f=checked(fn): f(*args), reps)
           for name, fn in libs.items()}
     zero_ms = chip_smoke.cuda_ms(lambda: torch.zeros_like(gtab), reps)
@@ -270,8 +305,8 @@ def profile_backward(csrc, card, reps):
     print(json.dumps(dict(
         part="backward", csrc=csrc, layout=layout, shape="train", rows=rows,
         dtype="bfloat16", grad_dtype=str(gdt).split(".")[-1], card=card,
-        kernel_ms=ms["kernel"], loads_only_ms=ms["loads"],
-        atomics_only_ms=ms["atomics"], grads_only_ms=ms["grads"],
+        kernel_ms=ms["kernel"], loads_only_ms=ms.get("loads"),
+        atomics_only_ms=ms.get("atomics"), grads_only_ms=ms.get("grads"),
         **{f"{name}_ms": t for name, t in ms.items()
            if name.startswith("no_")},
         zero_fill_ms=zero_ms, round_ms=round_ms,
