@@ -1,0 +1,142 @@
+"""The frozen arithmetic: FLOPs an image against a count over the
+reference, the kernels' least times on known shapes, the roofline share
+and the trace reduction on a made-up trace."""
+
+import json
+import types
+
+import numpy as np
+import pytest
+import torch
+from torch.utils.flop_counter import FlopCounterMode
+
+from port_bench.harness import spans, trace
+from port_bench.reference import detector
+from port_bench.tests.tiny import BENCH
+from port_bench.yardstick import kernels, peaks, roofline
+
+
+def frozen_counts():
+    """(config, kind, canvas) of every frozen count."""
+    for name in ("orientedreppoints_r50", "orientedreppoints_swin_tiny"):
+        conf = json.loads((BENCH / "configs" / f"{name}.json").read_text())
+        for kind, by_canvas in conf["flops_per_image"].items():
+            for side in by_canvas:
+                yield name, kind, int(side)
+
+
+@pytest.mark.parametrize("name,kind,side", list(frozen_counts()))
+def test_frozen_flops_equal_a_count_over_the_reference(name, kind, side):
+    conf = json.loads((BENCH / "configs" / f"{name}.json").read_text())
+    cfg = conf["config"]
+    p = {n: torch.empty(s, device="meta").requires_grad_(
+        detector.trainable(cfg, n)) for n, s, _ in detector.spec(cfg)}
+    x = torch.empty(1, side, side, 3, device="meta")
+    if kind == "serve":
+        with FlopCounterMode(display=False) as fc, torch.no_grad():
+            detector.forward(p, x, cfg)
+    else:
+        key = (np.zeros(2, np.uint32), 0, 1)
+        with FlopCounterMode(display=False) as fc:
+            outs = detector.forward(p, x, cfg, key=key, train=True)
+            sum(o.sum() for k in ("cls_scores", "pts_init", "pts_refine")
+                for o in outs[k]).backward()
+    assert fc.get_total_flops() == conf["flops_per_image"][kind][str(side)]
+
+
+def test_every_cell_has_its_frozen_count():
+    bench = json.loads((BENCH.parent / "BENCHMARK.json").read_text())
+    counted = set(frozen_counts())
+    for w in bench["workloads"]:
+        mix = json.loads((BENCH / "traffic" / f"{w['traffic']}.json")
+                         .read_text())
+        assert (w["config"], mix["kind"], mix["canvas"]) in counted
+
+
+@pytest.mark.parametrize("kind", ["serve", "train"])
+def test_mfu_reads_the_untraced_rate_at_the_mix_canvas(kind):
+    from port_bench.harness.main import load_metric
+
+    reader = load_metric(f"mfu.{kind}")
+    conf = {"flops_per_image": {kind: {"1024": 4.0e11}}}
+    run = types.SimpleNamespace(conf=conf, kind=kind, canvas=1024,
+                                rate=100.0, window_s=9.0, items=1)
+    assert reader.read(run) == pytest.approx(100 * 4.0e13 / peaks.BF16_FLOPS)
+    run.canvas = 1344
+    assert reader.read(run) is None
+
+
+def t(*shape, elem=4):
+    return ("tensor", shape, elem)
+
+
+def test_least_times_on_known_shapes():
+    hbm = peaks.HBM_BYTES
+    # 1000 point sets: 72 kB in, 32 + 72 + 4 kB out
+    assert roofline.min_area_rect(t(1000, 18)) == pytest.approx(
+        (72e3 + 104e3 + 4e3) / hbm)
+    # 2 images x 128 quads: 8 kB + 8 B in, 2 x 128 x 2 words out
+    assert roofline.quad_over_mask(t(2, 128, 8), 0.4, t(2)) == \
+        pytest.approx((8192 + 8 + 4096) / hbm)
+    assert roofline.greedy_scan(t(2, 128, 2, elem=8), t(2, 128, elem=1),
+                                t(2)) == pytest.approx(
+        (4096 + 256 + 8 + 256) / hbm)
+    assert roofline.hull_quad_iou(t(1, 10, 9, 2), t(1, 10), t(1, 3, 8),
+                                  t(1, 3, elem=1), t(1, 10, elem=1)) == \
+        pytest.approx((720 + 40 + 96 + 3 + 10 + 120) / hbm)
+    # the DCN forward at bf16, C 256, K 9: bytes bound
+    rows = 1000
+    fwd = roofline.deform_sample_pair(t(rows, 256, elem=2),
+                                      t(rows, 256, elem=2),
+                                      t(rows, 18, elem=2), [], 3)
+    nbytes = 2 * rows * 256 * 2 + rows * 36 + 2 * rows * 9 * 256 * 2
+    assert fwd == pytest.approx(nbytes / hbm)
+    assert nbytes / hbm > rows * 9 * (30 + 14 * 256) / peaks.FP32_OPS
+    bwd = roofline.deform_sample_pair_backward(
+        t(rows, 256, elem=2), t(rows, 256, elem=2), t(rows, 18, elem=2),
+        t(rows, 2304), t(rows, 2304), [], 3)
+    nbytes = (2 * rows * 256 * 2 + rows * 36 + 2 * rows * 2304 * 4
+              + 2 * rows * 256 * 4 + rows * 36)
+    assert bwd == pytest.approx(nbytes / hbm)
+
+
+def events(*evs):
+    out = []
+    for cat, name, ts, dur, corr in evs:
+        e = {"ph": "X", "cat": cat, "name": name, "ts": ts, "dur": dur}
+        if corr is not None:
+            e["args"] = {"correlation": corr}
+        out.append(e)
+    return out
+
+
+VIEW = trace.TraceView(events(
+    ("user_annotation", "pb.window", 0.0, 1000.0, None),
+    ("user_annotation", "pb.forward", 10.0, 300.0, None),
+    ("cpu_op", "aten::conv2d", 20.0, 50.0, None),
+    ("cuda_runtime", "cudaLaunchKernel", 30.0, 5.0, 1),
+    ("cuda_runtime", "cudaLaunchKernel", 400.0, 5.0, 2),
+    ("kernel", "void mar_kernel<4>(float*)", 100.0, 200.0, 1),
+    ("kernel", "void other(int)", 250.0, 150.0, 2)))
+
+
+def test_trace_reduction():
+    assert VIEW.window_s() == pytest.approx(1e-3)
+    assert VIEW.busy_s() == pytest.approx(300e-6)  # union of 100-400
+    assert VIEW.device_s_under("forward") == pytest.approx(200e-6)
+    assert VIEW.kernel_s(("mar_kernel",)) == pytest.approx(200e-6)
+    br = VIEW.breakdown()
+    assert br["device_ops"][0] == ("forward:mar_kernel", pytest.approx(2e-4))
+    gaps = dict(br["idle_gaps"])
+    assert gaps["forward:aten::conv2d"] == pytest.approx(100e-6)
+    assert gaps["-:after last device op"] == pytest.approx(600e-6)
+
+
+def test_roofline_share_and_nothing_to_read():
+    rec = spans.Recorder()
+    rec.calls["k.min_area_rect"].append(([t(1000, 18)], {}))
+    run = types.SimpleNamespace(view=VIEW, rec=rec)
+    share = kernels.roofline_share(run, ["min_area_rect"])
+    assert share == pytest.approx(100 * roofline.min_area_rect(
+        t(1000, 18)) / 200e-6)
+    assert kernels.roofline_share(run, ["nms_scan"]) is None
