@@ -20,6 +20,7 @@ from torch import nn
 from ..core.points import offset_to_pts
 from ..ops.minarearect import min_area_rect
 from ..ops.nms import multiclass_rnms, multiclass_rnms_batch, topk_stable
+from ..utils.profiling import annotate
 from .fpn import FPN
 from .head import OrientedRepPointsHead
 from .hrnet import HRNet
@@ -87,13 +88,14 @@ class OrientedRepPointsDetector(nn.Module):
         self.bbox_head.init_weights(gen)
 
     def forward(self, images: torch.Tensor, key=None) -> dict:
-        if self.backbone_type == "swin":
-            feats = self.backbone(images.to(self.dtype), key)
-        else:
-            x = images.permute(0, 3, 1, 2).to(self.dtype)
-            feats = self.backbone(
-                x.contiguous(memory_format=torch.channels_last))
-        return self.bbox_head(self.neck(feats))
+        with annotate("orp.forward"):
+            if self.backbone_type == "swin":
+                feats = self.backbone(images.to(self.dtype), key)
+            else:
+                x = images.permute(0, 3, 1, 2).to(self.dtype)
+                feats = self.backbone(
+                    x.contiguous(memory_format=torch.channels_last))
+            return self.bbox_head(self.neck(feats))
 
 
 def _decode_candidates(outs: dict, strides: Sequence[int], nms_pre: int):
@@ -134,13 +136,15 @@ def decode_detections(outs: dict, strides: Sequence[int] = POINT_STRIDES,
     dets rows are [reppoints(18)?, poly(8), score]; scale_factor (scalar or
     (B, 1, 1)) is undone on polys and points.
     """
-    all_scores, all_pts, boxes = _decode_candidates(outs, strides, nms_pre)
-    sf = torch.as_tensor(scale_factor, dtype=torch.float32,
-                         device=all_pts.device)
-    return multiclass_rnms_batch(
-        boxes / sf, _pad_background(all_scores), score_thr, iou_thr,
-        max_per_img, reppoints=all_pts / sf if with_reppoints else None,
-        pre_nms_cap=pre_nms_cap)
+    with annotate("orp.decode"):
+        all_scores, all_pts, boxes = _decode_candidates(outs, strides,
+                                                        nms_pre)
+        sf = torch.as_tensor(scale_factor, dtype=torch.float32,
+                             device=all_pts.device)
+        return multiclass_rnms_batch(
+            boxes / sf, _pad_background(all_scores), score_thr, iou_thr,
+            max_per_img, reppoints=all_pts / sf if with_reppoints else None,
+            pre_nms_cap=pre_nms_cap)
 
 
 def decode_no_nms(outs: dict, strides: Sequence[int] = POINT_STRIDES,

@@ -61,6 +61,7 @@ from ..core.loss_head import LossConfig, compute_losses
 from ..models.swin import BatchRows
 from ..utils import jax_random
 from ..utils.determinism import deterministic
+from ..utils.profiling import annotate
 from . import dist
 
 BATCH_KEYS = ("images", "gt_polys", "gt_labels", "gt_valid", "img_hw")
@@ -218,11 +219,14 @@ def make_train_step(model: torch.nn.Module, loss_cfg: LossConfig, optimizer,
         lambda t: dist.all_reduce_sum(t, group))
 
     def step(batch: dict, stats: dict | None = None) -> dict:
-        with deterministic():
-            batch = to_device(batch, device)
+        with deterministic(), annotate("orp.train.step"):
+            with annotate("orp.train.to_device"):
+                batch = to_device(batch, device)
             imgs = batch["images"]
             if img_norm is not None:
-                imgs = device_normalize(imgs, batch["img_hw"], **img_norm)
+                with annotate("orp.train.normalize"):
+                    imgs = device_normalize(imgs, batch["img_hw"],
+                                            **img_norm)
             was_training = model.training
             model.train()
             key = dropout_key(seed, scheduler.last_epoch)
@@ -238,13 +242,15 @@ def make_train_step(model: torch.nn.Module, loss_cfg: LossConfig, optimizer,
                 batch["gt_valid"], batch["img_hw"], loss_cfg, stats=stats,
                 reduce=reduce)
             total = sum(v for k, v in losses.items() if k.startswith("loss"))
-            optimizer.zero_grad(set_to_none=False)
-            total.backward()
-            if group is not None:
-                all_reduce_grads_([p.grad for p in params], group)
-            clip_by_global_norm_([p.grad for p in params], grad_clip)
-            optimizer.step()
-            scheduler.step()
+            with annotate("orp.train.backward"):
+                optimizer.zero_grad(set_to_none=False)
+                total.backward()
+            with annotate("orp.train.optimizer"):
+                if group is not None:
+                    all_reduce_grads_([p.grad for p in params], group)
+                clip_by_global_norm_([p.grad for p in params], grad_clip)
+                optimizer.step()
+                scheduler.step()
             losses = {k: v.detach() for k, v in losses.items()}
             losses["loss_total"] = total.detach()
             if group is not None:

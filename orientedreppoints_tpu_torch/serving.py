@@ -25,6 +25,7 @@ import torch
 from .apis import detect_core, infer_devices, init_detector, resolve_device
 from .host import Normalize, imrescale, rbbox2result
 from .parallel.infer import round_up_batch, shard_infer
+from .utils.profiling import annotate
 
 
 class Predictor:
@@ -70,13 +71,14 @@ class Predictor:
     def prepare(self, images_bgr: Sequence[np.ndarray]):
         """At most batch_size images -> (canvases (batch_size, H, W, 3),
         scale factors (batch_size,)) on the device, zero-padded."""
-        prepped = [self._prep(im) for im in images_bgr]
-        pad = self.batch_size - len(prepped)
-        imgs = torch.stack([p[0] for p in prepped]
-                           + [torch.zeros_like(prepped[0][0])] * pad)
-        sfs = torch.tensor([p[1] for p in prepped] + [1.0] * pad,
-                           dtype=torch.float32, device=self.device)
-        return imgs, sfs
+        with annotate("orp.serve.prepare"):
+            prepped = [self._prep(im) for im in images_bgr]
+            pad = self.batch_size - len(prepped)
+            imgs = torch.stack([p[0] for p in prepped]
+                               + [torch.zeros_like(prepped[0][0])] * pad)
+            sfs = torch.tensor([p[1] for p in prepped] + [1.0] * pad,
+                               dtype=torch.float32, device=self.device)
+            return imgs, sfs
 
     @torch.inference_mode()
     def infer(self, images_bgr: Sequence[np.ndarray]):
@@ -89,10 +91,14 @@ class Predictor:
         out = []
         for lo in range(0, len(images_bgr), self.batch_size):
             chunk = images_bgr[lo:lo + self.batch_size]
-            dets, labels, valid = (t.cpu().numpy()
-                                   for t in self.infer(chunk))
-            for bi in range(len(chunk)):
-                keep = valid[bi]
-                out.append(rbbox2result(dets[bi][keep][:, -9:],
-                                        labels[bi][keep], self.num_fg + 1))
+            with annotate("orp.serve.call"):
+                res = self.infer(chunk)
+                with annotate("orp.serve.fetch"):
+                    dets, labels, valid = (t.cpu().numpy() for t in res)
+                with annotate("orp.serve.results"):
+                    for bi in range(len(chunk)):
+                        keep = valid[bi]
+                        out.append(rbbox2result(dets[bi][keep][:, -9:],
+                                                labels[bi][keep],
+                                                self.num_fg + 1))
         return out

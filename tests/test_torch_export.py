@@ -5,7 +5,7 @@ torch.library.opcheck holds each op's schema, fake (meta) version and
 dispatch on CPU inputs, where the op runs its plain version; a small R-18
 config exported by the tool, saved and loaded, gives the eager model's
 decode_detections outputs bit for bit, with the four serving ops kept whole
-in the graph."""
+in the graph and no profiler op (the port's spans) in it."""
 
 import importlib.util
 import os.path as osp
@@ -123,3 +123,20 @@ def test_exported_program_equals_eager(tmp_path):
     assert int(want[2].sum()) > 0
     for g, w in zip(got, want):
         assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+def test_exported_program_holds_no_profiler_op(tmp_path):
+    """The spans (utils/profiling.annotate) leave nothing in the graph."""
+    from orientedreppoints_tpu_torch.apis import init_detector
+
+    cfg_path = tmp_path / "tiny.py"
+    cfg_path.write_text(TINY)
+    model, cfg = init_detector(str(cfg_path), compute_dtype="float32",
+                               device="cpu")
+    tool = export_tool()
+    program = tool.export(tool.inference_module(model, cfg["test_cfg"]), 1,
+                          (64, 64), "cpu")
+    targets = [str(n.target) for n in program.graph.nodes
+               if n.op == "call_function"]
+    assert "orp.min_area_rect.default" in targets
+    assert not [t for t in targets if "profiler" in t or "record" in t]
