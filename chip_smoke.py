@@ -360,6 +360,9 @@ DCN_BWD_RTOL = {"float32": 1e-5, "bfloat16": 2 ** -7}
 # another order in the two routes (~1e-6 of a grad); 1e-3 leaves room for
 # that through ~60 layers
 GRAD_RTOL = 1e-3
+# the GIoU kernel against its plain version: sums in another order
+GIOU_ATOL = 2e-5
+GIOU_GRAD_ATOL = 1e-4
 # the DCN backward's repeat case: every sample of each level and image
 # sent near one of PILE_TARGETS pixels (tens of thousands of corners on
 # each)
@@ -416,11 +419,23 @@ SOURCES = {
     "deform_sample_backward": (
         "orientedreppoints_tpu_torch/csrc/deform_sample_bwd.cu",
         "orientedreppoints_tpu/ops/deform_conv.py:94"),
+    # XLA, not Pallas: the loss's GIoU, value and gradient
+    "convex_giou": ("orientedreppoints_tpu_torch/csrc/convex_giou.cu",
+                    "orientedreppoints_tpu/ops/geometry.py:493"),
 }
 SERVING_KERNELS = ("min_area_rect", "quad_over_mask", "nms_scan",
                    "deform_sample_pair")
 TRAIN_KERNELS = ("min_area_rect", "hull_quad_iou", "deform_sample_pair",
-                 "deform_sample_pair_backward")
+                 "deform_sample_pair_backward", "convex_giou")
+# the GIoU kernel's calls in a step of every config (five point strides):
+# the refine term and the five init levels with the gradient, then APAA's
+# init and refine quality terms without -> (rows, stride, gradient) at the
+# benchmark's R-50 step (batch 16, max_pos 1,024, max_gt 512 at 1344^2)
+GIOU_CALLS = ((16 * 1024, 8, True),
+              *((16 * k, s, True) for k, s in zip((512, 512, 512, 441, 121),
+                                                   STRIDES)),
+              (16 * 1024, 8, False), (16 * 1024, 8, False))
+GIOU_LAUNCHES_PER_STEP = len(GIOU_CALLS)
 TTA_KERNELS = ("min_area_rect", "deform_sample_pair", "quad_over_mask",
                "nms_scan")  # the over-mask here is the single-image entry
 IOU_PATH_KERNELS = ("quad_iou_full", "quad_iou_tri")
@@ -1119,6 +1134,128 @@ def rotated_gts(rng, h, w, n):
                      sn * lx + cs * ly + c[:, 1:]], -1).reshape(n, 8)
 
 
+def giou_rows(rng, n, stride):
+    """n rows as the loss feeds the GIoU at a level of stride: rotated gts
+    (rotated_gts) and 9-point sets spread about their centres by 0.1-1 of
+    the long side, over point_base_scale 4 x stride; a fifth of the rows
+    padding (zero quad, weight 0), a tenth of the rest weight 0 (positives
+    not kept) -> (points (n, 18), quads (n, 8), weight (n,)) float32."""
+    quads = rotated_gts(rng, TRAIN_CANVAS, TRAIN_CANVAS, n).reshape(n, 4, 2)
+    centre = quads.mean(1, keepdims=True)
+    long = np.sqrt(((quads[:, 1] - quads[:, 0]) ** 2).sum(-1))
+    spread = long * rng.uniform(0.1, 1.0, n)
+    pts = centre + rng.normal(0, 1, (n, 9, 2)) * spread[:, None, None]
+    weight = (rng.random(n) >= 0.1).astype(np.float32)
+    pad = rng.random(n) < 0.2
+    quads[pad], weight[pad] = 0, 0
+    norm = 4.0 * stride
+    return ((pts / norm).reshape(n, 18).astype(np.float32),
+            (quads / norm).reshape(n, 8).astype(np.float32), weight)
+
+
+def giou_ops(points, quads, grad: bool) -> float:
+    """Op model of the GIoU kernel: each gift-wrap step over P points costs
+    P (7 + 3P) f32 operations (P the 9 points, or 13 with the quad's
+    corners), a walk min(hull size, P - 1) steps, the hull sizes the plain
+    version's; then 500 for the clip, the areas and GIoU, and 1,000 more
+    for the reverse pass."""
+    from orientedreppoints_tpu_torch.ops import geometry
+
+    n = points.shape[0]
+    q = quads.reshape(n, 4, 2)
+    pts = points.reshape(n, 9, 2) - q.mean(1, keepdim=True)
+    ops = 0.0
+    for sets in (pts, torch.cat([pts, q - q.mean(1, keepdim=True)], 1)):
+        p = sets.shape[1]
+        steps = geometry.convex_hull(sets)[2].clamp(max=p - 1)
+        ops += float(steps.sum()) * p * (7 + 3 * p)
+    return ops + n * (500 + 1000 * grad)
+
+
+def giou_check(got, want, quads, weight=None) -> dict:
+    """The kernel's (GIoU, gradient) against the plain version's: values
+    within GIOU_ATOL on rows with a quad and a weight not 0 (a padded row's
+    zero quad leaves a union of rounding residue, and the loss weighs its
+    value by 0, APAA masks it), the weighted gradients within GRAD_RTOL /
+    GIOU_GRAD_ATOL, and the same rows caught by the loss's > 1 filter."""
+    live = quads.ne(0).any(1)
+    if weight is not None:
+        live &= weight > 0
+    val_err = float((got[0] - want[0])[live].abs().max()) if live.any() \
+        else 0.0
+    res = dict(max_abs_err=val_err, ok=val_err <= GIOU_ATOL
+               and bool(torch.isfinite(got[0]).all()))
+    if len(got) > 1:
+        g, w = got[1], want[1]
+        res.update(grad_max_abs_err=float((g - w).abs().max()),
+                   filtered_rows=int((w > 1).any(1).sum()),
+                   same_filtered_rows=torch.equal((g > 1).any(1),
+                                                  (w > 1).any(1)))
+        res["ok"] = (res["ok"] and res["same_filtered_rows"]
+                     and torch.allclose(g, w, rtol=GRAD_RTOL,
+                                        atol=GIOU_GRAD_ATOL))
+    return res
+
+
+def phase_giou(dev, rng):
+    """The loss's GIoU kernel at the benchmark's R-50 step shapes
+    (GIOU_CALLS) against its plain version (geometry.convex_giou, autograd
+    for the gradient): each call checked (giou_check), the forward entry's
+    values equal to the gradient entry's and a second launch's bits equal
+    to the first's; then the eight calls timed together, kernel and plain."""
+    from orientedreppoints_tpu_torch.ops import giou
+
+    calls, checks, ok = [], [], True
+    for rows, stride, grad in GIOU_CALLS:
+        pts, quads, w = (torch.tensor(x, device=dev)
+                         for x in giou_rows(rng, rows, stride))
+        if grad:
+            got = giou.convex_giou_kernel(pts, quads, w)
+            want = giou.convex_giou_grad_plain(pts, quads, w)
+            again = giou.convex_giou_kernel(pts, quads, w)
+            fwd = giou.convex_giou_kernel(pts, quads)[0]
+            same = (torch.equal(fwd, got[0])
+                    and all(differing_bits(a, b) == 0
+                            for a, b in zip(got, again)))
+        else:
+            got = giou.convex_giou_kernel(pts, quads)
+            want = (giou.convex_giou_plain(pts, quads),)
+            same = differing_bits(got[0],
+                                  giou.convex_giou_kernel(pts, quads)[0]) == 0
+        res = dict(rows=rows, stride=stride, gradient=grad,
+                   repeat_bitwise=same, **giou_check(got, want, quads, w))
+        ok = ok and res["ok"] and same
+        checks.append(res)
+        say("giou_call", **res)
+        calls.append((pts, quads, w) if grad else (pts, quads))
+
+    def kernels():
+        for args in calls:
+            giou.convex_giou_kernel(*args)
+
+    def plain():
+        for args in calls:
+            (giou.convex_giou_grad_plain if len(args) == 3
+             else giou.convex_giou_plain)(*args)
+
+    # points and quads in; GIoU out, with the gradient weight in and 18
+    # floats out
+    nbytes = sum(4 * (a[0].numel() + a[1].numel()
+                      + a[0].shape[0] * (20 if len(a) == 3 else 1))
+                 for a in calls)
+    ops = sum(giou_ops(a[0], a[1], len(a) == 3) for a in calls)
+    res = dict(max_abs_err=max(c["max_abs_err"] for c in checks),
+               grad_max_abs_err=max(c.get("grad_max_abs_err", 0.0)
+                                    for c in checks),
+               filtered_rows=sum(c.get("filtered_rows", 0) for c in checks),
+               ok=ok, launches_a_step=len(calls),
+               rows_a_step=sum(c["rows"] for c in checks),
+               ms=cuda_ms(kernels, 20), plain_ms=cuda_ms(plain, 2),
+               library_ms=None, **bound(nbytes, ops))
+    say("kernel", name="convex_giou", shape="r50_b16_step", **res)
+    return res
+
+
 def train_batch(rng, max_gt):
     """A seeded batch in the collated layout (data/loader.py): uint8
     canvases with content inside img_hw, TRAIN_GTS gts per image padded to
@@ -1139,8 +1276,9 @@ def train_batch(rng, max_gt):
 
 def phase_train_kernels(dev, rng):
     """The training step's kernels at its shapes: kernel 1's hulls of the
-    B 2 x 37,606 point sets, hull IoU with G 512 gts of which 150 real, and
-    the DCN backward, paired and single (75,212 rows, C 256)."""
+    B 2 x 37,606 point sets, hull IoU with G 512 gts of which 150 real, the
+    DCN backward, paired and single (75,212 rows, C 256), and the loss's
+    GIoU at the benchmark's R-50 step (phase_giou)."""
     from orientedreppoints_tpu_torch.core import points
     from orientedreppoints_tpu_torch.ops import hull_iou, minarearect
     res = {}
@@ -1233,6 +1371,7 @@ def phase_train_kernels(dev, rng):
     for n_tables, name in ((2, "deform_sample_pair_backward"),
                            (1, "deform_sample_backward")):
         res[name] = dcn_backward_case(dev, rows, c, k, n_tables, name)
+    res["convex_giou"] = phase_giou(dev, rng)
     return res
 
 
@@ -2803,6 +2942,7 @@ def phase_train(dev, ops_mod, card, sd, batch, config=CONFIG,
           and max(max(r["refine_pos_per_image"]) for r in records) < n
           and min(min(r["iou_gt_0p1_share"]) for r in records) > 0
           and all(launches[k] > 0 for k in TRAIN_KERNELS)
+          and launches["convex_giou"] == GIOU_LAUNCHES_PER_STEP * TRAIN_STEPS
           and (n_frozen > 0) == (model.backbone_type == "resnet")
           and frozen_same == n_frozen and unchanged == unreached and fired
           and repeat_equal is not False)
@@ -2828,8 +2968,8 @@ def phase_train(dev, ops_mod, card, sd, batch, config=CONFIG,
 
 def plain_train():
     """Route the training step through the plain versions on the card."""
-    from orientedreppoints_tpu_torch.core import apaa
-    from orientedreppoints_tpu_torch.ops import (deform_conv, geometry,
+    from orientedreppoints_tpu_torch.core import apaa, losses
+    from orientedreppoints_tpu_torch.ops import (deform_conv, geometry, giou,
                                                  hull_iou, minarearect)
 
     swaps = [(deform_conv, "deform_sample_pair",
@@ -2839,7 +2979,9 @@ def plain_train():
              (hull_iou, "hull_quad_iou_matrix",
               hull_iou.hull_quad_iou_matrix_plain),
              (minarearect, "convex_hull_entry", minarearect.convex_hull_plain),
-             (apaa, "min_area_rect", geometry.min_area_rect)]
+             (apaa, "min_area_rect", geometry.min_area_rect),
+             (apaa, "convex_giou", giou.convex_giou_plain),
+             (losses, "convex_giou_grad", giou.convex_giou_grad_plain)]
     return swapped(swaps)
 
 
@@ -2968,11 +3110,18 @@ def hull_iou_compare(args, got, want):
     return dict(shape=list(got.shape), differing_bits=bits, ok=bits == 0)
 
 
+def giou_compare(args, got, want):
+    """One GIoU call (either entry) against its plain version."""
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    return dict(rows=int(args[0].shape[0]), **giou_check(got, want, *args[1:]))
+
+
 def synth_kernel_routes():
-    """(entry module, entry name, plain version, compare) of the four
+    """(entry module, entry name, plain version, compare) of the five
     training kernels' entries on the synthetic step's path."""
-    from orientedreppoints_tpu_torch.core import apaa
-    from orientedreppoints_tpu_torch.ops import (deform_conv, geometry,
+    from orientedreppoints_tpu_torch.core import apaa, losses
+    from orientedreppoints_tpu_torch.ops import (deform_conv, geometry, giou,
                                                  hull_iou, minarearect)
     return {
         "min_area_rect_hull": (minarearect, "convex_hull_entry",
@@ -2988,6 +3137,10 @@ def synth_kernel_routes():
         "deform_sample_pair_backward": (
             deform_conv, "deform_sample_pair_backward",
             deform_conv.deform_sample_pair_backward_plain, dcn_bwd_compare),
+        "convex_giou": (apaa, "convex_giou", giou.convex_giou_plain,
+                        giou_compare),
+        "convex_giou_grad": (losses, "convex_giou_grad",
+                             giou.convex_giou_grad_plain, giou_compare),
     }
 
 
@@ -3991,11 +4144,13 @@ def phase_dota_input(dev, ops_mod, card):
     calls = dict(hull=len(hull_calls) / max(n, 1),
                  rect=len(rect_calls) / max(n, 1))
     # a step: the min-area-rect kernel for the hull once and the rect
-    # twice, the hull IoU once, the paired DCN forward and backward once
+    # twice, the hull IoU once, the paired DCN forward and backward once,
+    # the GIoU kernel GIOU_LAUNCHES_PER_STEP times
     launches_ok = (n == DOTA_TRAIN_STEPS and calls == dict(hull=1, rect=2)
                    and per_step == {"min_area_rect": 3, "hull_quad_iou": 1,
                                     "deform_sample_pair": 1,
-                                    "deform_sample_pair_backward": 1})
+                                    "deform_sample_pair_backward": 1,
+                                    "convex_giou": GIOU_LAUNCHES_PER_STEP})
     finite = all(np.isfinite(v) for r in records for v in r.values())
     ok_serve = (all(launches[k] > 0 for k in SERVING_KERNELS)
                 and len(results) == len(tiles[test])
@@ -4088,9 +4243,10 @@ DDP_STEP1_RTOL = 1e-4
 DDP_W2_UPDATE_RTOL = 3 * 0.00507
 DDP_W2_LOSS_RTOL = 1e-2
 # a training step's launches: min-area rect 3 (hull 1, rect 2), hull IoU 1,
-# DCN forward 1 and backward 1
+# DCN forward 1 and backward 1, the GIoU 8
 DDP_LAUNCHES = {"min_area_rect": 3.0, "hull_quad_iou": 1.0,
-                "deform_sample_pair": 1.0, "deform_sample_pair_backward": 1.0}
+                "deform_sample_pair": 1.0, "deform_sample_pair_backward": 1.0,
+                "convex_giou": float(GIOU_LAUNCHES_PER_STEP)}
 
 
 def first_batch_differences(model, x, n: int = 3) -> list:

@@ -14,7 +14,8 @@ from typing import NamedTuple
 
 import torch
 
-from ..ops.geometry import chamfer_distance_2d, convex_giou
+from ..ops.geometry import chamfer_distance_2d
+from ..ops.giou import convex_giou
 from ..ops.minarearect import min_area_rect
 from ..ops.nms import topk_stable
 from .losses import sigmoid_focal_loss_elementwise

@@ -11,7 +11,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ..ops.geometry import convex_giou, convex_iou_aligned, points_in_polygon
+from ..ops.geometry import convex_iou_aligned, points_in_polygon
+from ..ops.giou import convex_giou_grad
 
 
 def sigmoid_focal_loss_elementwise(logits: torch.Tensor, labels: torch.Tensor,
@@ -43,18 +44,17 @@ class _GIoULossSum(torch.autograd.Function):
     component > 1 (signed) replaced by +1e-6; the result times
     -loss_weight / divisor.  The upstream grad is ignored, as the reference
     Function ignores it, so scaling the loss afterwards scales only its
-    value."""
+    value.  The GIoU and its weighted gradient come from one call of
+    orp::convex_giou_grad (the CUDA kernel; on the CPU autograd through
+    geometry.convex_giou)."""
 
     @staticmethod
     def forward(ctx, pred, target, weight, divisor, loss_weight):
         div = torch.clamp(divisor.to(torch.float32), min=1e-6)
-        with torch.enable_grad():
-            p = pred.detach().requires_grad_(True)
-            giou = convex_giou(p, target)
-            (dgiou,) = torch.autograd.grad(giou, p, grad_outputs=weight)
+        giou, dgiou = convex_giou_grad(pred.detach(), target, weight)
         ctx.save_for_backward(dgiou, div)
         ctx.loss_weight = loss_weight
-        return ((1.0 - giou.detach()) * weight).sum() / div
+        return ((1.0 - giou) * weight).sum() / div
 
     @staticmethod
     def backward(ctx, grad_output):

@@ -6,6 +6,7 @@ from .deform_conv import (deform_sample_backward_kernel,
                           deform_sample_kernel,
                           deform_sample_pair_backward_kernel,
                           deform_sample_pair_kernel)
+from .giou import convex_giou_kernel
 from .hull_iou import hull_quad_iou_kernel
 from .minarearect import min_area_rect_kernel
 from .nms import greedy_scan_kernel
@@ -26,6 +27,8 @@ KERNELS = {
     # table
     "deform_sample": deform_sample_kernel,
     "deform_sample_backward": deform_sample_backward_kernel,
+    # the loss's GIoU: both entries (value and gradient, value alone)
+    "convex_giou": convex_giou_kernel,
 }
 
 

@@ -57,6 +57,8 @@ SIGNATURES = {
     "orp_hull_quad_iou": [P, P, P, P, P, P, I, I, I, I, P],
     "orp_quad_iou_full": [P, P, P, I, I, I, I, P],
     "orp_quad_iou_tri": [P, P, P, P, I, I, I, I, P],
+    # points, quads, weight, giou, dgiou (weight and dgiou null: forward)
+    "orp_convex_giou": [P, P, P, P, P, I, I, P],
 }
 
 _lib = None

@@ -11,8 +11,10 @@ import numpy as np
 import pytest
 import torch
 
-from orientedreppoints_tpu_torch.ops import (deform_conv, hull_iou,
-                                             minarearect, nms, quad_iou)
+from orientedreppoints_tpu_torch.ops import (deform_conv, geometry, giou,
+                                             hull_iou, minarearect, nms,
+                                             quad_iou)
+from test_torch_giou import GIOU_KINDS, giou_rows
 
 
 @pytest.fixture
@@ -525,3 +527,60 @@ def test_scan_ragged_cases_match_plain(cuda, n):
     assert not want[1, 1:700].any() and want[1, 700:].sum() > 0
     assert torch.equal(want[2], v[2])
     assert 0 < want[3, :nv[3]].sum() < nv[3] // 2
+
+
+def giou_close(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Rows of two weighted GIoU gradients (n, 18) within rtol 1e-3 /
+    atol 1e-4, caught by the loss's > 1 filter alike."""
+    return (torch.isclose(a, b, rtol=1e-3, atol=1e-4).all(1)
+            & ((a > 1).any(1) == (b > 1).any(1)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", GIOU_KINDS)
+def test_convex_giou_kernel_matches_plain_on_the_card(cuda, kind):
+    """The GIoU kernel against its plain version (geometry.convex_giou,
+    autograd for the weighted gradient) on the card: values within 2e-5 on
+    rows with a quad and a weight (a padded row's zero quad leaves a union
+    of rounding residue: its value is only finite, its weighted gradient 0
+    in both), gradients within rtol 1e-3 / atol 1e-4 and the same rows
+    caught by the loss's > 1 filter.  Left out of the gradients: rows on
+    which the plain version disagrees with itself between the card and the
+    CPU, which may only be sets whose hull has fewer than 3 vertices (a
+    segment crossing a quad edge clips to a sliver whose signed area, and
+    so the sign of its gradient, is the sums' rounding residue)."""
+    rng = np.random.default_rng(11)
+    p, q, w = (torch.from_numpy(x) for x in giou_rows(rng, kind, 2048))
+    on_cpu = giou.convex_giou_grad_plain(p, q, w)
+    p, q, w = p.to(cuda), q.to(cuda), w.to(cuda)
+    got = giou.convex_giou_kernel(p, q, w)
+    want = giou.convex_giou_grad_plain(p, q, w)
+    live = q.ne(0).any(1) & (w > 0)
+    assert torch.isfinite(got[0]).all()
+    assert float((got[0] - want[0])[live].abs().max()) <= 2e-5
+    assert bool((got[1][w == 0] == 0).all())
+    shifted = p.view(-1, 9, 2) - q.view(-1, 4, 2).mean(1, keepdim=True)
+    degenerate = geometry.convex_hull(shifted)[2] < 3
+    unsettled = ~giou_close(want[1].cpu(), on_cpu[1]).to(cuda)
+    assert not bool((unsettled & ~degenerate).any())
+    assert bool(giou_close(got[1], want[1])[~unsettled].all())
+    if kind in ("random", "contained"):
+        assert bool((want[1] > 1).any())
+    assert same_bits(giou.convex_giou(p, q), got[0])
+
+
+@pytest.mark.cuda
+def test_convex_giou_kernel_repeats_bit_for_bit(cuda):
+    """Two launches on the same inputs give the same bits, the forward-only
+    entry the gradient entry's values; each call through the ops is one
+    counted launch."""
+    rng = np.random.default_rng(12)
+    p, q, w = (torch.from_numpy(x).to(cuda)
+               for x in giou_rows(rng, "random", 20000))
+    before = giou.convex_giou_kernel.launches
+    a = giou.convex_giou_grad(p, q, w)
+    b = giou.convex_giou_grad(p, q, w)
+    f = giou.convex_giou(p, q)
+    assert giou.convex_giou_kernel.launches == before + 3
+    assert same_bits(a[0], b[0]) and same_bits(a[1], b[1])
+    assert same_bits(f, a[0])

@@ -32,7 +32,7 @@ from orientedreppoints_tpu_torch.data.pipelines import (MultiSamplePipeline,
                                                         build_pipeline)
 from orientedreppoints_tpu_torch.host import load_config
 from orientedreppoints_tpu_torch.models.detector import decode_detections
-from orientedreppoints_tpu_torch.ops import (deform_conv, hull_iou,
+from orientedreppoints_tpu_torch.ops import (deform_conv, giou, hull_iou,
                                              minarearect, quad_iou)
 from orientedreppoints_tpu_torch.serving import Predictor
 from orientedreppoints_tpu_torch.utils.convert import flax_to_torch
@@ -462,6 +462,8 @@ def test_cuda_entries_raise_without_a_gpu():
         deform_conv.deform_sample_pair_backward_kernel(
             t, t, torch.zeros(6, 18), torch.zeros(6, 36), torch.zeros(6, 36),
             [(1, 2, 3)])
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        giou.convex_giou_kernel(torch.zeros(4, 18), torch.zeros(4, 8))
 
 
 def _hull_call(gt_valid="ok", rows_valid="ok"):
@@ -567,5 +569,8 @@ def test_cpu_tensors_never_launch_a_kernel():
     quad_iou.quad_iou_matrix(q, q)
     quad_iou.quad_iou_matrix(q, q, upper_tri=True, num_valid=4)
     quad_iou.quad_over_matrix(q, 0.4, 4)
-    assert len(ops.KERNELS) == 10
+    pts = torch.from_numpy(rng.normal(size=(6, 18)).astype(np.float32))
+    giou.convex_giou(pts, q)
+    giou.convex_giou_grad(pts, q, torch.ones(6))
+    assert len(ops.KERNELS) == 11
     assert ops.launch_counts() == {name: 0 for name in ops.KERNELS}
