@@ -39,14 +39,14 @@ DECODE_CONTROL = "bfloat16"
 
 def control_numbers(cell, seed: int) -> dict:
     """The reference in the lower precision, judged as the program is."""
-    from port_bench.harness import measure, serve, traffic, train, weights
+    from port_bench.harness import measure, serve, traffic, train
     from port_bench.reference import ops
 
     low = CONTROL[cell.conf["compute_dtype"]]
     ops.f32_no_tf32()
     if cell.traffic["kind"] == "serve":
         mix = cell.traffic
-        p = weights.draw(cell.cfg, mix["weights"], seed, cell.device)
+        p = serve.draw_weights(cell, cell.device)
         _, pool = traffic.serve_images(mix, seed, cell.device)
         per = []
         for i in serve.check_indices(cell):

@@ -1,20 +1,12 @@
-"""The program's own spans in the traced window: the ranges it opens
-itself through utils/profiling.annotate (named "orp.*", listed in
-utils/profiling.SPANS), and what the readers take under them.
-
-trace.TraceView keeps only the benchmark's own "pb." ranges.  Importing
-this module makes trace.profiled build a ProgramView: a TraceView whose
-every field and reading is computed by TraceView's own code, unchanged,
-plus two attributes, `program` (span name -> its (start, end) ranges)
-and `device_cats` (each event of `device`, its trace category).  Nothing
-here wraps or patches the program: the spans are the program's.
+"""Readings of the program's own spans in the traced window: the ranges
+it opens itself through utils/profiling.annotate (named "orp.*", listed in
+utils/profiling.SPANS), which trace.TraceView keeps as `program`.
 
 Readings under a span name (every range of that name; None: every
 program span), in seconds:
 
   host_s    inside its ranges, on the trace's host clock;
-  device_s  of the device events whose launch falls inside them
-            (TraceView.device_s_under's rule);
+  device_s  of the device events whose launch falls inside them;
   launches  kernel events (no memcpy or memset) launched inside them;
   idle_s    of the device's idle gaps longer than trace._GAP_US that end
             in an event launched inside them (TraceView.breakdown's gap
@@ -30,30 +22,6 @@ from __future__ import annotations
 import bisect
 
 from . import trace
-
-PREFIX = "orp."
-
-
-class ProgramView(trace.TraceView):
-    def __init__(self, events):
-        super().__init__(events)
-        self.program, cats = {}, {}
-        for e in events:
-            if e.get("ph") != "X":
-                continue
-            cat = e.get("cat", "")
-            ts, dur = float(e["ts"]), float(e.get("dur", 0.0))
-            if cat == "user_annotation" and e["name"].startswith(PREFIX):
-                if ts + dur > self.t0 and ts < self.t1:
-                    self.program.setdefault(e["name"], []).append(
-                        (ts, ts + dur))
-            elif cat in trace._DEVICE_CATS:
-                cats[(ts, ts + dur, e["name"],
-                      e.get("args", {}).get("correlation"))] = cat
-        self.device_cats = [cats.get(d) for d in self.device]
-
-
-trace.TraceView = ProgramView
 
 
 def _union(view, name):

@@ -26,6 +26,7 @@ program's miss (same class, IoU >= 0.9), the whole chain end to end.
 
 from __future__ import annotations
 
+import math
 import time
 
 import numpy as np
@@ -86,6 +87,49 @@ def test_cfg(cell: Cell) -> dict:
     return tc
 
 
+def ref_canvases(cell: Cell, images: list, device):
+    """The reference's prepared canvases of a batch, and its scale
+    factors."""
+    cfg = cell.cfg
+    scale = next(s["img_scale"] for s in cfg["data"]["test"]["pipeline"]
+                 if s["type"] == "RotateResize")
+    norm = cfg["img_norm_cfg"]
+    canv, sfs = zip(*(prep.canvas(im, scale, norm["mean"], norm["std"],
+                                  canvas(cell)) for im in images))
+    return torch.stack(canv).to(device), sfs
+
+
+BIAS_KEY = "bbox_head.cls_out.bias"
+
+
+def draw_weights(cell: Cell, device, bias=None) -> dict:
+    """The cell's seeded weights (weights.draw).  Where the mix's weight
+    rules give cls_share, each class's cls_out bias is then `bias`, the
+    one that set-up calibrated for the program, or else is set from the
+    reference's float32 logits on the warm-up batch's first image (apart
+    from the window's), so that that share of the class's (location,
+    class) pairs scores above score_thr: the logits' mean and spread move
+    with the seed by more than a fixed bias can hold."""
+    mix = cell.traffic
+    p = weights.draw(cell.cfg, mix["weights"], cell.seed, device)
+    share = mix["weights"].get("cls_share")
+    if share is None:
+        return p
+    if bias is not None:
+        p[BIAS_KEY] = bias
+        return p
+    image = traffic.serve_images(mix, cell.seed, device)[0][0]
+    canv, _ = ref_canvases(cell, [image], device)
+    with torch.no_grad(), ops.f32_inside():
+        levels = detector.forward(p, canv, cell.cfg)["cls_scores"]
+    r = torch.cat([x.reshape(-1, x.shape[-1]) for x in levels]) - p[BIAS_KEY]
+    mean, std = r.mean(0), r.std(0)
+    z = torch.quantile(((r - mean) / std).flatten(), 1.0 - share)
+    thr = test_cfg(cell)["score_thr"]
+    p[BIAS_KEY] = (math.log(thr / (1.0 - thr)) - mean - z * std).contiguous()
+    return p
+
+
 def reference(cell: Cell, p: dict, images: list, device,
               precision: str | None = None,
               decode_precision: str | None = None) -> dict:
@@ -93,13 +137,7 @@ def reference(cell: Cell, p: dict, images: list, device,
     the model's products at `precision`, the decode at
     `decode_precision` (None: float32)."""
     cfg, mix = cell.cfg, cell.traffic
-    size = canvas(cell)
-    scale = next(s["img_scale"] for s in cfg["data"]["test"]["pipeline"]
-                 if s["type"] == "RotateResize")
-    norm = cfg["img_norm_cfg"]
-    canv, sfs = zip(*(prep.canvas(im, scale, norm["mean"], norm["std"], size)
-                      for im in images))
-    canvases = torch.stack(canv).to(device)
+    canvases, sfs = ref_canvases(cell, images, device)
     t0 = time.perf_counter()
     parts = []
     chunk = mix["reference_chunk"]
@@ -159,8 +197,9 @@ def run(cell: Cell) -> dict:
 
     mix, device = cell.traffic, cell.device
     phases = measure.Phases(cell)
-    measure.reset_peak(cell)
-    sd = weights.draw(cell.cfg, mix["weights"], cell.seed, device)
+    sd = draw_weights(cell, device)
+    bias = sd[BIAS_KEY].clone()  # the check judges by the same bias
+    measure.reset_peak(cell)  # the program's peak, not the calibration's
     phases.mark("weights")
     pred = Predictor(program_cfg(cell), state_dict=sd,
                      batch_size=mix["batch"],
@@ -212,8 +251,11 @@ def run(cell: Cell) -> dict:
             lats.append(lat)
             attempted += n
         window = time.perf_counter() - t0
+        q = 1e3 * np.percentile(lats, [50, 90, 99, 100])
         measure.say(f"window {window:.3f} s, {len(lats)} batches, "
-                    f"{attempted} images; p95 over {len(lats)} samples")
+                    f"{attempted} images; p95 over {len(lats)} samples; "
+                    "latency ms p50 {:.2f} p90 {:.2f} p99 {:.2f} max {:.2f}"
+                    .format(*q))
         values = {"serve_images_per_s": attempted / window,
                   "serve_p95_ms": 1e3 * float(np.percentile(lats, 95)),
                   "setup_s": setup_s}
@@ -227,7 +269,7 @@ def run(cell: Cell) -> dict:
     measure.release()
 
     ops.f32_no_tf32()
-    p = weights.draw(cell.cfg, mix["weights"], cell.seed, device)
+    p = draw_weights(cell, device, bias)
     per_batch, missing = [], 0
     for i in check:
         if i not in kept:  # the window ended first: nothing to judge

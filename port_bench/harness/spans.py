@@ -1,12 +1,14 @@
-"""Spans and call records from the benchmark's own wrappers, installed
-around named callables of the program where the program looks them up,
-in the traced run only.
+"""Call records from the benchmark's own wrappers, installed around named
+launchers of the program where the program looks them up, in the traced
+run only: the roofline readers work out each launch's least time from the
+shapes of its arguments.
 
 A metric's reader lists what it wraps as WRAPS: (module, attribute path,
-label, mode).  Mode "span": the call runs inside a profiler range named
-"pb.<label>" and its host wall time is kept; mode "call": the shapes of
-its tensor arguments and its other arguments are kept.  A target that is
-not found (renamed) is skipped, and the readers that need it find nothing.
+label, names of the arguments read by value).  While the recorder is on,
+each call's tensor arguments are kept as ("tensor", shape, element
+size), those named to be read by value (a count an image) as ("values",
+tensor), and its other arguments as given.  A target that is not found
+(renamed) is skipped, and the readers that need it find nothing.
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ from __future__ import annotations
 import collections
 import functools
 import importlib
-import time
+import inspect
 
 import torch
 
@@ -22,7 +24,6 @@ import torch
 class Recorder:
     def __init__(self):
         self.on = False
-        self.spans = collections.defaultdict(list)  # label -> [seconds]
         self.calls = collections.defaultdict(list)  # label -> [args]
 
 
@@ -34,33 +35,30 @@ def _describe(x):
     return x
 
 
-def _wrap(fn, label, mode, rec):
-    @functools.wraps(fn)
-    def span(*args, **kwargs):
-        if not rec.on:
-            return fn(*args, **kwargs)
-        with torch.profiler.record_function("pb." + label):
-            t = time.perf_counter()
-            try:
-                return fn(*args, **kwargs)
-            finally:
-                rec.spans[label].append(time.perf_counter() - t)
+def _wrap(fn, label, rec, by_value=()):
+    names = list(inspect.signature(fn).parameters)
+    at = {names.index(n) for n in by_value}
+
+    def keep(x, value):
+        # by value: the tensor itself, read once the window has closed (a
+        # copy would add a launch, and reading it now a synchronize)
+        return ("values", x) if value else _describe(x)
 
     @functools.wraps(fn)
     def call(*args, **kwargs):
         if rec.on:
-            rec.calls[label].append(([_describe(a) for a in args],
-                                     {k: _describe(v)
-                                      for k, v in kwargs.items()}))
+            rec.calls[label].append(
+                ([keep(a, i in at) for i, a in enumerate(args)],
+                 {k: keep(v, k in by_value) for k, v in kwargs.items()}))
         return fn(*args, **kwargs)
 
-    return span if mode == "span" else call
+    return call
 
 
 def install(wraps, rec: Recorder):
-    """Wrap each (module, attr path, label, mode) once -> undo()."""
+    """Wrap each (module, attr path, label, by value) once -> undo()."""
     undo, seen = [], set()
-    for module, path, label, mode in wraps:
+    for module, path, label, by_value in wraps:
         if (module, path) in seen:
             continue
         seen.add((module, path))
@@ -72,7 +70,9 @@ def install(wraps, rec: Recorder):
             fn = getattr(owner, attr)
         except (ImportError, AttributeError):
             continue
-        setattr(owner, attr, _wrap(fn, label, mode, rec))
+        if not set(by_value) <= set(inspect.signature(fn).parameters):
+            continue  # an argument renamed: skipped as a missing target
+        setattr(owner, attr, _wrap(fn, label, rec, by_value))
         undo.append((owner, attr, fn))
 
     def restore():

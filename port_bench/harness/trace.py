@@ -1,11 +1,14 @@
 """The profiler over the traced window, and its trace reduced to what
-the per-layer readers ask: device time under a wrapped range, device time
-of kernels by name, the busy union, and the breakdown.
+the per-layer readers ask: the program's own spans, device time of
+kernels by name, the busy union, and the breakdown.
 
 The trace is torch.profiler's (CUPTI) Chrome trace, written to TMPDIR,
-read back and deleted.  A device event (kernel, memcpy, memset) belongs to
-the host range in which its launch (the runtime call of the same
-correlation id) happened; ranges are the wrappers' "pb.<label>" ones.
+read back and deleted.  The window is the benchmark's one range,
+"pb.window"; the spans are the ranges the program opens itself through
+utils/profiling.annotate (named "orp.*", listed in utils/profiling.SPANS).
+A device event (kernel, memcpy, memset) belongs to the spans in which its
+launch (the runtime call of the same correlation id) happened;
+program_spans.py reads them.
 """
 
 from __future__ import annotations
@@ -21,6 +24,8 @@ import torch
 
 _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 _GAP_US = 10.0  # idle gaps shorter than this are launch spacing
+WINDOW = "pb.window"
+PREFIX = "orp."
 
 
 @contextlib.contextmanager
@@ -32,7 +37,7 @@ def profiled(view_box: list):
     prof = torch.profiler.profile(activities=acts)
     prof.__enter__()
     try:
-        with torch.profiler.record_function("pb.window"):
+        with torch.profiler.record_function(WINDOW):
             yield
     finally:
         prof.__exit__(None, None, None)
@@ -53,8 +58,14 @@ def short_name(name: str) -> str:
 
 
 class TraceView:
+    """The window's device events (device: (start, end, name,
+    correlation), sorted; device_cats: each one's trace category;
+    launch_ts: each one's launch time), the program's spans inside the
+    window (program: name -> [(start, end)]) and the host's ops."""
+
     def __init__(self, events):
-        self.device, launches, self.ranges, ops = [], {}, {}, []
+        device, launches, program, ops = [], {}, {}, []
+        self.t0, self.t1 = 0.0, float("inf")
         for e in events:
             cat, ph = e.get("cat", ""), e.get("ph")
             if ph != "X":
@@ -62,26 +73,31 @@ class TraceView:
             ts, dur = float(e["ts"]), float(e.get("dur", 0.0))
             args = e.get("args", {})
             if cat in _DEVICE_CATS:
-                self.device.append((ts, ts + dur, e["name"],
-                                    args.get("correlation")))
+                device.append((ts, ts + dur, e["name"],
+                               args.get("correlation"), cat))
             elif cat in ("cuda_runtime", "cuda_driver"):
                 launches[args.get("correlation")] = ts
-            elif cat == "user_annotation" and e["name"].startswith("pb."):
-                self.ranges.setdefault(e["name"][3:], []).append(
-                    (ts, ts + dur))
+            elif cat == "user_annotation" and e["name"] == WINDOW:
+                self.t0, self.t1 = ts, ts + dur
+            elif cat == "user_annotation" and e["name"].startswith(PREFIX):
+                program.setdefault(e["name"], []).append((ts, ts + dur))
             elif cat == "cpu_op":
                 ops.append((ts, ts + dur, e["name"]))
-        self.device.sort()
-        win = self.ranges.get("window", [(0.0, float("inf"))])[0]
-        self.t0, self.t1 = win
-        self.device = [d for d in self.device
-                       if d[1] > self.t0 and d[0] < self.t1]
+        device = sorted(d for d in device
+                        if d[1] > self.t0 and d[0] < self.t1)
+        self.device = [d[:4] for d in device]
+        self.device_cats = [d[4] for d in device]
         self.launch_ts = [launches.get(d[3]) for d in self.device]
+        self.program = {}
+        for name, rs in program.items():
+            rs = [r for r in rs if r[1] > self.t0 and r[0] < self.t1]
+            if rs:
+                self.program[name] = rs
         ops.sort()
         self._ops = ops
         self._op_starts = [o[0] for o in ops]
-        self._spans = sorted((a, b, k) for k, rs in self.ranges.items()
-                             if k != "window" for a, b in rs)
+        self._spans = sorted((a, b, k) for k, rs in self.program.items()
+                             for a, b in rs)
         self._span_starts = [s[0] for s in self._spans]
 
     def window_s(self) -> float:
@@ -105,26 +121,19 @@ class TraceView:
         return None
 
     def span_of(self, ts):
+        """The innermost program span open at host time ts, or None."""
         return None if ts is None else self._innermost(
             self._span_starts, self._spans, ts)
-
-    def device_s_under(self, label: str) -> float:
-        rs = sorted(self.ranges.get(label, []))
-        starts = [r[0] for r in rs]
-        total = 0.0
-        for (a, b, _, _), ts in zip(self.device, self.launch_ts):
-            if ts is None:
-                continue
-            i = bisect.bisect_right(starts, ts) - 1
-            if i >= 0 and ts <= rs[i][1]:
-                total += b - a
-        return total * 1e-6
 
     def kernel_s(self, patterns) -> float:
         return sum(b - a for a, b, name, _ in self.device
                    if any(p in name for p in patterns)) * 1e-6
 
     def breakdown(self, top: int = 10) -> dict:
+        """The device ops that took most time and the longest idle gaps,
+        each keyed by the innermost program span its launch fell in
+        ("-": none) and the op's name (a gap: the host op running when
+        the work that ends it was launched)."""
         ops = {}
         for (a, b, name, _), ts in zip(self.device, self.launch_ts):
             key = f"{self.span_of(ts) or '-'}:{short_name(name)}"

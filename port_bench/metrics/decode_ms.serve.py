@@ -1,11 +1,11 @@
-"""decode_ms.serve: device milliseconds a batch of the kernels launched
-inside apis.decode_detections (top-k, min-area rects, over-mask, scan)."""
+"""decode_ms.serve: device milliseconds a batch of the work launched inside
+the program's orp.decode span (top-k, min-area rects, over-mask, scan)."""
 
-WRAPS = [("orientedreppoints_tpu_torch.apis", "decode_detections", "decode",
-          "span")]
+from port_bench.harness import program_spans
+
+WRAPS = []
 
 
 def read(run):
-    if not run.rec.spans.get("decode"):
-        return None
-    return 1e3 * run.view.device_s_under("decode") / run.steps
+    return program_spans.per_step(run, program_spans.device_s,
+                                  "orp.decode", 1e3)

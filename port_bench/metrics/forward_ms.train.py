@@ -1,11 +1,12 @@
-"""forward_ms.train: device milliseconds a step of the kernels launched
-inside the detector's train-mode forward (the backward is not in it)."""
+"""forward_ms.train: device milliseconds a step of the work launched inside
+the program's orp.forward span (the detector's train-mode forward; the
+backward is not in it)."""
 
-WRAPS = [("orientedreppoints_tpu_torch.models.detector",
-          "OrientedRepPointsDetector.forward", "forward", "span")]
+from port_bench.harness import program_spans
+
+WRAPS = []
 
 
 def read(run):
-    if not run.rec.spans.get("forward"):
-        return None
-    return 1e3 * run.view.device_s_under("forward") / run.steps
+    return program_spans.per_step(run, program_spans.device_s,
+                                  "orp.forward", 1e3)

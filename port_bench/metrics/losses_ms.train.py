@@ -1,10 +1,11 @@
-"""losses_ms.train: host wall milliseconds a step inside
-parallel.train.compute_losses (assigners, APAA, the losses' forward)."""
+"""losses_ms.train: host milliseconds a step inside the program's orp.loss
+span (compute_losses: assigners, APAA, the losses' forward)."""
 
-WRAPS = [("orientedreppoints_tpu_torch.parallel.train", "compute_losses",
-          "losses", "span")]
+from port_bench.harness import program_spans
+
+WRAPS = []
 
 
 def read(run):
-    spans = run.rec.spans.get("losses")
-    return 1e3 * sum(spans) / run.steps if spans else None
+    return program_spans.per_step(run, program_spans.host_s,
+                                  "orp.loss", 1e3)

@@ -1,10 +1,12 @@
-"""prepare_ms.serve: host wall milliseconds a batch inside
-serving.Predictor.prepare (resize, normalize and paste of the batch)."""
+"""prepare_ms.serve: host milliseconds a batch inside the program's
+orp.serve.prepare span (Predictor.prepare: the per-image copies to the
+card, resize, normalize, paste, stack)."""
 
-WRAPS = [("orientedreppoints_tpu_torch.serving", "Predictor.prepare",
-          "prepare", "span")]
+from port_bench.harness import program_spans
+
+WRAPS = []
 
 
 def read(run):
-    spans = run.rec.spans.get("prepare")
-    return 1e3 * sum(spans) / run.steps if spans else None
+    return program_spans.per_step(run, program_spans.host_s,
+                                  "orp.serve.prepare", 1e3)

@@ -15,6 +15,17 @@ from .ops import conv2d, frozen_bn
 
 STAGES = {18: ("basic", (2, 2, 2, 2)), 34: ("basic", (3, 4, 6, 3)),
           50: ("bottleneck", (3, 4, 6, 3)), 101: ("bottleneck", (3, 4, 23, 3))}
+# the FPN's wiring where the config leaves it out, as the port's detector
+# wires it over this backbone
+NECK_DEFAULTS = {"start_level": 1, "add_extra_convs": True}
+
+
+def tiny(cfg: dict) -> None:
+    """Narrow the config's backbone, and the neck's in_channels to match,
+    for the CPU tests: ResNet-18."""
+    m = cfg["model"]
+    m["backbone"]["depth"] = 18
+    m["neck"]["in_channels"] = [64, 128, 256, 512]
 
 
 def _blocks(bb: dict):

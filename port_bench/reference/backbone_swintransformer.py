@@ -21,6 +21,18 @@ from .ops import conv2d, layer_norm, linear, matmul
 
 TRUNC = 0.02
 PERTURB_STD = 0.02  # of the biases and norm affines of seeded weights
+# the FPN's wiring where the config leaves it out, as the port's detector
+# wires it over this backbone (its extra levels subsample the last one)
+NECK_DEFAULTS = {"start_level": 0, "add_extra_convs": False}
+
+
+def tiny(cfg: dict) -> None:
+    """Narrow the config's backbone, and the neck's in_channels to match,
+    for the CPU tests: embed_dim 32, two blocks a stage."""
+    m = cfg["model"]
+    m["backbone"].update(embed_dim=32, depths=[2, 2, 2, 2],
+                         num_heads=[1, 2, 4, 8])
+    m["neck"]["in_channels"] = [64, 128, 256]
 
 
 def _blocks(bb: dict):

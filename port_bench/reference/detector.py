@@ -1,7 +1,8 @@
 """The reference detector: a backbone (the module ``backbone_<type>`` of
-this package, found by the config's backbone type), an FPN with GroupNorm
-and the Oriented RepPoints head, in float32 over a flat dict of parameters
-named as the detector's state_dict.
+this package, found by the config's backbone type; its NECK_DEFAULTS wire
+the FPN where the config does not), an FPN with GroupNorm and the Oriented
+RepPoints head, in float32 over a flat dict of parameters named as the
+detector's state_dict.
 
 FPN: laterals from start_level on, top-down nearest upsampling with half
 pixel centres, a 3 x 3 conv on each, then the extra levels: stride-2 convs
@@ -33,11 +34,12 @@ def backbone_module(cfg: dict):
 
 
 def _neck_wiring(cfg: dict):
+    """(start_level, add_extra_convs): the config's, else the backbone
+    module's NECK_DEFAULTS."""
     neck = cfg["model"]["neck"]
-    swin_like = cfg["model"]["backbone"]["type"] == "SwinTransformer"
-    start = neck.get("start_level", 0 if swin_like else 1)
-    extra = neck.get("add_extra_convs", not swin_like)
-    return start, extra
+    default = backbone_module(cfg).NECK_DEFAULTS
+    return (neck.get("start_level", default["start_level"]),
+            neck.get("add_extra_convs", default["add_extra_convs"]))
 
 
 def _conv_gn(pre, cin, cout, k, init):

@@ -27,6 +27,19 @@ def f32_no_tf32() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
 
+@contextlib.contextmanager
+def f32_inside():
+    """f32_no_tf32() inside the block; the settings as they were after."""
+    was = (torch.backends.cuda.matmul.allow_tf32,
+           torch.backends.cudnn.allow_tf32)
+    f32_no_tf32()
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = was
+
+
 def _round_to(dtype: torch.dtype):
     top = float(torch.finfo(dtype).max)
     scaled = top < 1e5  # the float8 formats need a scale, 16-bit ones not

@@ -1,7 +1,8 @@
 """The hand-written kernels the roofline readers measure: for each, the
 launcher the harness records calls of (module, attribute), the function
-of roofline.py that gives a call's least time, and the __global__ names
-of its device code in the trace."""
+of roofline.py that gives a call's least time, the __global__ names of
+its device code in the trace, and the launcher's arguments that function
+reads by value (each image's candidate count), the rest by shape."""
 
 from __future__ import annotations
 
@@ -10,26 +11,30 @@ from . import roofline
 _OPS = "orientedreppoints_tpu_torch.ops"
 KERNELS = {
     "min_area_rect": (f"{_OPS}.minarearect", "min_area_rect_kernel",
-                      roofline.min_area_rect, ("mar_kernel",)),
+                      roofline.min_area_rect, ("mar_kernel",), ()),
     "quad_over_mask": (f"{_OPS}.quad_iou", "quad_over_mask_kernel",
-                       roofline.quad_over_mask, ("quad_over_kernel",)),
+                       roofline.quad_over_mask, ("quad_over_kernel",),
+                       ("num_valid",)),
     "nms_scan": (f"{_OPS}.nms", "greedy_scan_kernel", roofline.greedy_scan,
-                 ("nms_scan_kernel",)),
+                 ("nms_scan_kernel",), ("num_valid",)),
     "deform_sample_pair": (f"{_OPS}.deform_conv", "deform_sample_pair_kernel",
                            roofline.deform_sample_pair,
-                           ("deform_sample_pair_kernel",)),
+                           ("deform_sample_pair_kernel",), ()),
     "hull_quad_iou": (f"{_OPS}.hull_iou", "hull_quad_iou_kernel",
-                      roofline.hull_quad_iou, ("hull_quad_iou_kernel",)),
+                      roofline.hull_quad_iou, ("hull_quad_iou_kernel",), ()),
     "deform_sample_pair_backward": (
         f"{_OPS}.deform_conv", "deform_sample_pair_backward_kernel",
         roofline.deform_sample_pair_backward,
         ("deform_sample_pair_bwd_", "tg_count", "tg_chunk_sums",
-         "tg_chunk_scan", "tg_place", "tg_sort_long")),
+         "tg_chunk_scan", "tg_place", "tg_sort_long"), ()),
+    "convex_giou": (f"{_OPS}.giou", "convex_giou_kernel",
+                    roofline.convex_giou, ("convex_giou_kernel",), ()),
 }
 
 
 def wraps(names):
-    return [(KERNELS[n][0], KERNELS[n][1], "k." + n, "call") for n in names]
+    return [(KERNELS[n][0], KERNELS[n][1], "k." + n, KERNELS[n][4])
+            for n in names]
 
 
 def roofline_share(run, names):

@@ -4,10 +4,12 @@ written once at the HBM peak, or, where the shapes alone fix the
 arithmetic (the DCN sampling), its float32 operations at the CUDA-core
 peak, whichever is longer.  Data-dependent work (clipping, hull walks,
 the scan's suppressions) is not counted, so a kernel that skips work
-never reads above 100%.
+never reads above 100%; the rows past an image's valid prefix, which the
+decode kernels skip, are not counted either.
 
 Each function takes the call's recorded arguments: a tensor as
-("tensor", shape, element size), anything else as given.
+("tensor", shape, element size), a count an image as ("values", counts),
+anything else as given.
 """
 
 from __future__ import annotations
@@ -34,18 +36,31 @@ def min_area_rect(points):
     return _least(_nbytes(points) + n * (8 + 18) * 4 + n * 4)
 
 
+def _prefixes(num_valid) -> list[int]:
+    """Each image's valid rows: ("values", its (B,) counts) -> [rows]."""
+    return [int(v) for v in num_valid[1].tolist()]
+
+
+def _words(rows: int) -> int:
+    return (rows + 63) // 64
+
+
 def quad_over_mask(quads, iou_thr, num_valid):
-    """(B, N, 8) quads, (B,) prefixes -> (B, N, ceil(N / 64)) int64."""
-    b, n, _ = quads[1]
-    return _least(_nbytes(quads) + _nbytes(num_valid)
-                  + b * n * ((n + 63) // 64) * 8)
+    """(B, N, 8) quads, (B,) prefixes -> (B, N, ceil(N / 64)) int64; the
+    rows and words past an image's prefix are the launcher's memset, not
+    the kernel's: an image of r valid rows needs r quads read and r x
+    ceil(r / 64) words written."""
+    b = quads[1][0]
+    return _least(4 * b + sum(r * 32 + r * _words(r) * 8
+                              for r in _prefixes(num_valid)))
 
 
 def greedy_scan(mask, valid, num_valid):
-    """(B, N, W) bitmask, (B, N) valid, (B,) prefixes -> (B, N) keep."""
+    """(B, N, W) bitmask, (B, N) valid, (B,) prefixes -> (B, N) keep; of
+    the mask, an image of r valid rows needs r x ceil(r / 64) words."""
     b, n = valid[1]
-    return _least(_nbytes(mask) + _nbytes(valid) + _nbytes(num_valid)
-                  + b * n)
+    return _least(sum(r * _words(r) * 8 for r in _prefixes(num_valid))
+                  + _nbytes(valid) + 4 * b + b * n)
 
 
 def hull_quad_iou(hulls, counts, quads, gt_valid=None, rows_valid=None):
@@ -55,6 +70,16 @@ def hull_quad_iou(hulls, counts, quads, gt_valid=None, rows_valid=None):
     g = quads[1][1]
     return _least(_nbytes(hulls) + _nbytes(counts) + _nbytes(quads)
                   + _nbytes(gt_valid) + _nbytes(rows_valid) + b * g * n * 4)
+
+
+def convex_giou(points, quads, weight=None):
+    """(n, 18) point sets, (n, 8) gt quads -> GIoU (n,); with the (n,)
+    weights also the weighted gradient (n, 18).  The hull walks and clips
+    depend on the data and are not counted: bytes alone."""
+    n = points[1][0]
+    grad = weight is not None
+    return _least(_nbytes(points) + _nbytes(quads) + _nbytes(weight)
+                  + n * 4 + (n * 18 * 4 if grad else 0))
 
 
 def _dcn(table_a, offsets, kernel_size, n_tables, backward, grad=None):
